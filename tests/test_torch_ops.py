@@ -1,0 +1,164 @@
+"""Each op of the port against its JAX twin, at TINY and production widths.
+
+Integer logic (bucketize, durations, length regulator) must match exactly;
+norms within atol 2e-6 / rtol 1e-5, the other float ops within atol 1e-5 /
+rtol 1e-5 (both sides f32; only the summation order differs).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import zerovox_tpu.ops as jops
+from zerovox_tpu.ops.conv import conv_transpose1d as j_convT
+
+import zerovox_tpu_torch.ops as tops
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+NORM = dict(atol=2e-6, rtol=1e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_bucketize_exact(rng):
+    n_bins = 256
+    x = rng.uniform(-0.2, 1.2, size=(3, 200)).astype(np.float32)
+    # values on the rounding boundaries (k + 0.5) / (n_bins - 1)
+    x[0, :50] = ((np.arange(50) + 0.5) / (n_bins - 1)).astype(np.float32)
+    got = tops.bucketize(_t(x), n_bins).numpy()
+    ref = np.asarray(jops.bucketize(jnp.asarray(x), n_bins))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_durations_from_log_exact(rng):
+    ld = rng.normal(1.0, 1.5, size=(4, 120)).astype(np.float32)
+    ld[0, :3] = [100.0, -100.0, np.log(2.5)]          # overflow, underflow, edge
+    got = tops.durations_from_log(_t(ld), 1500).numpy()
+    ref = np.asarray(jops.durations_from_log(jnp.asarray(ld), 1500))
+    np.testing.assert_array_equal(got, ref)
+    assert got.dtype == np.int32
+
+
+@pytest.mark.parametrize("max_seq_len,use_n", [(64, False), (64, True), (20, True)])
+def test_length_regulate_exact(rng, max_seq_len, use_n):
+    """Including truncation mid-repeat at max_seq_len (20) and the
+    num_phonemes cut."""
+    feats = rng.normal(size=(3, 16, 8)).astype(np.float32)
+    dur = rng.integers(0, 5, size=(3, 16)).astype(np.int32)
+    n = np.asarray([16, 9, 1], np.int32) if use_n else None
+    got, got_len = tops.length_regulate(_t(feats), _t(dur), max_seq_len,
+                                        None if n is None else _t(n))
+    ref, ref_len = jops.length_regulate(jnp.asarray(feats), jnp.asarray(dur),
+                                        max_seq_len,
+                                        None if n is None else jnp.asarray(n))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(ref_len))
+
+
+@pytest.mark.parametrize("C,T", [(56, 16), (528, 24), (1056, 12)])
+def test_norms(rng, C, T):
+    x = (rng.normal(size=(2, T, C)) * 3 + 1).astype(np.float32)
+    g = rng.normal(size=(C,)).astype(np.float32)
+    b = rng.normal(size=(C,)).astype(np.float32)
+    np.testing.assert_allclose(
+        tops.layer_norm(_t(x), _t(g), _t(b)).numpy(),
+        np.asarray(jops.layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))), **NORM)
+    np.testing.assert_allclose(
+        tops.instance_norm(_t(x), _t(g), _t(b)).numpy(),
+        np.asarray(jops.instance_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))), **NORM)
+    np.testing.assert_allclose(tops.instance_norm(_t(x)).numpy(),
+                               np.asarray(jops.instance_norm(jnp.asarray(x))), **NORM)
+
+
+@pytest.mark.parametrize("Cin,Cout,K,pad,dil", [
+    (8, 16, 3, 1, 1), (32, 32, 3, 5, 5), (80, 512, 7, 3, 1),
+    (528, 256, 3, 1, 1), (1056, 64, 1, 0, 1), (256, 256, 3, 3, 3)])
+def test_conv1d(rng, Cin, Cout, K, pad, dil):
+    x = rng.normal(size=(2, 40, Cin)).astype(np.float32)
+    w = (rng.normal(size=(K, Cin, Cout)) / np.sqrt(K * Cin)).astype(np.float32)
+    b = rng.normal(size=(Cout,)).astype(np.float32)
+    got = tops.conv1d(_t(x), _t(w.transpose(2, 1, 0)), _t(b), padding=pad,
+                      dilation=dil).numpy()
+    ref = np.asarray(jops.conv1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                                 padding=pad, dilation=dil))
+    np.testing.assert_allclose(got, ref, **F32)
+
+
+@pytest.mark.parametrize("s,K,Cin,Cout", [
+    (5, 10, 32, 16), (4, 8, 16, 8), (3, 6, 8, 4),         # standard K == 2s
+    (5, 11, 32, 16), (5, 12, 32, 16),                     # nonstandard (test_pallas)
+    (5, 10, 512, 256), (3, 6, 64, 32)])                   # production widths
+def test_conv_transpose1d(rng, s, K, Cin, Cout):
+    x = rng.normal(size=(2, 24, Cin)).astype(np.float32)
+    w = (rng.normal(size=(K, Cin, Cout)) / np.sqrt(Cin)).astype(np.float32)
+    b = rng.normal(size=(Cout,)).astype(np.float32)
+    pad, opad = s // 2 + s % 2, s % 2
+    got = tops.conv_transpose1d(_t(x), _t(w.transpose(2, 1, 0)), _t(b),
+                                stride=s, padding=pad, output_padding=opad).numpy()
+    ref = np.asarray(j_convT(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                             stride=s, padding=pad, output_padding=opad))
+    assert got.shape == ref.shape == (2, tops.transpose_out_len(24, s, K, pad, opad), Cout)
+    np.testing.assert_allclose(got, ref, **F32)
+
+
+def test_conv_transpose1d_rejects_bad_output_padding():
+    with pytest.raises(ValueError):
+        tops.conv_transpose1d(torch.zeros(1, 4, 2), torch.zeros(2, 2, 4),
+                              stride=2, padding=1, output_padding=2)
+
+
+def test_convs_run_without_tf32(monkeypatch):
+    """cuDNN's TF32 is off inside both convs and restored after them."""
+    import torch.nn.functional as F
+    seen = []
+    for name in ("conv1d", "conv_transpose1d"):
+        real = getattr(F, name)
+        monkeypatch.setattr(F, name, lambda *a, _real=real, **k: (
+            seen.append(torch.backends.cudnn.allow_tf32), _real(*a, **k))[1])
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    tops.conv1d(torch.zeros(1, 4, 2), torch.zeros(3, 2, 3), padding=1)
+    tops.conv_transpose1d(torch.zeros(1, 4, 2), torch.zeros(3, 2, 4),
+                          stride=2, padding=1)
+    assert seen == [False, False] and torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.parametrize("Cin,Cout", [(56, 112), (528, 1056)])
+def test_linear(rng, Cin, Cout):
+    x = rng.normal(size=(2, 5, Cin)).astype(np.float32)
+    w = (rng.normal(size=(Cin, Cout)) / np.sqrt(Cin)).astype(np.float32)
+    b = rng.normal(size=(Cout,)).astype(np.float32)
+    np.testing.assert_allclose(
+        tops.linear(_t(x), _t(w.T), _t(b)).numpy(),
+        np.asarray(jops.linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))), **F32)
+
+
+@pytest.mark.parametrize("C,H,masked", [(56, 2, False), (56, 2, True), (528, 2, False)])
+def test_multi_head_attention(rng, C, H, masked):
+    T = 12
+    x = rng.normal(size=(2, T, C)).astype(np.float32)
+    pj, pt = {}, {}
+    for n in ("q", "k", "v", "o"):
+        w = (rng.normal(size=(C, C)) / np.sqrt(C)).astype(np.float32)
+        b = rng.normal(size=(C,)).astype(np.float32) * 0.1
+        pj["w" + n], pj["b" + n] = jnp.asarray(w), jnp.asarray(b)
+        pt["w" + n], pt["b" + n] = _t(w.T), _t(b)
+    g = rng.normal(size=(C,)).astype(np.float32)
+    b = rng.normal(size=(C,)).astype(np.float32)
+    pj["ln_g"], pj["ln_b"], pt["ln_g"], pt["ln_b"] = jnp.asarray(g), jnp.asarray(b), _t(g), _t(b)
+    mask = np.arange(T)[None, :] < np.asarray([T, 7])[:, None] if masked else None
+    got = tops.multi_head_attention(_t(x), pt, H, mask=None if mask is None else _t(mask))
+    ref = jops.multi_head_attention(jnp.asarray(x), pj, H,
+                                    mask=None if mask is None else jnp.asarray(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32)
+
+
+def test_leaky_and_sinusoid(rng):
+    x = rng.normal(size=(4, 9)).astype(np.float32)
+    for s in (0.1, 0.01, 0.2):
+        np.testing.assert_array_equal(tops.leaky_relu(_t(x), s).numpy(),
+                                      np.asarray(jops.leaky_relu(jnp.asarray(x), s)))
+    np.testing.assert_array_equal(tops.sinusoid_encoding_table(65, 56),
+                                  jops.sinusoid_encoding_table(65, 56))

@@ -1,0 +1,85 @@
+"""HiFi-GAN vocoder: mel -> waveform.
+
+mel normalisation, input conv k=7, four [leaky(0.1) -> ConvTranspose1d ->
+multi-receptive-field resblock mean] stages, leaky(0.01) -> output conv ->
+tanh.  Each stage is ONE call of the fused MRF stage
+(ops.cuda.mrf_stage): the upsample, its bias and the leaky-relus on either
+side run inside it, so on the card the upsampled activation never reaches
+device memory.  `pack_vocoder` puts the stages' weights in the kernel's
+layout once per model; a serving caller passes the result to `vocode`.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from ..config import ZeroVoxConfig
+from ..ops import conv1d
+from ..ops.cuda.mrf_stage import PackedStage, mrf_stage, pack_stage, residual_block
+
+__all__ = ["vocode", "pack_vocoder", "residual_block", "receptive_field_frames"]
+
+
+def receptive_field_frames(cfg: ZeroVoxConfig) -> int:
+    """Right-side halo, in mel frames, beyond which truncating the mel cannot
+    change earlier output samples (the serving engine's bucket margin).
+    ConvTranspose(stride s, kernel k) maps an input halo h to s*h + k output
+    samples; an MRF stage adds the max over resblocks of its summed conv
+    halos."""
+    k_half = (cfg.hifigan_kernel_size - 1) // 2
+    rk_half = (cfg.resblock_kernel_size - 1) // 2
+    mrf = max(sum(d * rk_half + rk_half for d in dil)
+              for dil in cfg.resblock_dilations)
+    h = k_half
+    for scale, k in zip(cfg.upsample_scales, cfg.upsample_kernel_sizes):
+        h = h * scale + k + mrf
+    h += k_half
+    return -(-h // cfg.hop_size)
+
+
+def _stage_blocks(voc: dict, cfg: ZeroVoxConfig, i: int) -> list:
+    return [voc["blocks"][i * cfg.num_resblocks + j] for j in range(cfg.num_resblocks)]
+
+
+def pack_vocoder(params: dict, cfg: ZeroVoxConfig) -> List[PackedStage]:
+    """Each MRF stage's weights in the kernel's layout (ops.cuda.mrf_stage.
+    pack_stage), on the device the params lie on; made once per model."""
+    voc = params["vocoder"]
+    return [pack_stage(_stage_blocks(voc, cfg, i), cfg.resblock_dilations,
+                       cfg.resblock_kernel_size, voc["upsamples"][i]["w"])
+            for i in range(len(cfg.upsample_scales))]
+
+
+def vocode(params: dict, cfg: ZeroVoxConfig, mel: torch.Tensor,
+           packed: Optional[List[PackedStage]] = None) -> torch.Tensor:
+    """mel (B, T, num_mels) -> waveform (B, T * hop_size).
+
+    Each stage is one mrf_stage call: the CUDA kernel on a card, its plain
+    version on the CPU.  packed: pack_vocoder(params, cfg), so that the
+    kernel's launches move no weights (packed per call when omitted)."""
+    voc = params["vocoder"]
+    mel = mel.to(voc["input_conv_w"].dtype)
+    x = (mel - voc["mean"]) / voc["scale"]
+    pad = (cfg.hifigan_kernel_size - 1) // 2
+    c = conv1d(x, voc["input_conv_w"], voc["input_conv_b"], padding=pad)
+
+    n_stages = len(cfg.upsample_scales)
+    for i, scale in enumerate(cfg.upsample_scales):
+        up = voc["upsamples"][i]
+        c = mrf_stage(c.contiguous(), _stage_blocks(voc, cfg, i), cfg.resblock_dilations,
+                      cfg.resblock_kernel_size,
+                      upsample=dict(w=up["w"], stride=scale,
+                                    padding=scale // 2 + scale % 2,
+                                    output_padding=scale % 2),
+                      in_bias=up["b"],
+                      # the input conv applies no activation; every later stage
+                      # already ends in the leaky the next upsample needs
+                      in_leaky=0.1 if i == 0 else None,
+                      out_leaky=0.01 if i == n_stages - 1 else 0.1,
+                      packed=None if packed is None else packed[i])
+
+    c = torch.tanh(conv1d(c, voc["output_conv_w"], voc["output_conv_b"], padding=pad))
+    wav_len = mel.shape[1] * cfg.hop_size
+    return c[:, :wav_len, 0]     # nonstandard upsample kernels overshoot

@@ -1,0 +1,47 @@
+"""Normalisation ops with ggml-exact semantics, on channels-last (B, T, C).
+
+LayerNorm reduces the channel axis (-1); InstanceNorm1d reduces **time**
+(axis -2), per channel, as the reference's ggml_norm-over-time construction
+does.  Moments are two-pass in f32 (mean, then the mean of squared
+deviations: no catastrophic cancellation), variance without Bessel's
+correction.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _normalize(x: torch.Tensor, dim: int, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=dim, keepdim=True)
+    centered = xf - mean
+    var = (centered * centered).mean(dim=dim, keepdim=True)
+    return (centered * (1.0 / torch.sqrt(var + eps))).to(x.dtype)
+
+
+def _affine(out, gamma, beta):
+    if gamma is not None:
+        out = out * gamma
+    if beta is not None:
+        out = out + beta
+    return out
+
+
+def layer_norm(x: torch.Tensor,
+               gamma: Optional[torch.Tensor] = None,
+               beta: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the channel (last) axis.  gamma/beta: (C,)."""
+    return _affine(_normalize(x, -1, eps), gamma, beta)
+
+
+def instance_norm(x: torch.Tensor,
+                  gamma: Optional[torch.Tensor] = None,
+                  beta: Optional[torch.Tensor] = None,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm1d over the time axis of (B, T, C) (or (T, C)) activations,
+    with an optional per-channel affine (C,)."""
+    return _affine(_normalize(x, -2, eps), gamma, beta)
