@@ -11,8 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
   3. hold the kernel against its plain PyTorch version (mrf_stage_ref) on
      the four production MRF stages (the options vocode gives them; B=1 at
      full length, and B=8 at the engine's bucket-256 shapes) and the
-     mrf_stage_unfolded entry, TF32 off; time the B=1 launches with CUDA
-     events next to the plain version and the roofline bound;
+     mrf_stage_unfolded entry, TF32 off, at three shapes (B=1 full length,
+     B=1 and B=8 at bucket 256); time every launch with CUDA events next to
+     the plain version and both bounds (f32 FMA and 3xTF32 tensor cores);
+     print each launch's cluster geometry; time variants of the geometry
+     (longest tile, half and twice the weight chunk, rings of 2 and 4)
+     against the plan, in turns;
   4. drive the main path at the production config (ZeroVoxConfig()
      defaults, random weights from seed 0): save a GGUF with the port's
      save_params, run the CLI on it, then a TTSEngine answering two B=1
@@ -37,10 +41,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published dense peaks (NVIDIA data sheets) used for the roofline bound:
-# (f32 non-tensor FLOP/s, HBM bytes/s).  Rates at the full power limit; the
-# card's own limit is printed beside every number.
-PEAKS = {"H100 PCIe": (51.2e12, 2.0e12), "H100": (66.9e12, 3.35e12)}
+# Published dense peaks (NVIDIA data sheets) used for the roofline bounds:
+# (f32 non-tensor FLOP/s, TF32 tensor-core FLOP/s, HBM bytes/s).  Rates at
+# the full power limit; the card's own limit is printed beside every number.
+PEAKS = {"H100 PCIe": (51.2e12, 378e12, 2.0e12), "H100": (66.9e12, 495e12, 3.35e12)}
 STAGE_TOL = 1e-4          # kernel vs plain: atol STAGE_TOL * max|out|
 PIPELINE_WAV_ATOL = 2e-3  # kernel pipeline vs plain pipeline
 
@@ -95,14 +99,19 @@ def stage_work(x, C, L_out, K_up, n_convs, kr, weights_numel):
     return flops, nbytes
 
 
-def bound_of(x, got, blocks, kw, C, K_up, n_convs, kr, peak_flops, peak_bw):
-    """(FLOPs, bytes, bound ms) of one stage call on these inputs."""
+def bounds_of(x, got, blocks, kw, C, K_up, n_convs, kr, pk):
+    """(FLOPs, bytes, f32-FMA bound ms, 3xTF32 bound ms) of one stage call on
+    these inputs: max(FLOPs / f32 rate, bytes / HBM rate), and
+    max(3 FLOPs / TF32 rate, bytes / HBM rate) for f32-accurate work done as
+    three TF32 products per product."""
+    f32, tf32, bw = pk
     w_numel = sum(c[k].numel() for b in blocks for cs in ("convs1", "convs2")
                   for c in b[cs] for k in ("w", "b"))
     if kw:
         w_numel += kw["upsample"]["w"].numel() + kw["in_bias"].numel()
     flops, nbytes = stage_work(x, C, got.shape[1], K_up, n_convs, kr, w_numel)
-    return flops, nbytes, 1e3 * max(flops / peak_flops, nbytes / peak_bw)
+    return (flops, nbytes, 1e3 * max(flops / f32, nbytes / bw),
+            1e3 * max(3 * flops / tf32, nbytes / bw))
 
 
 def stage_calls(cfg, params, gen, B, L0):
@@ -130,7 +139,7 @@ def stage_calls(cfg, params, gen, B, L0):
 
 
 def check_one(ms, name, i, x, blocks, kw, cfg, packed):
-    """Kernel vs plain on one call; returns (kernel output, max|d|)."""
+    """Kernel vs plain on one call; returns (kernel output, max|d|, max|ref|)."""
     import torch
     fn = getattr(ms, name)
     dils, kr = cfg.resblock_dilations, cfg.resblock_kernel_size
@@ -147,66 +156,132 @@ def check_one(ms, name, i, x, blocks, kw, cfg, packed):
     return got, err, scale
 
 
-def check_stages(cfg, params, gen, peak_flops, peak_bw):
-    """Kernel vs plain on the production stages; returns per-entry records.
+def launch_plan(ms, cfg, x, C, K_up, kw, L_out, **change):
+    """The geometry mrf_stage launches this call with (`change`: another
+    chunk or ring depth, for a variant)."""
+    up = kw.get("upsample")
+    return ms.stage_plan(x.device, C, cfg.resblock_dilations, cfg.resblock_kernel_size,
+                         x.shape[0], L_out, x.shape[2] if up else 0, K_up,
+                         up["stride"] if up else 1, **change)
 
-    Timed and bounded: B=1 at the full max_seq_len (each launch with the
-    weights packed beforehand, as the engine packs them).  Also held
-    against the plain version: B=8 at bucket 256, the engine's packed-batch
-    shape, so every CTA's batch-row offset is checked."""
+
+def check_stages(cfg, params, gen, pk):
+    """Kernel vs plain on the production stages at three shapes; returns
+    per-entry records for the kernels line (times and bounds of the B=1
+    full-length shape, the largest error of all shapes).
+
+    B=1 at the full max_seq_len (the --no-trim / longest-bucket shape), B=1
+    at bucket 256 (the serving shape of a 3 s utterance) and B=8 at bucket
+    256 (the engine's packed batch; every CTA's batch-row offset is
+    checked).  Each launch runs on weights packed beforehand, as the engine
+    packs them."""
     import torch
     from zerovox_tpu_torch.models.hifigan import pack_vocoder
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
 
     kr = cfg.resblock_kernel_size
     dils = cfg.resblock_dilations
+    n_rb = len(dils)
     n_convs = sum(2 * len(d) for d in dils)
     packs = pack_vocoder(params, cfg)
-    stages = stage_calls(cfg, params, gen, 1, cfg.max_seq_len)
-    # the unfolded entry (every option off) on stage 2's geometry
-    _, _, x2, blocks2, _, C2, _ = stages[1]
-    xu = torch.randn(1, x2.shape[1] * cfg.upsample_scales[1], C2, generator=gen,
-                     device="cuda")
-    unfolded_pack = ms.pack_stage(blocks2, dils, kr)
-    stages.append(("mrf_stage_unfolded", 1, xu, blocks2, {}, C2, 0))
-
     records = {}
-    for name, i, x, blocks, kw, C, K_up in stages:
-        fn = getattr(ms, name)
-        pk = packs[i] if name == "mrf_stage" else unfolded_pack
-        got, err, scale = check_one(ms, name, i, x, blocks, kw, cfg, pk)
-        ms_k = cuda_ms(lambda: fn(x, blocks, dils, kr, packed=pk, **kw), reps=5)
-        ms_p = cuda_ms(lambda: ms.mrf_stage_ref(x, blocks, dils, kr, **kw), reps=3)
-        flops, nbytes, bound = bound_of(x, got, blocks, kw, C, K_up, n_convs, kr,
-                                        peak_flops, peak_bw)
-        log(f"{name} stage {i + 1}: in {tuple(x.shape)} -> out {tuple(got.shape)}  "
-            f"max|d| {err:.3e} (tol {STAGE_TOL * scale:.3e})  kernel {ms_k:.3f} ms "
-            f"({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms  bound {bound:.3f} ms "
-            f"({'bytes' if nbytes / peak_bw > flops / peak_flops else 'operations'}, "
-            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-        r = records.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                          max_abs_err=0.0, flops=0, bytes=0))
-        r["ms"] += ms_k
-        r["plain_ms"] += ms_p
-        r["bound_ms"] += bound
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["flops"] += flops
-        r["bytes"] += nbytes
+    for shape, B, L0 in (("B=1 full", 1, cfg.max_seq_len), ("B=1 bucket 256", 1, 256),
+                         ("B=8 bucket 256", 8, 256)):
+        stages = stage_calls(cfg, params, gen, B, L0)
+        if shape == "B=1 full":
+            # the unfolded entry (every option off) on stage 2's geometry
+            _, _, x2, blocks2, _, C2, _ = stages[1]
+            xu = torch.randn(1, x2.shape[1] * cfg.upsample_scales[1], C2, generator=gen,
+                             device="cuda")
+            stages.append(("mrf_stage_unfolded", 1, xu, blocks2, {}, C2, 0))
+            unfolded_pack = ms.pack_stage(blocks2, dils, kr)
+        tot = dict(ms=0.0, plain=0.0, fma=0.0, tc=0.0)
+        for name, i, x, blocks, kw, C, K_up in stages:
+            fn = getattr(ms, name)
+            pkd = packs[i] if name == "mrf_stage" else unfolded_pack
+            got, err, scale = check_one(ms, name, i, x, blocks, kw, cfg, pkd)
+            plan = launch_plan(ms, cfg, x, C, K_up, kw, got.shape[1])
+            ms_k = cuda_ms(lambda: fn(x, blocks, dils, kr, packed=pkd, **kw), reps=5)
+            ms_p = cuda_ms(lambda: ms.mrf_stage_ref(x, blocks, dils, kr, **kw), reps=3)
+            flops, nbytes, b_fma, b_tc = bounds_of(x, got, blocks, kw, C, K_up, n_convs, kr,
+                                                   pk)
+            log(f"{shape} {name} stage {i + 1}: in {tuple(x.shape)} -> out "
+                f"{tuple(got.shape)}  max|d| {err:.3e} (tol {STAGE_TOL * scale:.3e})  "
+                f"kernel {ms_k:.3f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms  "
+                f"bound f32-FMA {b_fma:.3f} ms, 3xTF32 {b_tc:.3f} ms "
+                f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            log(f"    launch: {plan.clusters} clusters of ({n_rb},1,1) = "
+                f"{plan.clusters * n_rb} CTAs x 256 threads, tile {plan.tile} rows "
+                f"(window {plan.tile + 2 * ms.stage_halo(dils, kr)}), chunk {plan.kc} ch, "
+                f"warp tile {plan.mt}x m16 by {plan.nt}x n8, {plan.smem} B shared; "
+                f"wave {ms.wave_clusters(x.device.index or 0, n_rb, plan.nt, plan.mt)} "
+                f"clusters")
+            if name == "mrf_stage":
+                for k, v in (("ms", ms_k), ("plain", ms_p), ("fma", b_fma), ("tc", b_tc)):
+                    tot[k] += v
+            if shape == "B=1 full":
+                r = records.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                                  fma_bound_ms=0.0, max_abs_err=0.0,
+                                                  bound_by="operations"))
+                r["ms"] += ms_k
+                r["plain_ms"] += ms_p
+                r["bound_ms"] += b_tc
+                r["fma_bound_ms"] += b_fma
+                if nbytes / pk[2] > 3 * flops / pk[1]:
+                    r["bound_by"] = "bytes"
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        log(f"{shape}, four mrf_stage launches: kernel {tot['ms']:.3f} ms, plain "
+            f"{tot['plain']:.3f} ms, bound f32-FMA {tot['fma']:.3f} ms "
+            f"({100 * tot['fma'] / tot['ms']:.0f} %), 3xTF32 {tot['tc']:.3f} ms "
+            f"({100 * tot['tc'] / tot['ms']:.0f} %)")
+    return records, packs
 
-    for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, 8, 256):
-        got, err, scale = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
-        ms_k = cuda_ms(lambda: ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw),
-                       reps=3)
-        flops, _, bound = bound_of(x, got, blocks, kw, C, K_up, n_convs, kr,
-                                   peak_flops, peak_bw)
-        log(f"{name} stage {i + 1}: in {tuple(x.shape)} -> out {tuple(got.shape)}  "
-            f"max|d| {err:.3e} (tol {STAGE_TOL * scale:.3e})  kernel {ms_k:.3f} ms "
-            f"({flops / ms_k / 1e9:.2f} TFLOP/s)  bound {bound:.3f} ms")
-        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
-    for r in records.values():
-        r["bound_by"] = ("bytes" if r["bytes"] / peak_bw > r["flops"] / peak_flops
-                         else "operations")
-    return records
+
+def time_variants(cfg, params, gen, packs):
+    """A/B of the geometry inside this call, on the B=1 full-length and
+    bucket-256 stages: the plan mrf_stage uses, the longest tile (no wave
+    fill), and plans with weight chunks of half and twice the input channels
+    and rings of 2 and 4 chunks (each with its own longest tile and wave
+    fill); each variant is checked against the plan's output and
+    timed in turns (plan, variants, variants reversed, plan), median of 5."""
+    import torch
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    kr, dils = cfg.resblock_kernel_size, cfg.resblock_dilations
+    for shape, L0 in (("B=1 full", cfg.max_seq_len), ("B=1 bucket 256", 256)):
+        for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, 1, L0):
+            up = kw["upsample"]
+            L_out = ms.transpose_out_len(x.shape[1], up["stride"], K_up, up["padding"],
+                                         up["output_padding"])
+            plan = launch_plan(ms, cfg, x, C, K_up, kw, L_out)
+            variants = {"plan": plan,
+                        "longest tile": ms.tile_plan(C, dils, kr, x.shape[2], K_up,
+                                                     up["stride"])}
+            for label, change in ((f"chunk {plan.kc // 2}", dict(kc=plan.kc // 2)),
+                                  (f"chunk {plan.kc * 2}", dict(kc=plan.kc * 2)),
+                                  ("ring 2", dict(stages=2)), ("ring 4", dict(stages=4))):
+                try:
+                    pl = launch_plan(ms, cfg, x, C, K_up, kw, L_out, **change)
+                except ValueError:                  # no tile fits, or C % kc
+                    continue
+                if pl != plan:
+                    variants[label] = pl
+            def run(pl):
+                return ms._launch(x, blocks, dils, kr, up, kw["in_bias"], kw["in_leaky"],
+                                  kw["out_leaky"], packs[i], plan=pl)
+            base = run(plan)
+            for vname, pl in variants.items():
+                err = (run(pl) - base).abs().max().item()
+                if err > STAGE_TOL * base.abs().max().item():
+                    raise RuntimeError(f"variant {vname} of stage {i + 1} disagrees: {err:.3e}")
+            times = {k: [] for k in variants}
+            for vname in list(variants) + list(variants)[::-1]:
+                times[vname].append(cuda_ms(lambda: run(variants[vname]), reps=5))
+            log(f"variants {shape} stage {i + 1}: " + ", ".join(
+                f"{k} (tile {variants[k].tile}, chunk {variants[k].kc}, ring "
+                f"{variants[k].stages}, warp {variants[k].mt}x{variants[k].nt}) "
+                f"{' / '.join('%.3f' % t for t in v)} ms"
+                for k, v in times.items()))
+    torch.cuda.synchronize()
 
 
 # --------------------------------------------------------------------------
@@ -384,16 +459,17 @@ def run() -> int:
     t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = peaks(name)
+    pk = peaks(name)
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
-        f"bound from {peak_flops / 1e12:.1f} TFLOP/s f32, {peak_bw / 1e12:.2f} TB/s")
+        f"bounds from {pk[0] / 1e12:.1f} TFLOP/s f32, {pk[1] / 1e12:.0f} TFLOP/s TF32, "
+        f"{pk[2] / 1e12:.2f} TB/s")
 
     t0 = time.perf_counter()
     lib = ms.library()
     log(f"built {ms.SOURCE.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {lib.build_seconds:.1f} s)")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if any(k in line for k in ("entry function", "registers", "spill", "rror")):
             log(f"  ptxas: {line.strip()}")
 
     cfg = ZeroVoxConfig()
@@ -401,7 +477,8 @@ def run() -> int:
     params = init_params(cfg, seed=0, device="cuda")
     log(f"production params (seed 0) on the card in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    records = check_stages(cfg, params, gen, peak_flops, peak_bw)
+    records, packs = check_stages(cfg, params, gen, pk)
+    time_variants(cfg, params, gen, packs)
 
     with tempfile.TemporaryDirectory() as tmp:
         counts, walls, engine = main_path(cfg, params, tmp)
@@ -415,6 +492,9 @@ def run() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
     } for k, r in records.items()]
+    log("kernels line: ms, plain_ms and bound_ms are the sums over the four B=1 "
+        "full-length stages (the unfolded entry: its one call); bound_ms is the "
+        "3xTF32 tensor-core bound, max(3 FLOPs / TF32 rate, bytes / HBM rate)")
     log(f"e2e: B=1 wall {walls[1]:.2f} ms, B=8 wall {walls[8]:.2f} ms; "
         f"smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -102,31 +102,164 @@ def test_wrappers_take_plain_version_on_cpu(rng, weights):
         ms.mrf_stage(x, bt, DILS, K, in_leaky=0.1)      # in_leaky needs upsample
 
 
-@pytest.mark.parametrize("C,expect_tile", [(256, 42), (128, 106), (64, 234), (32, 490)])
-def test_tile_plan_production(C, expect_tile):
-    """The production stages' launch geometry: the weight chunks and three
-    f32 windows fit the 227 KB a CTA may use, every conv of the chain fits
-    one round of 8 warps, and the pre-upsample rows fit the staging buffers."""
-    halo = ms.stage_halo(((1, 3, 5),) * 3, 3)
-    assert halo == 12
-    plan = ms.tile_plan(C, halo, 3, 1, up_cin=2 * C, up_k=10, up_stride=5)
-    assert plan.tile == expect_tile
-    assert plan.smem <= 232448 and plan.ss % 2 == 1 and C % plan.ch == 0
-    warp_tiles = -(-(plan.tile + 2 * halo - 2) // (8 * 32 // plan.wc)) \
-        * (C // plan.tn // plan.wc)
-    assert warp_tiles <= 8
+# the production stages: (C, pre-upsample channels, stride, upsample K,
+# output rows at B=1 and bucket 256 of 1500 mel frames)
+STAGES = [(256, 512, 5, 10, 1280), (128, 256, 5, 10, 6400),
+          (64, 128, 4, 8, 25600), (32, 64, 3, 6, 76800)]
+PROD_DILS = ((1, 3, 5),) * 3
+
+
+@pytest.mark.parametrize("C,expect_tile,expect_kc",
+                         [(256, 64, 16), (128, 170, 16), (64, 358, 32), (32, 740, 32)])
+def test_tile_plan_production(C, expect_tile, expect_kc):
+    """The production stages' longest tiles: the weight ring and two f32
+    windows fit the 227 KB a CTA may use, the warps' row tiles cover the
+    first conv of every resblock, and the pre-upsample rows fit the staging
+    window."""
+    assert ms.stage_halo(PROD_DILS, 3) == 12
+    _, cin, s, k, _ = next(st for st in STAGES if st[0] == C)
+    plan = ms.tile_plan(C, PROD_DILS, 3, up_cin=cin, up_k=k, up_stride=s)
+    assert (plan.tile, plan.kc, plan.clusters) == (expect_tile, expect_kc, 0)
+    assert plan.smem <= 232448 and plan.ss % 4 == 0 and plan.stages >= 3
+    assert C % plan.kc == 0 and plan.kc % 8 == 0 and plan.kc > 4
+    nt, mt, warps_m = ms.warp_grid(C)
+    window = plan.tile + 2 * 12
+    assert warps_m * mt * 16 >= window - 2
+    assert plan.smem == 4 * (plan.stages * plan.kc * C + 2 * window * plan.ss) \
+        + 16 * plan.stages
+    assert ((window + k - 2) // s + 2) * cin <= window * plan.ss
+
+
+@pytest.mark.parametrize("C,cin,s,k,L_out", STAGES)
+def test_tile_plan_fills_a_wave_at_the_serving_shape(C, cin, s, k, L_out):
+    """B=1 at bucket 256: the grid fills its last wave of 44 clusters of 3
+    (132 SMs) to within one cluster, shortening the tile where the longest
+    one leaves SMs idle (stage 1: 32 clusters at 40 rows -> 43 at 30)."""
+    longest = ms.tile_plan(C, PROD_DILS, 3, cin, k, s)
+    plan = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L_out)
+    waves = -(-plan.clusters // 44)
+    assert waves == -(-(-(-L_out // longest.tile)) // 44)
+    assert plan.tile <= longest.tile
+    assert plan.clusters * plan.tile >= L_out > (plan.clusters - 1) * plan.tile
+    assert waves * 44 - plan.clusters <= 1
+    assert plan.clusters * 3 >= 129
+    if C == 256:
+        assert (longest.tile, plan.tile, plan.clusters) == (64, 30, 43)
+
+
+def test_tile_plan_batch_and_wave():
+    """B=8 at bucket 256 and a card holding fewer clusters at once."""
+    plan = ms.tile_plan(256, PROD_DILS, 3, 512, 10, 5, B=8, L_out=1280)
+    assert (plan.tile, plan.clusters) == (59, 176)          # 4 full waves of 44
+    plan = ms.tile_plan(256, PROD_DILS, 3, 512, 10, 5, B=1, L_out=1280, wave=40)
+    assert (plan.tile, plan.clusters) == (32, 40)
 
 
 @pytest.mark.parametrize("C", [6, 2, 1024])
 def test_tile_plan_rejects(C):
     with pytest.raises(ValueError):
-        ms.tile_plan(C, 12)
+        ms.tile_plan(C, PROD_DILS)
+    with pytest.raises(ValueError):                       # chunk not dividing C
+        ms.tile_plan(256, PROD_DILS, kc=24)
+    with pytest.raises(ValueError):                       # ring too deep to leave a tile
+        ms.tile_plan(256, PROD_DILS, kc=64, stages=8)
+    with pytest.raises(ValueError):                       # no kernel instance for it
+        ms.tile_plan(256, PROD_DILS, kc=8)
+
+
+@pytest.mark.parametrize("C,cin,s,k,L_out,expect", [
+    (256, 512, 5, 10, 7500, (49, 16)),      # full length: 39 rows at chunk 32
+    (256, 512, 5, 10, 1280, (33, 32)),      # bucket 256: the wave sets the tile
+    (128, 256, 5, 10, 6400, (165, 16)),     # bucket 256: one wave, not two of 83 rows
+    (64, 128, 4, 8, 25600, (329, 32)),      # bucket 256: 219 rows at chunk 64
+    (32, 64, 3, 6, 450000, (722, 32)),      # the warps set the tile
+])
+def test_tile_plan_chunk_choice(C, cin, s, k, L_out, expect):
+    """The chunk (kc input channels) is the largest of the instance's whose
+    tile is within a tenth of the longest (an H100 wave: 39 clusters of 3)."""
+    def plan(**kw):
+        return ms.tile_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L_out, wave=39, **kw)
+    tiles = {kc: plan(kc=kc).tile for kc in (16, 32, 64) if kc <= min(C, 8192 // C)}
+    best = max(tiles.values())
+    assert plan().kc == max(kc for kc, t in tiles.items() if 1.1 * t >= best)
+    assert (plan().tile, plan().kc) == expect
+
+
+def test_aligned_copies_only_misaligned():
+    """The kernel reads float4s: a tensor whose data starts off 16 bytes is
+    copied, an aligned one passed as it is."""
+    t = torch.zeros(64)
+    assert ms._aligned(t) is t and ms._aligned(None) is None
+    view = t[1:33]
+    got = ms._aligned(view)
+    assert got is not view and got.data_ptr() % 16 == 0 and torch.equal(got, view)
+
+
+def test_split_tf32(rng):
+    """The kernel's operand split: hi has its low 13 mantissa bits zero (a
+    TF32 value, and so has lo), and hi + lo is v to within 2^-21 relative."""
+    v = torch.from_numpy(np.concatenate([
+        rng.normal(size=4000) * 10.0 ** rng.integers(-6, 6, size=4000),
+        [1.0, -1.0, 1 + 2 ** -11, 1 + 2 ** -10 + 2 ** -11, 3e-30]]).astype(np.float32))
+    hi, lo = ms.split_tf32(v)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - v.double()).abs()
+    assert (err <= 2.0 ** -21 * v.double().abs()).all()
+    # round to nearest, ties away from zero (cvt.rna)
+    assert hi[-3].item() == 1 + 2 ** -10 and hi[-2].item() == 1 + 2 ** -9
+
+
+def _conv1d_3xtf32(x, w, b=None, stride=1, padding=0, dilation=1):
+    """conv1d with every product taken as hi*hi + hi*lo + lo*hi, as the
+    kernel's MMAs take it (f32 sums on the CPU)."""
+    xh, xl = ms.split_tf32(x)
+    wh, wl = ms.split_tf32(w)
+
+    def conv(a, c):
+        return _CONV1D(a, c, None, stride=stride, padding=padding, dilation=dilation)
+    y = conv(xl, wh) + conv(xh, wl) + conv(xh, wh)
+    return y if b is None else y + b
+
+
+_CONV1D = ms.conv1d
+
+
+@pytest.mark.parametrize("upsample", [False, True])
+def test_3xtf32_stage_matches_f32(rng, weights, monkeypatch, upsample):
+    """A stage whose every resblock conv runs as the kernel's 3xTF32 products
+    stays within 1e-4 * max|out| of the f32 stage (mrf_stage_ref) and of the
+    JAX package's f32 stage on the same numpy inputs."""
+    bj, bt = weights
+    if upsample:
+        x = rng.normal(size=(2, 21, 32)).astype(np.float32)
+        w = (rng.normal(size=(10, 32, 16)) * 0.2).astype(np.float32)
+        b = rng.normal(size=(16,)).astype(np.float32)
+        kw = dict(upsample=dict(w=torch.from_numpy(w.transpose(2, 1, 0).copy()), stride=5,
+                                padding=3, output_padding=1),
+                  in_bias=torch.from_numpy(b), in_leaky=0.1, out_leaky=0.1)
+        ref = folded_mrf_stage(
+            jnp.asarray(x), bj, DILS, K, rho=1, in_group=5, in_bias=jnp.asarray(b),
+            upsample=dict(w=jnp.asarray(w), stride=5, padding=3, output_padding=1,
+                          rho_in=1, in_leaky=0.1),
+            out_leaky=0.1)
+    else:
+        x = rng.normal(size=(1, 120, 16)).astype(np.float32)
+        kw = {}
+        ref = mrf_stage_unfolded(jnp.asarray(x), bj, DILS, K, rho=1, t_blk=32)
+    f32 = ms.mrf_stage_ref(torch.from_numpy(x), bt, DILS, K, **kw)
+    monkeypatch.setattr(ms, "conv1d", _conv1d_3xtf32)
+    got = ms.mrf_stage_ref(torch.from_numpy(x), bt, DILS, K, **kw)
+    assert not torch.equal(got, f32)          # the emulation did run
+    _close(got, ref)
+    torch.testing.assert_close(got, f32, rtol=1e-4, atol=1e-4 * f32.abs().max().item())
 
 
 def test_pack_stage_layout(rng, weights):
     """pack_stage's kernel layout: conv q of the chain (resblock, dilation,
-    convs1 before convs2) at w[q][k][ci][co], and the flipped export
-    upsample kernel as PyTorch's unflipped taps at w_up[k][ci][co]."""
+    convs1 before convs2) at w[q][k][ci][co ^ 8 * (ci % 4)] for C % 32 == 0
+    (co in place for the TINY C=16), and the flipped export upsample kernel
+    as PyTorch's unflipped taps at w_up[k][ci][co]."""
     _, bt = weights
     up = torch.from_numpy(rng.normal(size=(16, 32, 10)).astype(np.float32))
     pk = ms.pack_stage(bt, DILS, K, up)
@@ -141,3 +274,14 @@ def test_pack_stage_layout(rng, weights):
     for k in range(10):
         torch.testing.assert_close(pk.w_up[k], up[:, :, 9 - k].T, rtol=0, atol=0)
     assert ms.pack_stage(bt, DILS, K).w_up is None
+
+    C = 64                                   # a width the kernel takes: swizzled
+    blk = {cs: [{"w": torch.from_numpy(rng.normal(size=(C, C, K)).astype(np.float32)),
+                 "b": torch.zeros(C)}] for cs in ("convs1", "convs2")}
+    pk = ms.pack_stage([blk], [(1,)], K)
+    w = blk["convs2"][0]["w"]
+    for ci in (0, 1, 2, 3, 6, 63):
+        for co in (0, 5, 8, 31, 40, 63):
+            assert pk.w[1, 2, ci, co ^ 8 * (ci % 4)] == w[co, ci, 2]
+    torch.testing.assert_close(ms.swizzle_rows(pk.w), torch.stack(
+        [blk[cs][0]["w"].permute(2, 1, 0) for cs in ("convs1", "convs2")]), rtol=0, atol=0)

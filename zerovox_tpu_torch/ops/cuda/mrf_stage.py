@@ -14,6 +14,11 @@ launches in a plain integer attribute (`mrf_stage.launches`).  The kernel
 reads its weights in its own layout (`pack_stage`), which a serving caller
 makes once per model and passes as `packed=`.
 
+The kernel runs each conv on the tensor cores at f32 accuracy (3xTF32:
+`split_tf32` mirrors its operand split), one resblock per CTA in a cluster
+of one CTA per resblock; `tile_plan` chooses its geometry in plain Python,
+so the CPU tests reach it.  It takes C in 32/64/128/256/512.
+
 The kernel is compiled with nvcc, at its first CUDA call (never at import),
 into build/zerovox_tpu_torch/ at the root of the checkout, as a shared
 library with a plain C interface loaded through ctypes.
@@ -21,6 +26,7 @@ library with a plain C interface loaded through ctypes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -45,10 +51,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Limits shared with csrc/mrf_stage.cu (which rejects a geometry that breaks them)
 _WARPS = 8                # warps per CTA
-_CHUNK_FLOATS = 3072      # floats per streamed weight chunk (at most)
-_MAX_RB = 8               # resblocks per stage
+_STAGES = 3               # weight ring depth (chunks in flight)
+_CHUNK_FLOATS = 8192      # weight chunk target: one tap x kc input channels x C
+_MAX_RB = 8               # resblocks per stage (= CTAs per cluster)
 _MAX_D = 8                # dilations per resblock
 _SMEM_MAX = 232448        # dynamic shared memory one CTA may use (bytes)
+_SMS = 132                # streaming multiprocessors of an H100 SXM
+_MT = {8: 3, 4: 6}        # kernel instances: n8 column tiles per warp -> m16 row tiles
+_KC = {8: (16, 32, 64), 4: (16, 32)}   # ... and their weight chunks (input channels)
 
 
 # --------------------------------------------------------------------------
@@ -115,54 +125,120 @@ def stage_halo(dilation_sets: Sequence[Sequence[int]], kernel_size: int) -> int:
     return max(sum(half * (d + 1) for d in dils) for dils in dilation_sets)
 
 
+def split_tf32(v: torch.Tensor):
+    """(hi, lo) with v = hi + lo + O(2^-22 |v|), both TF32 values (the low 13
+    mantissa bits zero): the kernel's split of every MMA operand,
+    hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi) (round to nearest, ties
+    away from zero).  The kernel accumulates hi*hi + hi*lo + lo*hi."""
+    def rna(u):
+        bits = u.to(torch.float32).contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
 class TilePlan(NamedTuple):
-    tile: int        # output rows per CTA
-    ss: int          # shared-memory row stride (floats, odd)
-    ch: int          # input channels per streamed weight chunk
-    tn: int          # output channels per thread tile (8, or 4 where C % 8)
-    wc: int          # thread columns per warp (rows: 32 // wc)
+    tile: int        # output rows per cluster (its CTAs run one resblock each)
+    clusters: int    # clusters per launch (B x time tiles); 0 with no L_out
+    ss: int          # window row stride (floats, C + 4)
+    kc: int          # input channels per weight chunk (one tap)
+    stages: int      # weight ring depth
+    nt: int          # n8 column tiles per warp
+    mt: int          # m16 row tiles per warp
     smem: int        # dynamic shared memory per CTA (bytes)
 
 
-def tile_plan(C: int, halo: int, kernel_size: int = 3, min_first_dilation: int = 1,
-              up_cin: int = 0, up_k: int = 0, up_stride: int = 1) -> TilePlan:
-    """Launch geometry for a stage of C channels (csrc/mrf_stage.cu).
+def warp_grid(C: int):
+    """(nt, mt, warps_m): the warp tile of a C-channel stage.  The 8 warps
+    split C over warps_n = C / (8 nt) column groups and the rows over
+    warps_m = 8 / warps_n; a warp holds mt x nt accumulator fragments."""
+    nt = 8 if C % 64 == 0 else 4
+    if C < 32 or C % 32 or _WARPS % (C // (8 * nt)):
+        raise ValueError(f"mrf_stage kernel takes C in 32/64/128/256/512, got C={C}")
+    return nt, _MT[nt], _WARPS // (C // (8 * nt))
 
-    Shared memory holds two weight chunks (kernel_size x ch x C floats each,
-    at most 12 KB) and three f32 windows of tile + 2*halo rows with an odd
-    row stride (C + 1, so a warp's reads of neighbouring rows hit distinct
-    banks).  Each conv of the chain must fit one round of the CTA's 8 warps,
-    a warp covering 8*(32 // wc) rows x tn*wc channels; the tile is the
-    longest that satisfies both.  Raises ValueError for a stage the kernel
-    cannot hold."""
-    if C % 4 or C < 4:
-        raise ValueError(f"mrf_stage kernel needs C % 4 == 0, got C={C}")
-    tn = 8 if C % 8 == 0 else 4
-    groups = C // tn
-    wc = next(w for w in (8, 4, 2, 1) if groups % w == 0)
-    col_tiles = groups // wc
-    if col_tiles > _WARPS:
-        raise ValueError(f"mrf_stage kernel takes C <= {_WARPS * 8 * tn}, got C={C}")
-    ch = min(C, max(1, _CHUNK_FLOATS // (kernel_size * C)))
-    while C % ch:
-        ch -= 1
-    ss = C + 1
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _geometry(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc,
+              stages):
+    nt, mt, warps_m = warp_grid(C)
+    if kc not in _KC[nt] or C % kc or not 2 <= stages <= 8:
+        raise ValueError(f"mrf_stage kernel: chunks of {kc} channels (one of {_KC[nt]}, "
+                         f"dividing C={C}) in a ring of 2-8, got a ring of {stages}")
+    halo = stage_halo(dilation_sets, kernel_size)
     half = (kernel_size - 1) // 2
-    rows_round = (_WARPS // col_tiles) * 8 * (32 // wc)
-    window = min(rows_round + 2 * half * min_first_dilation,
-                 (_SMEM_MAX // 4 - 2 * kernel_size * ch * C) // (3 * ss))
+    ss = C + 4
+    ring = stages * kc * C
+    window = min(warps_m * mt * 16 + 2 * half * min(d[0] for d in dilation_sets),
+                 ((_SMEM_MAX - 16 * stages) // 4 - ring) // (2 * ss))
     tile = window - 2 * halo
     if tile < 1:
-        raise ValueError(f"mrf_stage kernel: C={C} with halo {halo} leaves no "
-                         "room for a time tile")
-    if up_cin:
-        pre_rows = (window - 1 + up_k - 1) // up_stride + 2
-        if pre_rows * up_cin > 2 * window * ss:
-            raise ValueError(
-                f"mrf_stage kernel: {pre_rows} pre-upsample rows of {up_cin} "
-                "channels do not fit the staging buffers")
-    smem = 4 * (2 * kernel_size * ch * C + 3 * window * ss)
-    return TilePlan(tile, ss, ch, tn, wc, smem)
+        raise ValueError(f"mrf_stage kernel: C={C} with halo {halo} leaves no room for "
+                         f"a time tile beside a ring of {stages} x {kc} channels")
+    clusters = 0
+    if L_out is not None:
+        # the waves the longest tile needs, then the shortest tile that needs
+        # no more: the last wave is full and each CTA computes fewer rows
+        waves = _cdiv(B * _cdiv(L_out, tile), wave)
+        tile = max(1, min(tile, _cdiv(L_out, waves * wave // B)))
+        clusters = B * _cdiv(L_out, tile)
+    if up_cin and ((tile + 2 * halo + up_k - 2) // up_stride + 2) * up_cin \
+            > (tile + 2 * halo) * ss:
+        raise ValueError(f"mrf_stage kernel: the pre-upsample rows of {up_cin} channels "
+                         f"do not fit a window of {tile + 2 * halo} x {C} channels")
+    smem = 4 * (ring + 2 * (tile + 2 * halo) * ss) + 16 * stages
+    return TilePlan(tile, clusters, ss, kc, stages, nt, mt, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc,
+          stages):
+    args = (C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave)
+    stages = stages or _STAGES
+    if kc:
+        return _geometry(*args, kc, stages)
+    nt = warp_grid(C)[0]
+    plans = []
+    for k in _KC[nt]:
+        if k <= max(_CHUNK_FLOATS // C, _KC[nt][0]) and C % k == 0:
+            with contextlib.suppress(ValueError):
+                plans.append(_geometry(*args, k, stages))
+    if not plans:
+        raise ValueError(f"mrf_stage kernel: no weight chunk of {_KC[nt]} channels fits C={C}")
+    # the largest chunk whose tile is within a tenth of the longest any chunk
+    # gives: a smaller ring lengthens the tile where shared memory sets it
+    # (fewer recomputed halo rows, fewer waves), at the cost of more chunks
+    longest = max(p.tile for p in plans)
+    return [p for p in plans if 1.1 * p.tile >= longest][-1]
+
+
+def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
+              up_cin: int = 0, up_k: int = 0, up_stride: int = 1, B: int = 1,
+              L_out: Optional[int] = None, wave: Optional[int] = None,
+              kc: Optional[int] = None, stages: Optional[int] = None) -> TilePlan:
+    """Launch geometry for a stage of C channels (csrc/mrf_stage.cu).
+
+    A cluster of len(dilation_sets) CTAs takes one time tile, a CTA per
+    resblock.  Shared memory holds the weight ring (`stages` chunks of
+    kc x C floats) and two f32 windows of tile + 2*halo rows of C + 4
+    floats; the warps' row tiles must cover the first conv's rows, and the
+    pre-upsample rows must fit the conv1-output window, which stages them.
+    Without L_out the tile is the longest that fits.  With B and L_out it is
+    the shortest tile that needs no more waves than the longest (a wave:
+    `wave` clusters, by default 132 SMs // cluster size): where the longest
+    tile leaves the card short of one wave, the tile shrinks until the grid
+    fills it, and where it needs several, until the last wave is full; the
+    extra halo rows cost less than the idle SMs.  The chunk (kc input
+    channels, at most 8192 floats) is the largest of the kernel instance's
+    whose tile is within a tenth of the longest tile any of them gives.  kc
+    and stages replace the chunk and the ring depth (3), to measure
+    variants.  Raises ValueError for a stage the kernel cannot hold."""
+    dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    wave = wave or max(1, _SMS // len(dils))
+    return _plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc, stages)
 
 
 # --------------------------------------------------------------------------
@@ -209,21 +285,54 @@ def library() -> ctypes.CDLL:
                                      i, i, i,                # K_up stride pad
                                      i, f, i, f,             # in/out leaky
                                      i, i, i, p,             # n_rb n_dmax kr dils
-                                     i, i, i, i, i, i, i, p]  # halo tile ss ch wc tn smem stream
+                                     i, i, i, i, i, i, i,    # halo tile ss kc stages nt mt
+                                     i, p]                   # smem stream
     lib.zv_mrf_stage_f32.restype = i
+    lib.zv_mrf_max_clusters.argtypes = [i, i, i, i]
+    lib.zv_mrf_max_clusters.restype = i
     lib.zv_cuda_error_string.argtypes = [i]
     lib.zv_cuda_error_string.restype = ctypes.c_char_p
     lib.build_log, lib.build_seconds = log, seconds
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def wave_clusters(device_index: int, n_rb: int, nt: int, mt: int) -> int:
+    """Clusters of n_rb CTAs that the card holds at once (one wave), from
+    cudaOccupancyMaxActiveClusters at full shared memory."""
+    lib = library()
+    with torch.cuda.device(device_index):
+        n = lib.zv_mrf_max_clusters(n_rb, nt, mt, _SMEM_MAX)
+    if n <= 0:
+        raise RuntimeError(f"mrf_stage kernel: no cluster of {n_rb} CTAs fits the card: "
+                           f"{lib.zv_cuda_error_string(-n).decode() if n else 'none'}")
+    return n
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernel reads and writes float4s)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def swizzle_rows(w: torch.Tensor) -> torch.Tensor:
+    """w[..., ci, co] moved to column co ^ 8 * (ci % 4) of its row (an
+    involution; the identity unless the row length is a multiple of 32)."""
+    C = w.shape[-1]
+    if C % 32:
+        return w
+    ci = torch.arange(w.shape[-2], device=w.device)
+    col = torch.arange(C, device=w.device)[None, :] ^ ((ci[:, None] & 3) << 3)
+    return w.gather(-1, col.expand(w.shape))
+
+
 class PackedStage(NamedTuple):
     """A stage's weights in the kernel's layout (pack_stage)."""
-    w: torch.Tensor                  # (n_conv, K, C, C) [k][ci][co], chain order
+    w: torch.Tensor                  # (n_conv, K, C, C) [k][ci][swizzled co], chain order
     b: torch.Tensor                  # (n_conv, C)
     w_up: Optional[torch.Tensor]     # (K_up, C_pre, C) [k][ci][co] ConvTranspose1d taps
 
@@ -233,9 +342,13 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
                ) -> PackedStage:
     """The kernel's weight layout for one stage, made once per model.
 
-    blocks' (Cout, Cin, K) convs go to [k][ci][co] in chain order (resblock,
-    dilation, then convs1 before convs2); the flipped (C, C_pre, K) export
-    upsample kernel goes to PyTorch's unflipped taps as [k][ci][co]."""
+    blocks' (Cout, Cin, K) convs go to [k][ci][co ^ 8 * (ci % 4)] in chain
+    order (resblock, dilation, then convs1 before convs2): rows of C floats,
+    so a weight chunk (a tap, consecutive input channels) is one contiguous
+    copy, with the output channel swizzled so that the kernel's loads of
+    four consecutive rows hit distinct shared-memory banks (C % 32 == 0;
+    other C keep co in place).  The flipped (C, C_pre, K) export upsample
+    kernel goes to PyTorch's unflipped taps as [k][ci][co]."""
     C = blocks[0]["convs1"][0]["w"].shape[0]
     dev = blocks[0]["convs1"][0]["w"].device
     ws, bs = [], []
@@ -249,17 +362,30 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
                 if conv["w"].device != dev or conv["b"].device != dev:
                     raise ValueError(f"block {j} {cset}[{di}] lies on {conv['w'].device}, "
                                      f"block 0 on {dev}")
-                ws.append(conv["w"].permute(2, 1, 0))
+                ws.append(swizzle_rows(conv["w"].permute(2, 1, 0)))
                 bs.append(conv["b"])
     w_up = (None if upsample_w is None
             else unflip_transpose_weight(upsample_w).permute(2, 0, 1).contiguous())
     return PackedStage(torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_up)
 
 
+def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: int, B: int,
+               L_out: int, up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
+               **change) -> TilePlan:
+    """The tile plan a launch on `device` uses: tile_plan with the card's
+    own wave of clusters (`change`: tile_plan's kc / stages)."""
+    nt, mt, _ = warp_grid(C)
+    wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), nt, mt)
+    return tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
+                     **change)
+
+
 def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
-            in_leaky, out_leaky, packed: Optional[PackedStage]) -> torch.Tensor:
+            in_leaky, out_leaky, packed: Optional[PackedStage],
+            plan: Optional[TilePlan] = None) -> torch.Tensor:
     """Check the arguments and launch the kernel once (packing the weights
-    first when the caller did not)."""
+    first when the caller did not).  plan: a geometry other than
+    stage_plan's, for measuring variants."""
     if x.dtype != torch.float32:
         raise TypeError(f"mrf_stage kernel takes float32, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -280,7 +406,6 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     C = blocks[0]["convs1"][0]["w"].shape[0]
     n_conv = sum(2 * len(ds) for ds in dilation_sets)
     halo = stage_halo(dilation_sets, kernel_size)
-    min_d1 = min(ds[0] for ds in dilation_sets)
     if tuple(packed.w.shape) != (n_conv, kernel_size, C, C) \
             or tuple(packed.b.shape) != (n_conv, C):
         raise ValueError(f"packed weights {tuple(packed.w.shape)} / {tuple(packed.b.shape)} "
@@ -294,24 +419,30 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
         if c_up != C or cin_up != Cin:
             raise ValueError(f"upsample weight maps {cin_up} -> {c_up} channels, "
                              f"the stage {Cin} -> {C}")
+        if Cin % 4:
+            raise ValueError(f"mrf_stage kernel: the upsample's input channels ({Cin}) "
+                             f"must be a multiple of 4")
         stride, pad = int(upsample["stride"]), int(upsample["padding"])
         opad = int(upsample["output_padding"])
         if stride < 1 or not 0 <= opad < stride:
             raise ValueError(f"output_padding ({opad}) must be < stride ({stride})")
         L_out = transpose_out_len(L_in, stride, K_up, pad, opad)
-        plan = tile_plan(C, halo, kernel_size, min_d1, Cin, K_up, stride)
     else:
         if Cin != C:
             raise ValueError(f"input has {Cin} channels, the stage {C}")
         L_out = L_in
-        plan = tile_plan(C, halo, kernel_size, min_d1)
     if L_out < 1 or B < 1:
         raise ValueError(f"empty stage: B={B}, L_out={L_out}")
-    ib = None if in_bias is None else in_bias.to(dev, torch.float32).contiguous()
+    if plan is None:
+        plan = stage_plan(dev, C, dilation_sets, kernel_size, B, L_out,
+                          Cin if upsample is not None else 0, K_up, stride)
+    ib = None if in_bias is None else _aligned(in_bias.to(dev, torch.float32).contiguous())
     if ib is not None and ib.shape != (C,):
         raise ValueError(f"in_bias has shape {tuple(ib.shape)}, want ({C},)")
-    w_up = packed.w_up if upsample is not None else None
-    for t in (w_up, packed.w, packed.b):
+    x = _aligned(x)
+    w_up = _aligned(packed.w_up) if upsample is not None else None
+    w, b = _aligned(packed.w), _aligned(packed.b)
+    for t in (w_up, w, b):
         if t is not None and (t.device != dev or t.dtype != torch.float32
                               or not t.is_contiguous()):
             raise TypeError("mrf_stage kernel: weights must be contiguous float32 "
@@ -325,12 +456,13 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.zv_mrf_stage_f32(
-            x.data_ptr(), _ptr(w_up), _ptr(ib), packed.w.data_ptr(), packed.b.data_ptr(),
+            x.data_ptr(), _ptr(w_up), _ptr(ib), w.data_ptr(), b.data_ptr(),
             y.data_ptr(), B, L_in, Cin, C, L_out, K_up, stride, pad,
             int(in_leaky is not None), float(in_leaky or 0.0),
             int(out_leaky is not None), float(out_leaky or 0.0),
             len(blocks), n_dmax, kernel_size, dils,
-            halo, plan.tile, plan.ss, plan.ch, plan.wc, plan.tn, plan.smem, stream)
+            halo, plan.tile, plan.ss, plan.kc, plan.stages, plan.nt, plan.mt, plan.smem,
+            stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage kernel launch failed: "
                            f"{lib.zv_cuda_error_string(err).decode()} ({err})")
