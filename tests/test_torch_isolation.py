@@ -57,6 +57,10 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         zt.TTSEngine(params, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        zt.TTSEngine(params, cfg, precision="bfloat16")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zt.StreamingSynthesizer(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         zt.synthesize(params, cfg, src, src, style)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         zt.init_params(cfg, seed=0)

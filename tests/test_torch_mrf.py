@@ -285,3 +285,237 @@ def test_pack_stage_layout(rng, weights):
             assert pk.w[1, 2, ci, co ^ 8 * (ci % 4)] == w[co, ci, 2]
     torch.testing.assert_close(ms.swizzle_rows(pk.w), torch.stack(
         [blk[cs][0]["w"].permute(2, 1, 0) for cs in ("convs1", "convs2")]), rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# bf16 mode: bf16 tensors, bf16 dot operands, f32 accumulation and chain state
+# --------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -8
+
+
+def _bf16(a):
+    """numpy f32 -> torch bf16 (round to nearest even, as jnp's astype)."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def weights_bf16(weights):
+    """Both sides cast their own tree from the same f32 weights (cast_params
+    on either side rounds to nearest even, so the bf16 values are equal)."""
+    import jax
+    from zerovox_tpu_torch.models.pipeline import cast_params
+    bj, bt = weights
+    bj16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), bj)
+    bt16 = cast_params(bt, torch.bfloat16)
+    np.testing.assert_array_equal(
+        bt16[0]["convs1"][0]["w"].float().numpy().transpose(2, 1, 0),
+        np.asarray(bj16[0]["convs1"][0]["w"].astype(jnp.float32)))
+    return bj16, bt16
+
+
+def _close_bf16(got, ref):
+    """At most 2 bf16 ulps of each element's magnitude (tests/test_pallas.py's
+    yardstick), plus a floor of one ulp at the output's scale: both sides
+    sum the same exact products in f32, in another order, so an operand's or
+    the result's rounding to bf16 can fall the other way, and an error of
+    one ulp of an intermediate does not shrink with a small output element."""
+    assert got.dtype == torch.bfloat16
+    g = got.float().numpy()
+    r = np.asarray(ref.astype(jnp.float32))
+    assert g.shape == r.shape
+    tol = BF16_ULP * (2 * np.maximum(np.abs(r), np.abs(g)) + np.abs(r).max())
+    assert np.all(np.abs(g - r) <= tol), float((np.abs(g - r) / tol).max())
+    # and most elements are equal or one ulp apart
+    assert np.mean(np.abs(g - r) <= BF16_ULP * np.abs(r)) > 0.9
+
+
+@pytest.mark.parametrize("L,in_bias,out_leaky", [
+    (100, False, None), (64, True, 0.01), (77, True, 0.1)])
+def test_mrf_stage_bf16_matches_jax(rng, weights_bf16, L, in_bias, out_leaky):
+    """The plain bf16 stage against the TPU kernel's dot_bf16 mode (Pallas in
+    interpret mode, rho=1) on the same bf16 inputs."""
+    bj, bt = weights_bf16
+    x = rng.normal(size=(2, L, 16)).astype(np.float32)
+    b = rng.normal(size=(16,)).astype(np.float32) if in_bias else None
+    ref = folded_mrf_stage(jnp.asarray(x).astype(jnp.bfloat16), bj, DILS, K, rho=1,
+                           in_bias=None if b is None else jnp.asarray(b).astype(jnp.bfloat16),
+                           out_leaky=out_leaky)
+    assert ref.dtype == jnp.bfloat16
+    got = ms.mrf_stage_ref(_bf16(x), bt, DILS, K,
+                           in_bias=None if b is None else _bf16(b), out_leaky=out_leaky)
+    _close_bf16(got, ref)
+
+
+@pytest.mark.parametrize("s,Cin,R,in_leaky", [(5, 32, 23, 0.1), (3, 24, 30, None)])
+def test_mrf_stage_bf16_upsample_matches_jax(rng, weights_bf16, s, Cin, R, in_leaky):
+    """The fused upsample with in_bias, in_leaky and out_leaky, as vocode
+    calls a stage, in bf16."""
+    bj, bt = weights_bf16
+    x = rng.normal(size=(2, R, Cin)).astype(np.float32)
+    w = (rng.normal(size=(2 * s, Cin, 16)) * 0.2).astype(np.float32)   # JAX flipped HIO
+    b = rng.normal(size=(16,)).astype(np.float32)
+    pad, opad = s // 2 + s % 2, s % 2
+    j16 = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    ref = folded_mrf_stage(
+        j16(x), bj, DILS, K, rho=1, in_group=s, in_bias=j16(b),
+        upsample=dict(w=j16(w), stride=s, padding=pad, output_padding=opad, rho_in=1,
+                      in_leaky=in_leaky),
+        out_leaky=0.1)
+    got = ms.mrf_stage(
+        _bf16(x), bt, DILS, K,
+        upsample=dict(w=_bf16(w.transpose(2, 1, 0)), stride=s, padding=pad,
+                      output_padding=opad),
+        in_bias=_bf16(b), in_leaky=in_leaky, out_leaky=0.1)
+    _close_bf16(got, ref)
+
+
+def test_mrf_stage_unfolded_bf16_matches_jax(rng, weights_bf16):
+    """The unfolded entry in bf16 is the bf16 kernel with every option off:
+    equal to mrf_stage without options, and held against the TPU kernel's
+    dot_bf16 mode at rho=1.  The JAX package's own mrf_stage_unfolded (an
+    experiment that no path runs) leaves dot_bf16 off, so its dots take
+    unrounded f32 operands: it agrees only to a few bf16 ulps of the
+    output's scale (4 are allowed here)."""
+    bj, bt = weights_bf16
+    x = rng.normal(size=(1, 120, 16)).astype(np.float32)
+    got = ms.mrf_stage_unfolded(_bf16(x), bt, DILS, K)
+    torch.testing.assert_close(got, ms.mrf_stage(_bf16(x), bt, DILS, K), rtol=0, atol=0)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    _close_bf16(got, folded_mrf_stage(xj, bj, DILS, K, rho=1))
+    ref = np.asarray(mrf_stage_unfolded(xj, bj, DILS, K, rho=1, t_blk=32).astype(jnp.float32))
+    assert np.abs(got.float().numpy() - ref).max() <= 4 * BF16_ULP * np.abs(ref).max()
+
+
+def test_bf16_stage_rounds_once(rng, weights_bf16):
+    """1/n and out_leaky act on the f32 sum and the result is rounded once:
+    the fused out_leaky equals leaky(f32 result) rounded, which a leaky
+    applied to the rounded stage output (two roundings) only approaches, to
+    2 bf16 ulps of each element (tests/test_pallas.py pins the same order)."""
+    from zerovox_tpu_torch.ops import leaky_relu
+    _, bt = weights_bf16
+    x = _bf16(rng.normal(size=(2, 90, 16)))
+    fused = ms.mrf_stage_ref(x, bt, DILS, K, out_leaky=0.1)
+    # the unrounded f32 result: the same chain on f32 copies of the bf16
+    # values, with each conv's operand rounded as the bf16 mode rounds it
+    h = x.float()
+    acc = sum(ms.residual_block(h, blk, DILS[j], K) for j, blk in enumerate(bt)) * 0.5
+    assert acc.dtype == torch.float32
+    torch.testing.assert_close(fused, leaky_relu(acc, 0.1).to(torch.bfloat16), rtol=0, atol=0)
+    twice = leaky_relu(ms.mrf_stage_ref(x, bt, DILS, K), 0.1)
+    d = (fused.float() - twice.float()).abs()
+    ulp = torch.maximum(fused.float().abs(), twice.float().abs()) * BF16_ULP + 1e-9
+    assert (d <= 2 * ulp).all() and (d > 0).any()
+
+
+def test_bf16_operands_are_rounded(rng, weights_bf16):
+    """The bf16 stage is not the f32 stage on bf16-valued inputs: each
+    conv's operand is rounded after the leaky, which moves the result."""
+    from zerovox_tpu_torch.models.pipeline import cast_params
+    _, bt = weights_bf16
+    x = _bf16(rng.normal(size=(1, 60, 16)))
+    got = ms.mrf_stage_ref(x, bt, DILS, K).float()
+    exact = ms.mrf_stage_ref(x.float(), cast_params(bt, torch.float32), DILS, K)
+    assert not torch.equal(got, exact.to(torch.bfloat16).float())
+    torch.testing.assert_close(got, exact, rtol=0, atol=8 * BF16_ULP * exact.abs().max().item())
+
+
+def test_stage_dtype_mismatch_raises(rng, weights, weights_bf16):
+    """One dtype per call, float32 or bfloat16, on the CPU path as on the card's."""
+    _, bt = weights
+    _, bt16 = weights_bf16
+    x = torch.from_numpy(rng.normal(size=(1, 40, 16)).astype(np.float32))
+    with pytest.raises(TypeError):
+        ms.mrf_stage(x.to(torch.bfloat16), bt, DILS, K)
+    with pytest.raises(TypeError):
+        ms.mrf_stage(x, bt16, DILS, K)
+    with pytest.raises(TypeError):
+        ms.mrf_stage_unfolded(x.double(), bt, DILS, K)
+    up = dict(w=torch.zeros(16, 32, 10), stride=5, padding=3, output_padding=1)
+    with pytest.raises(TypeError):                        # f32 upsample, bf16 stage
+        ms.mrf_stage(torch.zeros(1, 8, 32, dtype=torch.bfloat16), bt16, DILS, K, upsample=up)
+    with pytest.raises(TypeError):
+        ms.pack_stage(bt16, DILS, K, up["w"])
+
+
+def test_pack_stage_layout_bf16(rng):
+    """bf16 weights: conv q at w[q][k][ci // 2][co ^ 8 * (ci // 2 % 4)][ci % 2], a
+    32-bit word per pair of input channels whose low half is the even
+    channel (one register of the bf16 MMA's B fragment); biases widened to
+    f32; the upsample taps stay [k][ci][co] in bf16."""
+    C = 64
+    blk = {cs: [{"w": _bf16(rng.normal(size=(C, C, K))), "b": _bf16(rng.normal(size=(C,)))}]
+           for cs in ("convs1", "convs2")}
+    up = _bf16(rng.normal(size=(C, 2 * C, 10)))
+    pk = ms.pack_stage([blk], [(1,)], K, up)
+    assert pk.w.shape == (2, K, C // 2, C, 2) and pk.w.dtype == torch.bfloat16
+    assert pk.w.is_contiguous() and pk.b.dtype == torch.float32
+    assert pk.w_up.dtype == torch.bfloat16 and pk.w_up.shape == (10, 2 * C, C)
+    for q, cs in enumerate(("convs1", "convs2")):
+        w = blk[cs][0]["w"]
+        torch.testing.assert_close(pk.b[q], blk[cs][0]["b"].float(), rtol=0, atol=0)
+        for ci in (0, 1, 2, 3, 6, 7, 9, 62, 63):
+            for co in (0, 5, 8, 31, 40, 63):
+                assert pk.w[q, 2, ci // 2, co ^ 8 * (ci // 2 % 4), ci % 2] == w[co, ci, 2]
+    # as the kernel reads it: little-endian words, the even channel in the low half
+    words = pk.w.view(torch.int32)[..., 0]
+    lo = (words[0, 1, 3, 40 ^ 8 * 3] & 0xFFFF).item()
+    assert lo == blk["convs1"][0]["w"][40, 6, 1].view(torch.int16).item() & 0xFFFF
+    for k in range(10):
+        torch.testing.assert_close(pk.w_up[k], up[:, :, 9 - k].T, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("C,cin,s,k,L_out", STAGES)
+def test_tile_plan_bf16_production(C, cin, s, k, L_out):
+    """2-byte weights: chunks hold twice the channels of an f32 chunk of
+    their bytes, the f32 windows take a stride of C + 8, everything fits
+    232448 bytes, and at the serving shape (B=1, bucket 256) the grid still
+    fills its last wave of 44 clusters to within one."""
+    nt, mt, warps_m = ms.warp_grid(C)
+    longest = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, elem=2)
+    assert longest.ss == C + 8 and longest.kc in ms.chunk_channels(nt, 2)
+    assert ms.chunk_channels(nt, 2) == tuple(2 * c for c in ms.chunk_channels(nt, 4))
+    window = longest.tile + 24
+    assert longest.smem == 4 * (longest.stages * longest.kc * C // 2 + 2 * window * longest.ss) \
+        + 16 * longest.stages <= 232448
+    assert warps_m * mt * 16 >= window - 2 and C % longest.kc == 0
+    assert longest.kc * C // 2 <= max(8192, 16 * C)
+    assert ((window + k - 2) // s + 2) * cin <= window * longest.ss
+    plan = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L_out, elem=2)
+    waves = -(-plan.clusters // 44)
+    assert plan.tile <= longest.tile and waves * 44 - plan.clusters <= 1
+    assert plan.clusters * plan.tile >= L_out > (plan.clusters - 1) * plan.tile
+    f32 = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L_out)
+    assert -(-f32.clusters // 44) == waves            # no more waves than the f32 plan
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("frames", [96, 80, 44, 17, 1])
+def test_tile_plan_streaming_windows(elem, frames):
+    """Streaming windows (96: an interior chunk of 64 + 2 x 16; 80: the
+    first chunk; 44: the tail 1500 % 64 + 16; down to one frame) give every
+    stage a valid plan of one wave of 39 clusters (two at stage 4 of the
+    longest window, whose bf16 tile is the shorter): tiles of at least one
+    row that cover L_out, pre-upsample rows that fit the staging window,
+    shared memory within the limit."""
+    L = frames
+    for C, cin, s, k, _ in STAGES:
+        L *= s
+        plan = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L, wave=39, elem=elem)
+        window = plan.tile + 24
+        assert plan.tile >= 1 and 1 <= plan.clusters <= (78 if (C, frames) == (32, 96) else 39)
+        assert plan.clusters * plan.tile >= L > (plan.clusters - 1) * plan.tile
+        assert ((window + k - 2) // s + 2) * cin <= window * plan.ss
+        assert plan.smem <= 232448
+        assert plan.smem == 4 * (plan.stages * plan.kc * C * elem // 4 + 2 * window * plan.ss) \
+            + 16 * plan.stages
+
+
+def test_tile_plan_bf16_rejects():
+    with pytest.raises(ValueError):                       # an element size with no kernel mode
+        ms.tile_plan(256, PROD_DILS, elem=3)
+    with pytest.raises(ValueError):                       # 16 channels: half a word row set
+        ms.tile_plan(256, PROD_DILS, kc=16, elem=2)
+    with pytest.raises(ValueError):                       # chunk not dividing C
+        ms.tile_plan(64, PROD_DILS, kc=128, elem=2)
+    assert ms.tile_plan(256, PROD_DILS, kc=32, elem=2).kc == 32

@@ -162,3 +162,126 @@ def test_leaky_and_sinusoid(rng):
                                       np.asarray(jops.leaky_relu(jnp.asarray(x), s)))
     np.testing.assert_array_equal(tops.sinusoid_encoding_table(65, 56),
                                   jops.sinusoid_encoding_table(65, 56))
+
+
+# --------------------------------------------------------------------------
+# bf16 (the serving dtype): bf16 operands, f32 accumulation, one rounding
+# --------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -8
+
+
+def _t16(a):
+    return _t(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def _j16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def _close16(got, ref, ulps=2.0):
+    """Both sides round the same f32 sums (taken in another order) to bf16:
+    equal to `ulps` bf16 ulps of each element plus one at the output's
+    scale (a sum near a rounding boundary falls either way; after a bias
+    add, twice)."""
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    g, r = got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    assert g.shape == r.shape
+    assert np.all(np.abs(g - r) <= BF16_ULP * (ulps * np.abs(r) + np.abs(r).max()))
+    assert np.mean(g == r) > 0.9
+
+
+@pytest.mark.parametrize("dim,fn", [(-1, "layer_norm"), (-2, "instance_norm")])
+def test_norm_moments_one_pass_for_bf16(rng, dim, fn):
+    """A non-f32 input takes its moments in one pass, E[x^2] - E[x]^2 clamped
+    at 0, in f32 (the JAX package's serving rule); an f32 input in two."""
+    x = (rng.normal(size=(2, 24, 56)) * 3 + 1).astype(np.float32)
+    x16 = _t16(x)
+    xf = x16.float()
+    n = xf.shape[dim]
+    mean = xf.sum(dim, keepdim=True) / n
+    var = torch.clamp((xf * xf).sum(dim, keepdim=True) / n - mean * mean, min=0.0)
+    want = ((xf - mean) / torch.sqrt(var + 1e-5)).to(torch.bfloat16)
+    got = getattr(tops, fn)(x16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2 * BF16_ULP * 4)
+    _close16(got, getattr(jops, fn)(_j16(x)))
+    # a constant input: the one-pass variance cancels to <= 0 and is clamped
+    flat = torch.full((1, 16, 8), 3.140625, dtype=torch.bfloat16)
+    assert torch.isfinite(getattr(tops, fn)(flat).float()).all()
+    # the f32 path is still two-pass: exact zero for a constant
+    assert getattr(tops, fn)(flat.float()).abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("Cin,Cout,K,pad,dil", [
+    (8, 16, 3, 1, 1), (32, 32, 3, 5, 5), (528, 256, 3, 1, 1), (1056, 64, 1, 0, 1)])
+def test_conv1d_bf16(rng, Cin, Cout, K, pad, dil):
+    x = rng.normal(size=(2, 40, Cin)).astype(np.float32)
+    w = (rng.normal(size=(K, Cin, Cout)) / np.sqrt(K * Cin)).astype(np.float32)
+    b = rng.normal(size=(Cout,)).astype(np.float32)
+    got = tops.conv1d(_t16(x), _t16(w.transpose(2, 1, 0)), _t16(b), padding=pad, dilation=dil)
+    _close16(got, jops.conv1d(_j16(x), _j16(w), _j16(b), padding=pad, dilation=dil))
+
+
+def test_conv_transpose1d_and_linear_bf16(rng):
+    x = rng.normal(size=(2, 24, 32)).astype(np.float32)
+    w = (rng.normal(size=(10, 32, 16)) / np.sqrt(32)).astype(np.float32)
+    b = rng.normal(size=(16,)).astype(np.float32)
+    got = tops.conv_transpose1d(_t16(x), _t16(w.transpose(2, 1, 0)), _t16(b), stride=5,
+                                padding=3, output_padding=1)
+    _close16(got, j_convT(_j16(x), _j16(w), _j16(b), stride=5, padding=3, output_padding=1))
+    wl = (rng.normal(size=(32, 48)) / np.sqrt(32)).astype(np.float32)
+    bl = rng.normal(size=(48,)).astype(np.float32)
+    _close16(tops.linear(_t16(x), _t16(wl.T), _t16(bl)), jops.linear(_j16(x), _j16(wl), _j16(bl)))
+    assert tops.matmul(_t16(x), _t16(wl)).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_multi_head_attention_bf16(rng, masked):
+    """Scores and softmax in f32, 1/sqrt(d_k) and the probabilities rounded
+    to bf16, as the JAX op; the block ends in a layer norm, so errors are
+    measured at unit scale: 4 ulps + one at the output's scale."""
+    C, H, T = 56, 2, 12
+    x = rng.normal(size=(2, T, C)).astype(np.float32)
+    pj, pt = {}, {}
+    for n in ("q", "k", "v", "o"):
+        w = (rng.normal(size=(C, C)) / np.sqrt(C)).astype(np.float32)
+        b = rng.normal(size=(C,)).astype(np.float32) * 0.1
+        pj["w" + n], pj["b" + n] = _j16(w), _j16(b)
+        pt["w" + n], pt["b" + n] = _t16(w.T), _t16(b)
+    g = rng.normal(size=(C,)).astype(np.float32)
+    b = rng.normal(size=(C,)).astype(np.float32)
+    pj["ln_g"], pj["ln_b"], pt["ln_g"], pt["ln_b"] = _j16(g), _j16(b), _t16(g), _t16(b)
+    mask = np.arange(T)[None, :] < np.asarray([T, 7])[:, None] if masked else None
+    got = tops.multi_head_attention(_t16(x), pt, H, mask=None if mask is None else _t(mask))
+    ref = jops.multi_head_attention(_j16(x), pj, H,
+                                    mask=None if mask is None else jnp.asarray(mask))
+    assert got.dtype == torch.bfloat16
+    g_, r_ = got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    assert np.all(np.abs(g_ - r_) <= BF16_ULP * (4 * np.abs(r_) + np.abs(r_).max()))
+
+
+def test_bf16_scalars_and_reductions(rng, monkeypatch):
+    """A scalar that meets a bf16 tensor is rounded to bf16 first (JAX's
+    weak typing); the int ops work on f32 casts; reduced-precision bf16
+    reductions are off inside a product and restored after it."""
+    assert tops.scalar_as(0.2, torch.bfloat16) == 0.2001953125
+    assert tops.scalar_as(0.2, torch.float32) == float(np.float32(0.2))
+    x = rng.normal(size=(4, 33)).astype(np.float32)
+    for s in (0.1, 0.01, 0.2):
+        np.testing.assert_array_equal(
+            tops.leaky_relu(_t16(x), s).float().numpy(),
+            np.asarray(jops.leaky_relu(_j16(x), s).astype(jnp.float32)))
+    p = rng.uniform(-0.2, 1.2, size=(3, 50)).astype(np.float32)
+    np.testing.assert_array_equal(tops.bucketize(_t16(p), 256).numpy(),
+                                  np.asarray(jops.bucketize(_j16(p), 256)))
+    ld = rng.normal(1.0, 1.5, size=(2, 40)).astype(np.float32)
+    np.testing.assert_array_equal(tops.durations_from_log(_t16(ld), 1500).numpy(),
+                                  np.asarray(jops.durations_from_log(_j16(ld), 1500)))
+    # f32 accumulation of cuBLAS's bf16 products is a process-wide switch,
+    # set once where a CUDA device is resolved, not around each product
+    from zerovox_tpu_torch.device import full_precision_products
+    mm = torch.backends.cuda.matmul
+    monkeypatch.setattr(mm, "allow_bf16_reduced_precision_reduction", True)
+    full_precision_products()
+    assert not mm.allow_bf16_reduced_precision_reduction

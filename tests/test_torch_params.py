@@ -93,3 +93,27 @@ def test_params_to_device_and_dtype():
     assert leaves and all(t.dtype == torch.float64 for t in leaves)
     moved = tparams.params_to_device(pt, "cpu")
     assert moved["vocoder"]["mean"].device.type == "cpu"
+
+
+def test_bf16_trees_start_from_the_same_weights():
+    """The converter carries bf16 trees: params_from_arrays(dtype=bfloat16)
+    rounds each f32 array to nearest even (io.gguf.f32_to_bf16_u16's bits),
+    as the JAX package's cast_params does, so both packages start from the
+    same bf16 values; params_to_arrays widens a bf16 tree back exactly."""
+    import jax.numpy as jnp
+    from zerovox_tpu.models.pipeline import cast_params as j_cast
+    from zerovox_tpu_torch.io.gguf import f32_to_bf16_u16
+    from zerovox_tpu_torch.models.pipeline import cast_params
+    pj = jparams.init_params(J_TINY, seed=2)
+    arrays = jparams.params_to_arrays(pj, J_TINY)
+    pt16 = tparams.params_from_arrays(arrays, TINY_CONFIG, device="cpu", dtype=torch.bfloat16)
+    back = tparams.params_to_arrays(pt16, TINY_CONFIG)
+    widened = jparams.params_to_arrays(
+        j_cast(j_cast(pj, jnp.bfloat16), jnp.float32), J_TINY)
+    _assert_same_arrays(back, widened)
+    name = next(n for n in arrays if arrays[n].ndim == 3)
+    bits = (f32_to_bf16_u16(arrays[name]).astype(np.uint32) << 16).view(np.float32)
+    np.testing.assert_array_equal(back[name], bits)
+    same = cast_params(tparams.params_from_arrays(arrays, TINY_CONFIG, device="cpu"),
+                       torch.bfloat16)
+    _assert_same_arrays(tparams.params_to_arrays(same, TINY_CONFIG), back)

@@ -73,12 +73,143 @@ def test_synthesize_matches_jax(rng, model, lens, pass_n):
 
 
 def test_synthesize_rejects_bf16(model):
+    """What synthesize still rejects is a compute_dtype it does not know;
+    bfloat16, which it refused before the bf16 serving path was ported, runs
+    (test_synthesize_bf16 holds it against the JAX package)."""
     _, pt = model
-    with pytest.raises(NotImplementedError):
-        synthesize(pt, TINY_CONFIG.replace(compute_dtype="bfloat16"),
-                   np.zeros((1, 16)), np.zeros((1, 16)),
-                   np.zeros((1, TINY_CONFIG.d_model)), device="cpu")
+    args = (np.zeros((1, 16)), np.zeros((1, 16)), np.zeros((1, TINY_CONFIG.d_model)))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        synthesize(pt, TINY_CONFIG.replace(compute_dtype="float16"), *args, device="cpu")
+    out = synthesize(cast_params(pt, torch.bfloat16),
+                     TINY_CONFIG.replace(compute_dtype="bfloat16"), *args, device="cpu")
+    assert out.wav.dtype == out.mel.dtype == torch.bfloat16
     assert cast_params(pt, torch.float64)["vocoder"]["mean"].dtype == torch.float64
+    assert cast_params(pt, torch.bfloat16)["vocoder"]["mean"].dtype == torch.bfloat16
+
+
+def test_synthesize_bf16(rng, model):
+    """The slice as a whole in the serving dtype, against the JAX package's
+    synthesize run eagerly (under jit XLA drops some bf16 roundings; see
+    test_torch_stages.py) on weights cast from the same f32 tree.  A last-bit
+    difference in a log-duration can flip floor(exp(ld) - 0.5) and shift
+    every later sample, so the inputs are checked to keep a margin from that
+    boundary, and then: equal durations and mel_len, the mel within 6 bf16
+    ulps of max|mel| (the decoder's tolerance), and a finite waveform of the
+    right shape inside [-1, 1] within 8 ulps of max|wav| of JAX's (the
+    vocoder's 6, on mels that differ)."""
+    from zerovox_tpu.models.pipeline import cast_params as j_cast, synthesize as j_synthesize
+    pj, pt = model
+    jcfg = J_TINY.replace(compute_dtype="bfloat16")
+    tcfg = TINY_CONFIG.replace(compute_dtype="bfloat16")
+    src, pun, sty, n = _batch(rng, 2, (16, 11))
+    ref = j_synthesize(j_cast(pj, jnp.bfloat16), jcfg, jnp.asarray(src), jnp.asarray(pun),
+                       jnp.asarray(sty), jnp.asarray(n))
+    got = synthesize(cast_params(pt, torch.bfloat16), tcfg, src, pun, sty, n, device="cpu")
+    frac = np.exp(np.asarray(ref.log_duration.astype(jnp.float32))) - 0.5
+    assert np.abs(frac - np.round(frac)).min() > 0.02, "inputs sit on a duration boundary"
+    np.testing.assert_array_equal(
+        durations_from_log(got.log_duration, tcfg.max_seq_len).numpy(),
+        np.asarray(j_durations(ref.log_duration, jcfg.max_seq_len)))
+    np.testing.assert_array_equal(got.mel_len.numpy(), np.asarray(ref.mel_len))
+    assert int(got.mel_len.min()) > 0
+    mel_r = np.asarray(ref.mel.astype(jnp.float32))
+    assert np.abs(got.mel.float().numpy() - mel_r).max() <= 6 * 2.0 ** -8 * np.abs(mel_r).max()
+    wav, wav_r = got.wav.float().numpy(), np.asarray(ref.wav.astype(jnp.float32))
+    assert wav.shape == wav_r.shape == (2, tcfg.wav_len)
+    assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    assert np.abs(wav - wav_r).max() <= 8 * 2.0 ** -8 * np.abs(wav_r).max()
+
+
+def test_engine_bf16(rng, model):
+    """TTSEngine(precision="bfloat16"): weights cast once, cfg switched to
+    the bf16 compute dtype, float32 waveforms handed back; its buckets,
+    packing and trimming give what synthesize gives on the cast weights (the
+    vocoder sees the same mel cut at a bucket: equal on the trimmed part)."""
+    _, pt = model
+    te = TTSEngine(pt, TINY_CONFIG, mel_buckets=(24, 40), batch_ladder=(1, 2, 4),
+                   precision="bfloat16", device="cpu")
+    assert te.cfg.compute_dtype == "bfloat16" and TINY_CONFIG.compute_dtype == "float32"
+    assert te.params["vocoder"]["input_conv_w"].dtype == torch.bfloat16
+    assert te.vocoder_packed is None                        # packed on a card only
+    src, pun, sty, n = _batch(rng, 3, (16, 3, 9))
+    wavs, lens = te.synthesize(src, pun, sty, n)
+    ref = synthesize(te.params, te.cfg, src, pun, sty, n, device="cpu")
+    np.testing.assert_array_equal(lens, ref.mel_len.numpy())
+    for i, w in enumerate(wavs):
+        assert w.dtype == np.float32 and len(w) == int(lens[i]) * TINY_CONFIG.hop_size
+        np.testing.assert_allclose(w, ref.wav[i, :len(w)].float().numpy(), rtol=0,
+                                   atol=2 * 2.0 ** -8)
+    packed, plens = te.synthesize_packed(src, pun, sty, n)
+    np.testing.assert_array_equal(plens, lens)
+    for a, b in zip(packed, wavs):
+        np.testing.assert_allclose(a, b, rtol=0, atol=2 * 2.0 ** -8)
+    pcm, _ = te.synthesize(src, pun, sty, n, pcm16=True)
+    for p, w in zip(pcm, wavs):
+        np.testing.assert_array_equal(p, float_to_pcm16(w))
+
+
+def test_reload_params(rng, model):
+    """reload_params swaps in weights of the same geometry (cast again for a
+    bf16 engine) and rejects any other tree."""
+    _, pt = model
+    other = tparams.init_params(TINY_CONFIG, seed=5, device="cpu")
+    src, pun, sty, n = _batch(rng, 1, (16,))
+    for precision in ("float32", "bfloat16"):
+        te = TTSEngine(pt, TINY_CONFIG, mel_buckets=(24,), precision=precision, device="cpu")
+        before, _ = te.synthesize(src, pun, sty, n, trim=False)
+        te.reload_params(other)
+        assert te.params["vocoder"]["input_conv_w"].dtype == (
+            torch.bfloat16 if precision == "bfloat16" else torch.float32)
+        after, _ = te.synthesize(src, pun, sty, n, trim=False)
+        fresh, _ = TTSEngine(other, TINY_CONFIG, mel_buckets=(24,), precision=precision,
+                             device="cpu").synthesize(src, pun, sty, n, trim=False)
+        np.testing.assert_array_equal(after[0], fresh[0])
+        assert not np.array_equal(after[0], before[0])
+        wide = tparams.init_params(TINY_CONFIG.replace(hifigan_channels=64), seed=0,
+                                   device="cpu")
+        with pytest.raises(ValueError, match="geometry"):
+            te.reload_params(wide)
+        missing = {k: v for k, v in other.items() if k != "decoder"}
+        with pytest.raises(ValueError, match="tree"):
+            te.reload_params(missing)
+        again, _ = te.synthesize(src, pun, sty, n, trim=False)
+        np.testing.assert_array_equal(again[0], after[0])   # a rejected reload changes nothing
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_synthesize_async_and_single_rtt(rng, model, precision):
+    """synthesize_async launches everything and fetch() collects it: the
+    same mel_len and waveforms as synthesize (the vocoder runs at the largest
+    bucket instead of the request's, which leaves the trimmed part equal to
+    atol 2e-5 in f32 and 2 bf16 ulps in bf16), for a batch larger than the
+    ladder top too; single_rtt=True is that path bit for bit, and is off by
+    default."""
+    pj, pt = model
+    te = TTSEngine(pt, TINY_CONFIG, mel_buckets=(24, 40), batch_ladder=(1, 2),
+                   precision=precision, device="cpu")
+    atol = 2e-5 if precision == "float32" else 2 * 2.0 ** -8
+    src, pun, sty, n = _batch(rng, 3, (16, 5, 11))            # 3 > ladder top 2
+    want, want_len = te.synthesize(src, pun, sty, n)
+    fetch = te.synthesize_async(src, pun, sty, n)
+    got, got_len = fetch()
+    np.testing.assert_array_equal(got_len, want_len)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=atol)
+    one, one_len = te.synthesize(src, pun, sty, n, single_rtt=True)
+    np.testing.assert_array_equal(one_len, want_len)
+    for a, b in zip(one, got):
+        np.testing.assert_array_equal(a, b)
+    full, _ = te.synthesize_async(src, pun, sty, n, trim=False, pcm16=True)()
+    assert all(w.shape == (TINY_CONFIG.wav_len,) and w.dtype == np.int16 for w in full)
+    if precision == "float32":                                # and the JAX engine's
+        je = JEngine(pj, J_TINY, mel_buckets=(24, 40), batch_ladder=(1, 2))
+        jw, jl = je.synthesize_async(src, pun, sty, n)()
+        np.testing.assert_array_equal(got_len, jl)
+        for a, b in zip(got, jw):
+            np.testing.assert_allclose(a, b, **WAV)
+    with pytest.raises(ValueError):
+        te.synthesize_async(src[:0], pun[:0], sty[:0])
 
 
 def test_engine_matches_jax(rng, model):
@@ -118,8 +249,10 @@ def test_engine_untrimmed_and_pcm16(rng, model):
         assert p.dtype == np.int16
         np.testing.assert_array_equal(p, float_to_pcm16(w))
     te.warmup(batch=2, pcm16=True)
-    with pytest.raises(NotImplementedError):
-        TTSEngine(pt, TINY_CONFIG, precision="bfloat16", device="cpu")
+    assert TTSEngine(pt, TINY_CONFIG, precision="bfloat16",
+                     device="cpu").cfg.compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="precision"):
+        TTSEngine(pt, TINY_CONFIG, precision="float16", device="cpu")
     with pytest.raises(ValueError):
         te.synthesize(src[:0], pun[:0], sty[:0])
 
@@ -156,8 +289,12 @@ def test_cli_input_file_and_unported_flags(tmp_path, rng, model):
     wavs, _ = TTSEngine(loaded, cfg, device="cpu").synthesize(src, pun, style, n)
     expect = float_to_pcm16(wavs[0]).astype(np.float32) / 32767.0
     np.testing.assert_array_equal(read_wav(out)[0], expect)
-    for flag in ("--stream", "--serve", "--split-long", "--verify",
-                 "--mesh=2,1", "--compile-cache=/tmp/x"):
+    out16 = str(tmp_path / "o16.wav")
+    assert tcli.main(["--model", ckpt, "--input", str(inp), "--output", out16,
+                      "--device", "cpu", "--precision", "bfloat16"]) == 0
+    w16 = read_wav(out16)[0]
+    assert len(w16) > 0 and np.isfinite(w16).all()
+    for flag in ("--serve", "--verify", "--mesh=2,1", "--compile-cache=/tmp/x"):
         with pytest.raises(SystemExit, match="not yet ported"):
             tcli.main(["--model", ckpt, "--demo", "--device", "cpu", flag])
     with pytest.raises(ValueError, match="max_n_phonemes"):

@@ -140,3 +140,97 @@ def test_vocode_production_width(rng, prod):
     got = hifigan.vocode(pt, tcfg, torch.from_numpy(mel))
     assert got.shape == (1, 16 * tcfg.hop_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-3, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# bf16 (the serving dtype), each stage fed the same bf16 inputs on both sides
+# --------------------------------------------------------------------------
+# Both trees are cast from the same f32 weights (cast_params on either side
+# rounds to nearest even).  The JAX references run EAGERLY here: under
+# jax.jit XLA fuses away some of the bf16 roundings between ops, which moves
+# the JAX result itself by a bf16 ulp or two and can flip a pitch or energy
+# bucket; eager JAX rounds after every op, as PyTorch does.  A whole-pipeline
+# comparison in bf16 would test nothing (one flipped duration shifts every
+# later sample), so each stage gets the other side's input.
+
+BF16_ULP = 2.0 ** -8
+
+
+@pytest.fixture(scope="module")
+def tiny16(tiny):
+    from zerovox_tpu.models.pipeline import cast_params as j_cast
+    from zerovox_tpu_torch.models.pipeline import cast_params
+    pj, pt = tiny
+    return j_cast(pj, jnp.bfloat16), cast_params(pt, torch.bfloat16)
+
+
+def _j16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def _t16(a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16)
+
+
+def _ulps_of_scale(got, ref):
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    g, r = got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    assert g.shape == r.shape and np.isfinite(g).all()
+    return np.abs(g - r).max() / (BF16_ULP * np.abs(r).max())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_encode_bf16(rng, tiny16, masked):
+    """Encoder + variance adaptor in bf16: every product is an f32 sum of
+    exact products rounded once, the norms take one-pass f32 moments, the
+    bucketizers work on f32 casts: features and log-durations within one
+    bf16 ulp of their scale of eager JAX (equal, in practice), and so no
+    bucket flips."""
+    pj, pt = tiny16
+    jcfg = J_TINY.replace(use_attention_mask=masked, compute_dtype="bfloat16")
+    tcfg = TINY_CONFIG.replace(use_attention_mask=masked, compute_dtype="bfloat16")
+    P = TINY_CONFIG.max_n_phonemes
+    src = rng.integers(1, TINY_CONFIG.num_phonemes + 1, size=(2, P))
+    pun = rng.integers(0, TINY_CONFIG.num_puncts + 1, size=(2, P))
+    sty = rng.normal(scale=0.1, size=(2, TINY_CONFIG.d_model)).astype(np.float32)
+    n = np.asarray([P, 9])
+    fj, lj = j_enc.encode(pj, jcfg, jnp.asarray(src), jnp.asarray(pun), _j16(sty),
+                          phoneme_mask=j_enc.phoneme_mask(jnp.asarray(n), P))
+    ft, lt = fs2_encoder.encode(pt, tcfg, torch.from_numpy(src), torch.from_numpy(pun),
+                                _t16(sty),
+                                phoneme_mask=fs2_encoder.phoneme_mask(torch.from_numpy(n), P))
+    assert _ulps_of_scale(ft, fj) <= 1.0
+    assert _ulps_of_scale(lt, lj) <= 1.0
+
+
+def test_decode_bf16(rng, tiny16):
+    """The decoder on JAX's own bf16 hidden: 6 bf16 ulps of max|mel| (five
+    AdaIN blocks, each with two instance norms over the time axis whose f32
+    sums the two sides take in another order)."""
+    pj, pt = tiny16
+    hidden = rng.normal(size=(2, TINY_CONFIG.max_seq_len, TINY_CONFIG.d_model)).astype(np.float32)
+    hidden[1, 40:] = 0.0
+    sty = rng.normal(scale=0.1, size=(2, TINY_CONFIG.d_model)).astype(np.float32)
+    ref = j_dec.decode(pj, J_TINY.replace(compute_dtype="bfloat16"), _j16(hidden), _j16(sty))
+    got = styletts_decoder.decode(pt, TINY_CONFIG.replace(compute_dtype="bfloat16"),
+                                  _t16(hidden), _t16(sty))
+    assert _ulps_of_scale(got, ref) <= 6.0
+
+
+@pytest.mark.parametrize("backend,ulps", [("pallas", 5.0), ("folded", 6.0)])
+def test_vocode_bf16(rng, tiny16, backend, ulps):
+    """The vocoder on the same bf16 mel.  "pallas" runs the TPU kernel (in
+    interpret mode) where TINY's widths pass its gate (stage 1, C=16 at
+    rho=8; the narrower stages take the folded XLA form), "folded" nowhere;
+    the folded form keeps its chain state in bf16 between convs where the
+    port's stage and the kernel keep it in f32, so the waveforms agree to a
+    few bf16 ulps of max|wav|, not to the stage test's 2 ulps per element."""
+    pj, pt = tiny16
+    mel = rng.normal(size=(2, 40, TINY_CONFIG.num_mels)).astype(np.float32)
+    ref = j_voc.vocode(pj, J_TINY.replace(compute_dtype="bfloat16", vocoder_backend=backend),
+                       _j16(mel))
+    got = hifigan.vocode(pt, TINY_CONFIG.replace(compute_dtype="bfloat16"), _t16(mel))
+    assert got.shape == (2, 40 * TINY_CONFIG.hop_size)
+    assert _ulps_of_scale(got, ref) <= ulps
+    packed = hifigan.pack_vocoder(pt, TINY_CONFIG)
+    assert packed[0].w.dtype == torch.bfloat16 and packed[0].b.dtype == torch.float32

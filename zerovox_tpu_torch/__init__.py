@@ -5,6 +5,10 @@ vocoder on PyTorch, with the vocoder's fused multi-receptive-field stage as
 a hand-written CUDA kernel for Hopper (sm_90a).  Same GGUF checkpoints and
 parameter paths as the JAX package, which it imports nothing of.
 
+float32 is the parity dtype, bfloat16 (TTSEngine(precision="bfloat16"),
+cfg.compute_dtype) the serving dtype; StreamingSynthesizer vocodes in
+chunks for a short time to first audio.
+
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu".
 """
@@ -12,12 +16,15 @@ device="cpu".
 __version__ = "0.1.0"
 
 from .config import TINY_CONFIG, ZeroVoxConfig
-from .models.pipeline import SynthesisResult, synthesize
+from .models.pipeline import SynthesisResult, cast_params, synthesize
+from .models.streaming import StreamingSynthesizer
 from .params import init_params, load_params, save_params
 from .runtime.engine import TTSEngine
+from .runtime.longform import synthesize_long
 
 __all__ = [
     "ZeroVoxConfig", "TINY_CONFIG",
     "init_params", "load_params", "save_params",
-    "synthesize", "SynthesisResult", "TTSEngine",
+    "synthesize", "SynthesisResult", "cast_params", "TTSEngine",
+    "StreamingSynthesizer", "synthesize_long",
 ]

@@ -6,9 +6,16 @@ Input JSON format (one utterance, arrays padded or not):
 Usage:
   python -m zerovox_tpu_torch.cli --model model.gguf --input utt.json --output out.wav
   python -m zerovox_tpu_torch.cli --model model.gguf --demo --output out.wav
+  python -m zerovox_tpu_torch.cli --model model.gguf --demo --precision bfloat16 \\
+      --stream --output out.wav
+  python -m zerovox_tpu_torch.cli --model model.gguf --input long.json --split-long
   python -m zerovox_tpu_torch.cli --model model.gguf --demo --device cpu
 
 Runs on the card (--device cuda, the default) unless asked for the CPU.
+--precision bfloat16 is the serving dtype; --stream vocodes in chunks and
+writes each to the WAV file as it arrives (the TTFA line on stderr is the
+time to the first chunk on disk); --split-long takes an utterance longer
+than max_n_phonemes, split at punctuation.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import time
 import numpy as np
 
 # flags of the JAX package's CLI whose paths later slices of the port bring
-_NOT_PORTED = ("stream", "serve", "split_long", "verify", "mesh", "compile_cache")
+_NOT_PORTED = ("serve", "verify", "mesh", "compile_cache")
 
 
 def _load_utterance(path: str, cfg):
@@ -55,10 +62,19 @@ def main(argv=None):
     ap.add_argument("--demo", action="store_true",
                     help="synthesize a random demo utterance")
     ap.add_argument("--output", default="out.wav", help="output WAV path")
+    ap.add_argument("--precision", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--stream", action="store_true",
+                    help="use the streaming chunked vocoder")
+    ap.add_argument("--chunk-frames", type=int, default=64)
+    ap.add_argument("--overlap", type=int, default=16)
     ap.add_argument("--buckets", default="256,512,1024",
                     help="comma-separated mel-length buckets")
     ap.add_argument("--no-trim", action="store_true",
                     help="keep the full padded waveform (reference behavior)")
+    ap.add_argument("--split-long", action="store_true",
+                    help="accept utterances longer than max_n_phonemes by "
+                         "splitting at punctuation into one packed batch")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu for the "
                          "plain PyTorch path)")
@@ -72,12 +88,9 @@ def main(argv=None):
             raise SystemExit(f"--{flag.replace('_', '-')} is not yet ported to "
                              "zerovox_tpu_torch; use python -m zerovox_tpu.cli")
 
-    from zerovox_tpu_torch.io.wav import write_wav
+    from zerovox_tpu_torch.io.wav import StreamingWavWriter, write_wav
     from zerovox_tpu_torch.params import load_params
     from zerovox_tpu_torch.runtime.engine import TTSEngine
-
-    if not (args.input or args.demo):
-        ap.error("one of --input / --demo is required")
 
     t0 = time.perf_counter()
     try:
@@ -89,11 +102,67 @@ def main(argv=None):
     print(f"loaded {args.model} ({time.perf_counter()-t0:.2f}s): "
           f"d_model={cfg.d_model} max_seq_len={cfg.max_seq_len} "
           f"sr={cfg.sampling_rate} device={args.device}", file=sys.stderr)
-
-    src, pun, style, n = (_load_utterance(args.input, cfg) if args.input
-                          else _demo_utterance(cfg))
     buckets = tuple(int(b) for b in args.buckets.split(",") if b)
-    engine = TTSEngine(params, cfg, mel_buckets=buckets, device=args.device)
+
+    if args.split_long:
+        if not args.input:
+            ap.error("--split-long needs --input (a JSON utterance)")
+        from zerovox_tpu_torch.runtime.longform import split_utterance, synthesize_long
+        from zerovox_tpu_torch.runtime.utterance import parse_utterance_arrays
+        try:
+            with open(args.input) as f:
+                ph, pu, style = parse_utterance_arrays(json.load(f), cfg)
+        except (OSError, json.JSONDecodeError, ValueError) as e:
+            raise SystemExit(f"{args.input}: {e}")
+        if not args.stream:
+            engine = TTSEngine(params, cfg, mel_buckets=buckets, precision=args.precision,
+                               device=args.device)
+            t0 = time.perf_counter()
+            wav, mel_len = synthesize_long(engine, ph, pu, style)
+            print(f"synthesized {len(ph)} phonemes as {len(mel_len)} windows "
+                  f"({time.perf_counter()-t0:.2f}s incl. first-call set-up)", file=sys.stderr)
+            write_wav(args.output, wav, cfg.sampling_rate)
+            print(f"wrote {args.output}: {len(wav)} samples "
+                  f"({len(wav)/cfg.sampling_rate:.2f}s @ {cfg.sampling_rate} Hz)")
+            return 0
+        # streaming long-form: each window streams in turn into the sink
+        srcs, puns, lens = split_utterance(ph, pu, cfg.max_n_phonemes)
+        windows = [(srcs[i:i + 1], puns[i:i + 1], style, lens[i:i + 1])
+                   for i in range(len(lens))]
+    elif args.input:
+        windows = [_load_utterance(args.input, cfg)]
+    elif args.demo:
+        windows = [_demo_utterance(cfg)]
+    else:
+        ap.error("one of --input / --demo is required")
+
+    if args.stream:
+        from zerovox_tpu_torch.models.streaming import StreamingSynthesizer
+        if args.precision == "bfloat16":
+            cfg = cfg.replace(compute_dtype="bfloat16")
+        s = StreamingSynthesizer(params, cfg, chunk_frames=args.chunk_frames,
+                                 overlap=args.overlap, device=args.device)
+        t0 = time.perf_counter()
+        # each chunk is flushed to disk the moment it arrives, so the time
+        # to first audio is real at the file boundary
+        with StreamingWavWriter(args.output, cfg.sampling_rate) as sink:
+            first = True
+            for wsrc, wpun, wstyle, wn in windows:
+                for chunk in s.stream(wsrc, wpun, wstyle, wn):
+                    sink.write(chunk)
+                    if first:
+                        first = False
+                        print(f"TTFA {1e3*(time.perf_counter()-t0):.1f} ms "
+                              f"(incl. first-call set-up; first "
+                              f"{sink.samples_written} samples on disk)", file=sys.stderr)
+            total = sink.samples_written
+        print(f"wrote {args.output}: {total} samples "
+              f"({total/cfg.sampling_rate:.2f}s @ {cfg.sampling_rate} Hz, streamed)")
+        return 0
+
+    src, pun, style, n = windows[0]
+    engine = TTSEngine(params, cfg, mel_buckets=buckets, precision=args.precision,
+                       device=args.device)
     t0 = time.perf_counter()
     wavs, mel_len = engine.synthesize(src, pun, style, n, trim=not args.no_trim)
     print(f"synthesized {int(mel_len[0])} mel frames "

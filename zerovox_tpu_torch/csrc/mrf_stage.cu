@@ -1,5 +1,7 @@
-// Fused HiFi-GAN multi-receptive-field (MRF) stage, f32 accuracy on the
-// tensor cores (3xTF32), for Hopper (sm_90a).
+// Fused HiFi-GAN multi-receptive-field (MRF) stage for Hopper (sm_90a), in
+// two modes chosen when this file is compiled: f32 accuracy on the tensor
+// cores (3xTF32; the default), and with -DZV_MRF_BF16=1 the bf16 serving
+// mode (bf16 tensors, bf16 MMA operands, f32 accumulation and chain state).
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/folded_mrf.py:154-717
 // (_mrf_kernel behind folded_mrf_stage, and mrf_stage_unfolded at :720-794).
@@ -59,6 +61,29 @@
 //     complete on an mbarrier per stage; warps release a stage through a
 //     shared-memory counter, the last one refills it, so no CTA-wide barrier
 //     is taken per chunk, only one per conv (the activation dependency).
+//
+// The bf16 mode (the TPU kernel's dot_bf16: zerovox_tpu/ops/pallas/
+// folded_mrf.py:334-349, :369-391, :434-443) is the same flow with one
+// mma.sync m16n8k16 bf16 product per k-step of 16 input channels.  What
+// bounds it: the same FLOPs at the dense bf16 rate, a sixth of the 3xTF32
+// floor, so the work around the chain weighs more.  What it keeps and what
+// it changes:
+//   * the windows in shared memory stay f32 (h, the residual and the
+//     resblock sum are the chain state); an A fragment is two adjacent f32
+//     channels per register, leaky'd in f32 and rounded once to a bf16 pair
+//     (cvt.rn, round to nearest even) as it is loaded, so the row stride is
+//     C + 8 floats (the 8-byte loads of four rows then hit distinct banks);
+//   * the weights are bf16 as loaded, packed by the host as 32-bit words of
+//     two consecutive input channels ([k][ci/2][co][ci%2]), so a B fragment
+//     register is one word and a word row is addressed, swizzled and
+//     streamed exactly as an f32 weight row is: KC counts 32-bit word rows
+//     per chunk in both modes (2 KC input channels here);
+//   * the input is read as 16-byte groups of 8 bf16 and widened, the output
+//     is scaled and leaky'd in f32 and rounded once on the store; biases
+//     reach the kernel widened to f32 (exact), and are added in f32;
+//   * the upsample prologue stays on the FMA units: its operands are bf16
+//     values (the staged rows rounded after the f32 leaky, the weights as
+//     loaded) widened to f32, so every product is exact and the sum is f32.
 
 // Interface: plain C, loaded with ctypes.  The host wrapper
 // (zerovox_tpu_torch/ops/cuda/mrf_stage.py) chooses the geometry (tile,
@@ -68,12 +93,26 @@
 // uncomputed or overrun shared memory.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef ZV_MRF_BF16
+#define ZV_MRF_BF16 0
+#endif
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+#if ZV_MRF_BF16
+typedef __nv_bfloat16 elem_t;   // activations and weights in device memory
+constexpr int kCPW = 2;         // input channels per 32-bit word of a weight row
+#else
+typedef float elem_t;
+constexpr int kCPW = 1;
+#endif
+constexpr int kVec = 16 / (int)sizeof(elem_t);   // channels per 16-byte global load
 
 constexpr int kThreads = 256;   // threads per CTA: 8 warps
 constexpr int kWarps = kThreads / 32;
@@ -85,12 +124,12 @@ constexpr int kMaxRB = 8;       // resblocks per stage (= cluster size)
 constexpr int kMaxD = 8;        // dilations per resblock
 
 struct Params {
-  const float* x;        // (B, L_in, Cin) stage input (pre-upsample when w_up)
-  const float* w_up;     // (K_up, Cin, C) ConvTranspose1d weight, or nullptr
+  const elem_t* x;       // (B, L_in, Cin) stage input (pre-upsample when w_up)
+  const elem_t* w_up;    // (K_up, Cin, C) ConvTranspose1d weight, or nullptr
   const float* in_bias;  // (C,) or nullptr
-  const float* w;        // (n_conv, kr, C, C) [k][ci][co], chain order
+  const uint32_t* w;     // (n_conv, kr, C / kCPW, C) words [k][ci / kCPW][co], chain order
   const float* b;        // (n_conv, C)
-  float* y;              // (B, L_out, C)
+  elem_t* y;             // (B, L_out, C)
   int L_in, Cin, C, L_out;
   int K_up, stride, pad;
   int has_in_leaky;
@@ -101,13 +140,13 @@ struct Params {
   int dils[kMaxRB][kMaxD];  // 0 = no conv pair at this slot
   int halo, tile;
   int ss;                   // window row stride (floats, C + 4: conflict-free A loads)
-  int kc;                   // input channels per weight chunk (the instance's KC)
+  int kc;                   // 32-bit word rows per weight chunk (the instance's KC)
   int stages;               // weight ring depth
   float inv_n;
 };
 
 struct Smem {
-  float* ring;        // stages x kc x C weight chunks
+  uint32_t* ring;     // stages x kc x C words: the weight chunks
   float* h;           // residual h window, W x ss
   float* t;           // conv1 output window, W x ss (upsample staging before the chain)
   uint64_t* full;     // stages mbarriers: chunk landed
@@ -151,7 +190,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
                                           uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
@@ -181,21 +220,97 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+#if ZV_MRF_BF16
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// {lo, hi} rounded to nearest even, lo in the low half: one MMA operand register
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+#endif
+
+// kVec consecutive channels of a row, widened to f32: one 16-byte load
+struct Vec { float v[kVec]; };
+
+__device__ __forceinline__ Vec zero_vec() {
+  Vec r;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) r.v[i] = 0.f;
+  return r;
+}
+
+__device__ __forceinline__ Vec load_vec(const elem_t* ptr) {
+  Vec r;
+#if ZV_MRF_BF16
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(ptr));
+  r.v[0] = bf16_lo(u.x); r.v[1] = bf16_hi(u.x); r.v[2] = bf16_lo(u.y); r.v[3] = bf16_hi(u.y);
+  r.v[4] = bf16_lo(u.z); r.v[5] = bf16_hi(u.z); r.v[6] = bf16_lo(u.w); r.v[7] = bf16_hi(u.w);
+#else
+  const float4 u = __ldg(reinterpret_cast<const float4*>(ptr));
+  r.v[0] = u.x; r.v[1] = u.y; r.v[2] = u.z; r.v[3] = u.w;
+#endif
+  return r;
+}
+
+__device__ __forceinline__ void store_vec(float* dst, const Vec& r) {   // shared memory, f32
+#pragma unroll
+  for (int i = 0; i < kVec; i += 4)
+    *reinterpret_cast<float4*>(dst + i) = make_float4(r.v[i], r.v[i + 1], r.v[i + 2], r.v[i + 3]);
+}
+
+// four consecutive output channels of one upsample weight row, widened to f32
+__device__ __forceinline__ float4 load_w4(const elem_t* ptr) {
+#if ZV_MRF_BF16
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(ptr));
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+#else
+  return __ldg(reinterpret_cast<const float4*>(ptr));
+#endif
+}
+
+// four consecutive channels of an output row: rounded once, here, in the bf16 mode
+__device__ __forceinline__ void store_out4(elem_t* ptr, float4 v) {
+#if ZV_MRF_BF16
+  *reinterpret_cast<uint2*>(ptr) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+#else
+  *reinterpret_cast<float4*>(ptr) = v;
+#endif
+}
+
+// an operand of the upsample's products: as it is in f32, a bf16 value in the bf16 mode
+__device__ __forceinline__ float round_operand(float v) {
+#if ZV_MRF_BF16
+  return __bfloat162float(__float2bfloat16_rn(v));
+#else
+  return v;
+#endif
+}
+
 struct Stream {
   int conv_base;   // first conv of this CTA's resblock in the packed chain
-  int nb;          // chunks per tap (C / kc)
+  int nb;          // chunks per tap (C / kCPW / kc)
   int cpc;         // chunks per conv (kr * nb)
   int n_chunks;    // chunks of this CTA's resblock
 };
 
-// One bulk copy brings chunk n (conv, tap, kc input channels: kc contiguous
-// rows of the packed weights) into ring stage n % stages.
+// One bulk copy brings chunk n (conv, tap, kc word rows: kc * kCPW input
+// channels, contiguous in the packed weights) into ring stage n % stages.
 __device__ void issue_chunk(const Params& p, const Smem& sm, const Stream& st, int n) {
   const int C = p.C, s = n % p.stages;
   const int rem = n % st.cpc;
-  const int tap = rem / st.nb, ci0 = (rem % st.nb) * p.kc;
-  const float* src =
-      p.w + ((size_t)(st.conv_base + n / st.cpc) * p.kr + tap) * C * C + (size_t)ci0 * C;
+  const int tap = rem / st.nb, row0 = (rem % st.nb) * p.kc;
+  const uint32_t* src = p.w +
+      ((size_t)(st.conv_base + n / st.cpc) * p.kr + tap) * (C / kCPW) * C + (size_t)row0 * C;
   mbar_expect_tx(sm.full + s, (uint32_t)(p.kc * C * 4));
   bulk_copy(sm.ring + (size_t)s * p.kc * C, src, (uint32_t)(p.kc * C * 4), sm.full + s);
 }
@@ -259,20 +374,51 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
   for (int c = 0; c < st.cpc; ++c, ++q) {
     const int s = q % p.stages;
     mbar_wait(sm.full + s, (q / p.stages) & 1);
-    const int tap = c / st.nb, ci0 = (c % st.nb) * KC;
-    const float* a_base = src + (tap - half) * d * ss + ci0 + t;
-    // weight (ci, co) of a chunk sits at ci * C + (co ^ 8 * (ci % 4)) (pack_stage's
+    const int tap = c / st.nb, ci0 = (c % st.nb) * KC * kCPW;
+    // a lane's first channel of a k-step: t of 8 (TF32), the pair 2t, 2t + 1 of 16 (bf16)
+    const float* a_base = src + (tap - half) * d * ss + ci0 + kCPW * t;
+    // word (row, co) of a chunk sits at row * C + (co ^ 8 * (row % 4)) (pack_stage's
     // swizzle), so the B fragments' rows kk + t and kk + t + 4 hit distinct banks
-    const float* w_base = sm.ring + (size_t)s * KC * C + n0 + g;
+    const uint32_t* w_base = sm.ring + (size_t)s * KC * C + n0 + g;
     // KC is a compile-time chunk: the k-steps of a chunk unroll into one block
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 8) {
+#if ZV_MRF_BF16
+      // one k-step: 8 word rows = 16 input channels, one product
+      uint32_t bw[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = ((j ^ t) << 3);
+        bw[j][0] = w_base[(kk + t) * C + col];
+        bw[j][1] = w_base[(kk + t + 4) * C + col];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (!act[i]) continue;
+        const float* a0 = a_base + roff[i][0] + 2 * kk;
+        const float* a1 = a_base + roff[i][1] + 2 * kk;
+        float2 v[4] = {*reinterpret_cast<const float2*>(a0), *reinterpret_cast<const float2*>(a1),
+                       *reinterpret_cast<const float2*>(a0 + 8),
+                       *reinterpret_cast<const float2*>(a1 + 8)};
+        uint32_t a[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!RESIDUAL) {
+            v[e].x = leaky(v[e].x, 0.1f);
+            v[e].y = leaky(v[e].y, 0.1f);
+          }
+          a[e] = pack_bf16x2(v[e].x, v[e].y);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, bw[j][0], bw[j][1]);
+      }
+#else
       uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int col = ((j ^ t) << 3);
-        split_tf32(w_base[(kk + t) * C + col], bh[j][0], bl[j][0]);
-        split_tf32(w_base[(kk + t + 4) * C + col], bh[j][1], bl[j][1]);
+        split_tf32(__uint_as_float(w_base[(kk + t) * C + col]), bh[j][0], bl[j][0]);
+        split_tf32(__uint_as_float(w_base[(kk + t + 4) * C + col]), bh[j][1], bl[j][1]);
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -292,6 +438,7 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
           mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
         }
       }
+#endif
     }
     release(p, sm, st, q);
   }
@@ -333,34 +480,37 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
 // of P per row) and are summed by two xor shuffles, in which both lanes of a
 // pair add the same two values, so the sum is deterministic.  CTA `rank`
 // takes every n_rb-th warp item, so each weight is read once per row group
-// of a phase, by one cluster.  Needs C % 32 == 0 and Cin % 4 == 0.
+// of a phase, by one cluster.  Needs C % 32 == 0 and Cin % kVec == 0.  In the
+// bf16 mode the staged rows are rounded to bf16 after the leaky (rows that
+// were not leaky'd are bf16 values already) and the weights are bf16, both
+// held as f32: exact products, an f32 sum.
 __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, float* H,
                                   float* P, int W, int t_base, int batch, int rank) {
   const int C = p.C, Cin = p.Cin, s = p.stride, ss = p.ss;
   const int jlo = floordiv(t_base + p.pad - (p.K_up - 1), s);
   const int np_rows = floordiv(t_base + W - 1 + p.pad, s) - jlo + 1;
-  const float* xb = p.x + (size_t)batch * p.L_in * Cin;
-  // float4 loads, kBatch in flight per thread before the first store
-  const int C4in = Cin / 4, n4 = np_rows * C4in;
-  for (int e0 = threadIdx.x; e0 < n4; e0 += kBatch * kThreads) {
-    float4 v[kBatch];
+  const elem_t* xb = p.x + (size_t)batch * p.L_in * Cin;
+  // 16-byte loads, kBatch in flight per thread before the first store
+  const int CVin = Cin / kVec, nv = np_rows * CVin;
+  for (int e0 = threadIdx.x; e0 < nv; e0 += kBatch * kThreads) {
+    Vec v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int e = e0 + u * kThreads;
-      const int j = jlo + e / C4in;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e < n4 && j >= 0 && j < p.L_in)
-        v[u] = __ldg(reinterpret_cast<const float4*>(xb + (size_t)j * Cin) + e % C4in);
+      const int j = jlo + e / CVin;
+      v[u] = zero_vec();
+      if (e < nv && j >= 0 && j < p.L_in)
+        v[u] = load_vec(xb + (size_t)j * Cin + (e % CVin) * kVec);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int e = e0 + u * kThreads;
-      if (e >= n4) break;
+      if (e >= nv) break;
       if (p.has_in_leaky) {
-        v[u].x = leaky(v[u].x, p.in_leaky); v[u].y = leaky(v[u].y, p.in_leaky);
-        v[u].z = leaky(v[u].z, p.in_leaky); v[u].w = leaky(v[u].w, p.in_leaky);
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) v[u].v[i] = round_operand(leaky(v[u].v[i], p.in_leaky));
       }
-      reinterpret_cast<float4*>(P)[e] = v[u];
+      store_vec(P + (size_t)e * kVec, v[u]);
     }
   }
   __syncthreads();
@@ -389,12 +539,12 @@ __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, f
       int poff[kUR];
 #pragma unroll
       for (int i = 0; i < kUR; ++i) poff[i] = min(base + i, np_rows - 1) * Cin;
-      const float4* wk = reinterpret_cast<const float4*>(p.w_up + (size_t)k * Cin * C) + cgp;
+      const elem_t* wk = p.w_up + (size_t)k * Cin * C + cgp * kCN;
       for (int c4 = 4 * ks; c4 < Cin; c4 += 16) {
         float4 wv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          wv[e] = __ldg(wk + (size_t)(c4 + e) * G);
+          wv[e] = load_w4(wk + (size_t)(c4 + e) * C);
 #pragma unroll
         for (int i = 0; i < kUR; ++i) {
           const float4 v = *reinterpret_cast<const float4*>(P + poff[i] + c4);
@@ -442,8 +592,8 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_stage_kernel(const Params p) 
   const int C = p.C, ss = p.ss, H = p.halo, T = p.tile;
   const int W = T + 2 * H;
   Smem sm;
-  sm.ring = reinterpret_cast<float*>(smem4);
-  sm.h = sm.ring + (size_t)p.stages * p.kc * C;
+  sm.ring = reinterpret_cast<uint32_t*>(smem4);
+  sm.h = reinterpret_cast<float*>(sm.ring + (size_t)p.stages * p.kc * C);
   sm.t = sm.h + W * ss;
   sm.full = reinterpret_cast<uint64_t*>(sm.t + W * ss);
   sm.released = reinterpret_cast<int*>(sm.full + p.stages);
@@ -460,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_stage_kernel(const Params p) 
   }
   Stream st;
   st.conv_base = conv_base;
-  st.nb = C / p.kc;
+  st.nb = C / kCPW / p.kc;
   st.cpc = p.kr * st.nb;
   st.n_chunks = 2 * n_d * st.cpc;
 
@@ -479,28 +629,31 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_stage_kernel(const Params p) 
   if (p.w_up != nullptr) {
     upsample_prologue(p, cluster, sm.h, sm.t, W, t_base, batch, rb);
   } else {
-    const float* xb = p.x + (size_t)batch * p.L_in * C;
-    const int C4 = C / 4, n4 = W * C4;
-    for (int e0 = threadIdx.x; e0 < n4; e0 += kBatch * kThreads) {
-      float4 v[kBatch];
+    const elem_t* xb = p.x + (size_t)batch * p.L_in * C;
+    const int CV = C / kVec, nv = W * CV;
+    for (int e0 = threadIdx.x; e0 < nv; e0 += kBatch * kThreads) {
+      Vec v[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int e = e0 + u * kThreads;
-        const int tg = t_base + e / C4;
-        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (e < n4 && tg >= 0 && tg < p.L_out)
-          v[u] = __ldg(reinterpret_cast<const float4*>(xb + (size_t)tg * C) + e % C4);
+        const int tg = t_base + e / CV;
+        v[u] = zero_vec();
+        if (e < nv && tg >= 0 && tg < p.L_out)
+          v[u] = load_vec(xb + (size_t)tg * C + (e % CV) * kVec);
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int e = e0 + u * kThreads;
-        if (e >= n4) break;
-        const int r = e / C4, c4 = e % C4, tg = t_base + r;
+        if (e >= nv) break;
+        const int r = e / CV, c0 = (e % CV) * kVec, tg = t_base + r;
         if (p.in_bias != nullptr && tg >= 0 && tg < p.L_out) {
-          const float4 bv = __ldg(reinterpret_cast<const float4*>(p.in_bias) + c4);
-          v[u].x += bv.x; v[u].y += bv.y; v[u].z += bv.z; v[u].w += bv.w;
+#pragma unroll
+          for (int i = 0; i < kVec; i += 4) {
+            const float4 bv = __ldg(reinterpret_cast<const float4*>(p.in_bias + c0 + i));
+            v[u].v[i] += bv.x; v[u].v[i + 1] += bv.y; v[u].v[i + 2] += bv.z; v[u].v[i + 3] += bv.w;
+          }
         }
-        *reinterpret_cast<float4*>(sm.h + r * ss + c4 * 4) = v[u];
+        store_vec(sm.h + r * ss + c0, v[u]);
       }
     }
   }
@@ -525,7 +678,7 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_stage_kernel(const Params p) 
   cluster.sync();                                // every resblock's h is final
 
   // resblock sum over the cluster, rank order; this CTA writes its share of rows
-  float* yb = p.y + (size_t)batch * p.L_out * C;
+  elem_t* yb = p.y + (size_t)batch * p.L_out * C;
   const float* hs[kMaxRB];
   for (int r = 0; r < p.n_rb; ++r) hs[r] = cluster.map_shared_rank(sm.h, r);
   const int share = (T + p.n_rb - 1) / p.n_rb;
@@ -546,13 +699,13 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_stage_kernel(const Params p) 
       v.x = leaky(v.x, p.out_leaky); v.y = leaky(v.y, p.out_leaky);
       v.z = leaky(v.z, p.out_leaky); v.w = leaky(v.w, p.out_leaky);
     }
-    *reinterpret_cast<float4*>(yb + (size_t)tg * C + c4 * 4) = v;
+    store_out4(yb + (size_t)tg * C + c4 * 4, v);
   }
   cluster.sync();                                // no CTA leaves while its h is read
 }
 
 // The kernel instances: (NT n8 column tiles, MT m16 row tiles) per warp and
-// the weight chunk's input channels KC (ops/cuda/mrf_stage.py's _INSTANCES).
+// the weight chunk's 32-bit word rows KC (ops/cuda/mrf_stage.py's _MT and _KC).
 typedef void (*KernelFn)(const Params);
 
 KernelFn pick_kernel(int nt, int mt, int kc) {
@@ -582,9 +735,20 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 
 }  // namespace
 
-extern "C" int zv_mrf_stage_f32(
-    const float* x, const float* w_up, const float* in_bias, const float* w,
-    const float* b, float* y, int B, int L_in, int Cin, int C, int L_out,
+// One entry per mode; a library built from this file holds one of them.
+#if ZV_MRF_BF16
+#define ZV_STAGE_ENTRY zv_mrf_stage_bf16
+#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_bf16
+#else
+#define ZV_STAGE_ENTRY zv_mrf_stage_f32
+#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters
+#endif
+
+// kc counts 32-bit word rows of a weight chunk (f32: input channels; bf16:
+// pairs of them); in_bias and b are f32 in both modes.
+extern "C" int ZV_STAGE_ENTRY(
+    const elem_t* x, const elem_t* w_up, const float* in_bias, const uint32_t* w,
+    const float* b, elem_t* y, int B, int L_in, int Cin, int C, int L_out,
     int K_up, int stride, int pad, int has_in_leaky, float in_leaky,
     int has_out_leaky, float out_leaky, int n_rb, int n_dmax, int kr,
     const int* dils, int halo, int tile, int ss, int kc, int stages, int nt, int mt,
@@ -593,7 +757,7 @@ extern "C" int zv_mrf_stage_f32(
   if (kernel == nullptr || n_rb < 1 || n_rb > kMaxRB || n_dmax < 1 || n_dmax > kMaxD ||
       tile < 1 || kr < 1 || kr % 2 != 1 || halo < 0 || C < 8 || C % (nt * 8) != 0 ||
       kWarps % (C / (nt * 8)) != 0 || C % 32 != 0 || ss < C || ss % 4 != 0 ||
-      C % kc != 0 || stages < 2 || stages > kMaxStages ||
+      (C / kCPW) % kc != 0 || stages < 2 || stages > kMaxStages ||
       kc * C * 4 >= (1 << 20) || B < 1 || L_out < 1)
     return (int)cudaErrorInvalidValue;
   // The geometry the host chose must hold the chain: the halo covers each
@@ -614,12 +778,12 @@ extern "C" int zv_mrf_stage_f32(
   if ((long long)smem_bytes <
       4LL * ((long long)stages * kc * C + 2LL * W * ss) + 16LL * stages)
     return (int)cudaErrorInvalidValue;
-  // every pointer read or written as float4 / float2 is 16-byte aligned
+  // every pointer read or written in 16-byte or 8-byte groups is 16-byte aligned
   const void* ptrs[] = {x, w_up, in_bias, w, b, y};
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorInvalidValue;
   if (w_up != nullptr &&
-      (stride < 1 || K_up < 1 || Cin < 4 || Cin % 4 != 0 ||
+      (stride < 1 || K_up < 1 || Cin < kVec || Cin % kVec != 0 ||
        (long long)((W - 1 + K_up - 1) / stride + 2) * Cin > (long long)W * ss))
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -649,7 +813,7 @@ extern "C" int zv_mrf_stage_f32(
 // Clusters of n_rb CTAs of the (nt, mt) instances that the card holds at
 // once with smem_bytes of shared memory each (one wave; the same for every
 // chunk size: one CTA per SM); negative: -cudaError_t.
-extern "C" int zv_mrf_max_clusters(int n_rb, int nt, int mt, int smem_bytes) {
+extern "C" int ZV_CLUSTERS_ENTRY(int n_rb, int nt, int mt, int smem_bytes) {
   const KernelFn kernel = pick_kernel(nt, mt, 32);
   if (kernel == nullptr || n_rb < 1 || n_rb > kMaxRB) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -663,6 +827,8 @@ extern "C" int zv_mrf_max_clusters(int n_rb, int nt, int mt, int smem_bytes) {
   return n;
 }
 
+#if !ZV_MRF_BF16
 extern "C" const char* zv_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+#endif

@@ -7,6 +7,8 @@ tanh.  Each stage is ONE call of the fused MRF stage
 side run inside it, so on the card the upsampled activation never reaches
 device memory.  `pack_vocoder` puts the stages' weights in the kernel's
 layout once per model; a serving caller passes the result to `vocode`.
+Everything runs in the params' dtype: float32, or bfloat16 after
+cast_params (the MRF stages then take the kernel's bf16 mode).
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def _stage_blocks(voc: dict, cfg: ZeroVoxConfig, i: int) -> list:
 
 def pack_vocoder(params: dict, cfg: ZeroVoxConfig) -> List[PackedStage]:
     """Each MRF stage's weights in the kernel's layout (ops.cuda.mrf_stage.
-    pack_stage), on the device the params lie on; made once per model."""
+    pack_stage), on the device the params lie on and in their dtype; made
+    once per model."""
     voc = params["vocoder"]
     return [pack_stage(_stage_blocks(voc, cfg, i), cfg.resblock_dilations,
                        cfg.resblock_kernel_size, voc["upsamples"][i]["w"])

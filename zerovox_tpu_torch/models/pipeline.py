@@ -6,14 +6,15 @@ intermediates stay on that device.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import ZeroVoxConfig
 from ..device import resolve_device
 from ..ops import durations_from_log, length_regulate
-from ..params import tree_map
+from ..params import params_to_device, tree_map
 from . import fs2_encoder, hifigan, styletts_decoder
 
 
@@ -34,18 +35,29 @@ def synthesize(params: dict, cfg: ZeroVoxConfig,
     num_phonemes:     optional (B,) valid counts (default P, as the reference)
     device:           where it runs; params must already lie there
                       (load_params / init_params / params_to_device)
+
+    cfg.compute_dtype "bfloat16" is the serving dtype: the style embedding
+    is cast to it here, and params must have been cast with cast_params
+    (TTSEngine(precision="bfloat16") does both).
     """
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is the bf16 serving path, a later slice "
-            "of the port; this slice runs float32")
     dev = resolve_device(device)
     src_seq = torch.as_tensor(src_seq, device=dev).long()
     puncts = torch.as_tensor(puncts, device=dev).long()
-    style_embed = torch.as_tensor(style_embed, device=dev, dtype=torch.float32)
+    style_embed = torch.as_tensor(style_embed, device=dev,
+                                  dtype=torch.float32).to(compute_dtype(cfg))
     if num_phonemes is not None:
         num_phonemes = torch.as_tensor(num_phonemes, device=dev).long()
+    mel, mel_len, log_dur = front(params, cfg, src_seq, puncts, style_embed, num_phonemes)
+    wav = hifigan.vocode(params, cfg, mel)
+    return SynthesisResult(wav=wav, mel=mel, mel_len=mel_len, log_duration=log_dur)
 
+
+def front(params: dict, cfg: ZeroVoxConfig, src_seq: torch.Tensor, puncts: torch.Tensor,
+          style_embed: torch.Tensor, num_phonemes: Optional[torch.Tensor]):
+    """Everything before the vocoder, on device tensors, with no host sync:
+    encoder, length regulator and decoder at the full max_seq_len (the
+    decoder's instance norms reduce over the whole padded time axis).
+    Returns (mel (B, max_seq_len, num_mels), mel_len (B,), log_duration)."""
     mask = None
     if cfg.use_attention_mask and num_phonemes is not None:
         mask = fs2_encoder.phoneme_mask(num_phonemes, src_seq.shape[-1])
@@ -55,8 +67,58 @@ def synthesize(params: dict, cfg: ZeroVoxConfig,
     hidden, mel_len = length_regulate(features, durations, cfg.max_seq_len,
                                       num_phonemes=num_phonemes)
     mel = styletts_decoder.decode(params, cfg, hidden, style_embed)
-    wav = hifigan.vocode(params, cfg, mel)
-    return SynthesisResult(wav=wav, mel=mel, mel_len=mel_len, log_duration=log_dur)
+    return mel, mel_len, log_dur
+
+
+def request_tensors(cfg: ZeroVoxConfig, device: torch.device, src_seq, puncts, style_embed,
+                    num_phonemes=None):
+    """A serving request's arrays as tensors on `device`: (src, puncts,
+    float32 style, num_phonemes; max_n_phonemes for every row when omitted)."""
+    src = torch.as_tensor(np.asarray(src_seq), device=device).long()
+    pun = torch.as_tensor(np.asarray(puncts), device=device).long()
+    sty = torch.as_tensor(np.asarray(style_embed, np.float32), device=device)
+    if src.shape[0] == 0:
+        raise ValueError("empty batch")
+    nph = (torch.full((src.shape[0],), cfg.max_n_phonemes, device=device)
+           if num_phonemes is None
+           else torch.as_tensor(np.asarray(num_phonemes), device=device).long())
+    return src, pun, sty, nph
+
+
+class LoadedModel(NamedTuple):
+    """What a serving call reads once at its start: the weights and the
+    same weights in the MRF kernel's layout.  The two are replaced together,
+    as one reference, so a call in flight never mixes old and new."""
+    params: dict
+    packed: Optional[List]      # hifigan.pack_vocoder on a card, None on the CPU
+
+
+def place_params(params: dict, cfg: ZeroVoxConfig, device: torch.device) -> dict:
+    """params on `device` and in cfg.compute_dtype (bfloat16: cast once, here)."""
+    params = params_to_device(params, device)
+    if cfg.compute_dtype == "bfloat16":
+        params = cast_params(params, torch.bfloat16)
+    return params
+
+
+def pack_model(placed: dict, cfg: ZeroVoxConfig, device: torch.device) -> LoadedModel:
+    """Params that place_params has placed, with the MRF kernel's weight
+    layout made once (the CPU path does not read it)."""
+    packed = hifigan.pack_vocoder(placed, cfg) if device.type == "cuda" else None
+    return LoadedModel(placed, packed)
+
+
+def load_model(params: dict, cfg: ZeroVoxConfig, device: torch.device) -> LoadedModel:
+    """place_params, then pack_model."""
+    return pack_model(place_params(params, cfg, device), cfg, device)
+
+
+def compute_dtype(cfg: ZeroVoxConfig) -> torch.dtype:
+    """The activation dtype cfg.compute_dtype names."""
+    try:
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}") from None
 
 
 def cast_params(params: dict, dtype) -> dict:

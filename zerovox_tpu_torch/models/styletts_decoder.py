@@ -13,7 +13,7 @@ import math
 import torch
 
 from ..config import ZeroVoxConfig
-from ..ops import conv1d, instance_norm, leaky_relu, linear
+from ..ops import conv1d, instance_norm, leaky_relu, linear, scalar_as
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -28,7 +28,7 @@ def res_blk1d(x: torch.Tensor, p: dict, cfg: ZeroVoxConfig) -> torch.Tensor:
     h = instance_norm(h, p["norm2_g"], p["norm2_b"], eps=eps)
     h = leaky_relu(h, 0.2)
     h = conv1d(h, p["conv2_w"], p["conv2_b"], padding=1)
-    return (h + shortcut) * _INV_SQRT2
+    return (h + shortcut) * scalar_as(_INV_SQRT2, h.dtype)
 
 
 def adain(x: torch.Tensor, style: torch.Tensor, fc_w, fc_b, eps: float) -> torch.Tensor:
@@ -50,7 +50,7 @@ def adain_res_blk1d(x: torch.Tensor, style: torch.Tensor, p: dict,
     h = leaky_relu(h, 0.2)
     h = conv1d(h, p["conv2_w"], p["conv2_b"], padding=1)
     shortcut = conv1d(x, p["conv1x1_w"]) if "conv1x1_w" in p else x
-    return (h + shortcut) * _INV_SQRT2
+    return (h + shortcut) * scalar_as(_INV_SQRT2, h.dtype)
 
 
 def decode(params: dict, cfg: ZeroVoxConfig,

@@ -1,7 +1,10 @@
 """Multi-head self-attention matching the reference FFT-block semantics.
 
-Per-layer Linear Q/K/V, per-head softmax(q k^T / sqrt(d_k)) v in f32, head
-concat, output Linear, residual + LayerNorm.  The reference applies no
+Per-layer Linear Q/K/V, per-head softmax(q k^T / sqrt(d_k)) v, head
+concat, output Linear, residual + LayerNorm.  The scores and the softmax
+are f32 in every dtype; 1/sqrt(d_k) is rounded to the activation dtype
+first and the probabilities are rounded to it before they meet v, as in
+the JAX package.  The reference applies no
 attention mask over padding; that stays the default, and a masked mode
 (-1e9 on padded keys) sits behind `mask`.
 """
@@ -13,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from .conv import linear
+from .conv import linear, matmul
+from .misc import scalar_as
 from .norm import layer_norm
 
 
@@ -38,13 +42,13 @@ def multi_head_attention(x: torch.Tensor,
     k = heads(linear(x, p["wk"], p["bk"]))
     v = heads(linear(x, p["wv"], p["bv"]))
 
-    scale = 1.0 / math.sqrt(d_k)
-    attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scale = scalar_as(1.0 / math.sqrt(d_k), x.dtype)
+    attn = matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         attn = attn.masked_fill(~mask[:, None, None, :], -1e9)
     attn = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
     attn = (attn / attn.sum(dim=-1, keepdim=True)).to(x.dtype)
 
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, C)
+    out = matmul(attn, v).transpose(1, 2).reshape(B, T, C)
     out = linear(out, p["wo"], p["bo"])
     return layer_norm(out + residual, p["ln_g"], p["ln_b"], eps=eps)

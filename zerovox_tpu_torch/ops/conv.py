@@ -15,6 +15,14 @@ TF32 for float32 convolutions by default, which keeps about three decimal
 digits, and the float32 path is the parity path (a TF32 duration or pitch
 predictor can flip a bucketize or a rounded duration against the JAX
 package).
+
+bfloat16 (the serving dtype) follows the JAX package's rule for every
+product: bf16 operands, f32 accumulation, the result rounded once to bf16,
+then the bias added in bf16.  On a card that is cuDNN's / cuBLAS's bf16
+path with reduced-precision reductions switched off (once per process, by
+device.resolve_device); for a tensor on the
+CPU the operands are widened to f32 (every product is then exact) and the
+f32 result is rounded, which is the same rule and needs no bf16 CPU kernels.
 """
 
 from __future__ import annotations
@@ -28,12 +36,28 @@ import torch.nn.functional as F
 
 @contextlib.contextmanager
 def _no_tf32():
+    """No TF32 in cuDNN's float32 convolutions (PyTorch's default allows it)."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+def _product(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """fn(x, w, bias) by the dtype's rule, with x channels-first (B, C, T)
+    and the result too.  float32: one call, bias inside.  Other dtypes: f32
+    accumulation, one rounding to x.dtype, then the bias added in x.dtype
+    (operands widened for a CPU tensor)."""
+    with _no_tf32():
+        if x.dtype == torch.float32:
+            return fn(x, w, b)
+        if x.device.type == "cpu":
+            y = fn(x.to(torch.float32), w.to(torch.float32), None).to(x.dtype)
+        else:
+            y = fn(x, w, None)
+    return y if b is None else y + b[:, None]
 
 
 def conv1d(x: torch.Tensor,
@@ -43,16 +67,26 @@ def conv1d(x: torch.Tensor,
            padding: int = 0,
            dilation: int = 1) -> torch.Tensor:
     """Conv1d with symmetric zero padding.  x: (B, T, Cin), w: (Cout, Cin, K)."""
-    with _no_tf32():
-        y = F.conv1d(x.transpose(1, 2), w, b, stride=stride, padding=padding,
-                     dilation=dilation)
+    y = _product(lambda x_, w_, b_: F.conv1d(x_, w_, b_, stride=stride, padding=padding,
+                                             dilation=dilation),
+                 x.transpose(1, 2), w, b)
     return y.transpose(1, 2)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w.T + b with w: (out, in)."""
-    return F.linear(x, w, b)
+    if x.dtype == torch.float32:
+        return F.linear(x, w, b)
+    y = matmul(x, w.t())
+    return y if b is None else y + b
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b by the dtype's rule (see the module docstring)."""
+    if a.dtype == torch.float32 or a.device.type != "cpu":
+        return torch.matmul(a, b)
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
 
 
 def transpose_out_len(L: int, stride: int, K: int, padding: int,
@@ -80,8 +114,8 @@ def conv_transpose1d(x: torch.Tensor,
     if output_padding >= max(1, stride):
         raise ValueError(
             f"output_padding ({output_padding}) must be < stride ({stride})")
-    with _no_tf32():
-        y = F.conv_transpose1d(x.transpose(1, 2), unflip_transpose_weight(w_flipped),
-                               b, stride=stride, padding=padding,
-                               output_padding=output_padding)
+    y = _product(lambda x_, w_, b_: F.conv_transpose1d(x_, w_, b_, stride=stride,
+                                                       padding=padding,
+                                                       output_padding=output_padding),
+                 x.transpose(1, 2), unflip_transpose_weight(w_flipped), b)
     return y.transpose(1, 2)

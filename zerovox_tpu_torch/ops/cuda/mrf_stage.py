@@ -14,14 +14,26 @@ launches in a plain integer attribute (`mrf_stage.launches`).  The kernel
 reads its weights in its own layout (`pack_stage`), which a serving caller
 makes once per model and passes as `packed=`.
 
-The kernel runs each conv on the tensor cores at f32 accuracy (3xTF32:
-`split_tf32` mirrors its operand split), one resblock per CTA in a cluster
-of one CTA per resblock; `tile_plan` chooses its geometry in plain Python,
-so the CPU tests reach it.  It takes C in 32/64/128/256/512.
+The kernel runs each conv on the tensor cores, one resblock per CTA in a
+cluster of one CTA per resblock; `tile_plan` chooses its geometry in plain
+Python, so the CPU tests reach it.  It takes C in 32/64/128/256/512 and two
+modes, chosen by the input's dtype:
+
+  float32   f32 accuracy (3xTF32: `split_tf32` mirrors its operand split);
+  bfloat16  the serving mode (the TPU kernel's dot_bf16): input, output and
+            weights are bf16 in device memory, every conv's operands are
+            rounded to bf16 (after the leaky) for one bf16 MMA, and the
+            accumulators, the biases, the residual and the resblock sum are
+            f32; the result is rounded once, on the store.  `mrf_stage_ref`
+            computes the same for bf16 tensors (`round_bf16` on each conv's
+            operand, f32 convs on exactly representable products).
+
+A bf16 input with f32 weights (or the reverse) raises.
 
 The kernel is compiled with nvcc, at its first CUDA call (never at import),
-into build/zerovox_tpu_torch/ at the root of the checkout, as a shared
-library with a plain C interface loaded through ctypes.
+into build/zerovox_tpu_torch/ at the root of the checkout, as one shared
+library per mode (the same source, -DZV_MRF_BF16=0/1, both compiled at
+once) with a plain C interface loaded through ctypes.
 """
 
 from __future__ import annotations
@@ -52,31 +64,44 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Limits shared with csrc/mrf_stage.cu (which rejects a geometry that breaks them)
 _WARPS = 8                # warps per CTA
 _STAGES = 3               # weight ring depth (chunks in flight)
-_CHUNK_FLOATS = 8192      # weight chunk target: one tap x kc input channels x C
+_CHUNK_FLOATS = 8192      # weight chunk target (32-bit words): one tap x kc channels x C
 _MAX_RB = 8               # resblocks per stage (= CTAs per cluster)
 _MAX_D = 8                # dilations per resblock
 _SMEM_MAX = 232448        # dynamic shared memory one CTA may use (bytes)
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _MT = {8: 3, 4: 6}        # kernel instances: n8 column tiles per warp -> m16 row tiles
-_KC = {8: (16, 32, 64), 4: (16, 32)}   # ... and their weight chunks (input channels)
+_KC = {8: (16, 32, 64), 4: (16, 32)}   # ... and their weight chunks (rows of 32-bit words:
+#                                        input channels in f32, pairs of them in bf16)
 
 
 # --------------------------------------------------------------------------
 # plain version
 # --------------------------------------------------------------------------
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even, as XLA's convert and the kernel's
+    cvt.rn) and widened back: an f32 tensor of bf16 values."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def residual_block(x: torch.Tensor, p: dict, dilations, kernel_size: int) -> torch.Tensor:
     """Multi-dilation residual block: per dilation d,
-    x += conv2(leaky(conv1_d(leaky(x), dil=d), 0.1)) (both with bias)."""
+    x += conv2(leaky(conv1_d(leaky(x), dil=d), 0.1)) (both with bias).
+
+    With bf16 weights x is the f32 chain state: each conv's operand is
+    rounded to bf16 after the leaky and multiplied in f32 (exact products,
+    f32 sums), the bias is added in f32 and the result stays f32."""
     half_k = (kernel_size - 1) // 2
+    dot_bf16 = p["convs1"][0]["w"].dtype == torch.bfloat16
+    operand = round_bf16 if dot_bf16 else (lambda t: t)
     for d_idx, dilation in enumerate(dilations):
         c1 = p["convs1"][d_idx]
         c2 = p["convs2"][d_idx]
-        xt = leaky_relu(x, 0.1)
-        xt = conv1d(xt, c1["w"], c1["b"], padding=half_k * dilation,
-                    dilation=dilation)
-        xt = leaky_relu(xt, 0.1)
-        xt = conv1d(xt, c2["w"], c2["b"], padding=half_k)
+        xt = operand(leaky_relu(x, 0.1))
+        xt = conv1d(xt, c1["w"].to(x.dtype), c1["b"].to(x.dtype),
+                    padding=half_k * dilation, dilation=dilation)
+        xt = operand(leaky_relu(xt, 0.1))
+        xt = conv1d(xt, c2["w"].to(x.dtype), c2["b"].to(x.dtype), padding=half_k)
         x = x + xt
     return x
 
@@ -89,16 +114,26 @@ def mrf_stage_ref(x: torch.Tensor,
                   in_bias: Optional[torch.Tensor] = None,
                   in_leaky: Optional[float] = None,
                   out_leaky: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the fused stage (same arguments as mrf_stage)."""
+    """Plain PyTorch version of the fused stage (same arguments as mrf_stage).
+
+    For bf16 tensors it computes what the kernel's bf16 mode computes (and
+    the TPU kernel's dot_bf16), not a bf16 convolution: the chain state is
+    f32, only the operands of each product are bf16 values, and the output
+    is rounded once, after 1/n and out_leaky."""
     _check_options(upsample, in_leaky)
+    dtype = x.dtype
+    _check_dtypes(dtype, blocks, upsample)
+    x = x.to(torch.float32)
     if upsample is not None:
         if in_leaky is not None:
             x = leaky_relu(x, in_leaky)
-        x = conv_transpose1d(x, upsample["w"], None, stride=upsample["stride"],
-                             padding=upsample["padding"],
+            if dtype == torch.bfloat16:
+                x = round_bf16(x)
+        x = conv_transpose1d(x, upsample["w"].to(torch.float32), None,
+                             stride=upsample["stride"], padding=upsample["padding"],
                              output_padding=upsample["output_padding"])
     if in_bias is not None:
-        x = x + in_bias
+        x = x + in_bias.to(torch.float32)
     acc = None
     for j, blk in enumerate(blocks):
         r = residual_block(x, blk, dilation_sets[j], kernel_size)
@@ -106,12 +141,25 @@ def mrf_stage_ref(x: torch.Tensor,
     out = acc * (1.0 / len(blocks))
     if out_leaky is not None:
         out = leaky_relu(out, out_leaky)
-    return out
+    return out.to(dtype)
 
 
 def _check_options(upsample, in_leaky):
     if in_leaky is not None and upsample is None:
         raise ValueError("in_leaky acts on the pre-upsample input; it needs upsample=")
+
+
+def _check_dtypes(dtype, blocks, upsample):
+    """The stage runs in one dtype, float32 or bfloat16: the input's."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mrf_stage takes float32 or bfloat16, got {dtype}")
+    ws = [c["w"] for blk in blocks for cs in ("convs1", "convs2") for c in blk[cs]]
+    if upsample is not None:
+        ws.append(upsample["w"])
+    for w in ws:
+        if w.dtype != dtype:
+            raise TypeError(f"mrf_stage: the input is {dtype}, a weight {w.dtype}; cast the "
+                            f"params and the input to one dtype")
 
 
 # --------------------------------------------------------------------------
@@ -140,7 +188,7 @@ def split_tf32(v: torch.Tensor):
 class TilePlan(NamedTuple):
     tile: int        # output rows per cluster (its CTAs run one resblock each)
     clusters: int    # clusters per launch (B x time tiles); 0 with no L_out
-    ss: int          # window row stride (floats, C + 4)
+    ss: int          # window row stride (floats: C + 4, C + 8 with 2-byte weights)
     kc: int          # input channels per weight chunk (one tap)
     stages: int      # weight ring depth
     nt: int          # n8 column tiles per warp
@@ -162,16 +210,25 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def chunk_channels(nt: int, elem: int):
+    """The input channels a weight chunk of a kernel instance may hold:
+    `elem`-byte weights fill the instance's rows of 32-bit words."""
+    return tuple(k * 4 // elem for k in _KC[nt])
+
+
 def _geometry(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc,
-              stages):
+              stages, elem):
     nt, mt, warps_m = warp_grid(C)
-    if kc not in _KC[nt] or C % kc or not 2 <= stages <= 8:
-        raise ValueError(f"mrf_stage kernel: chunks of {kc} channels (one of {_KC[nt]}, "
-                         f"dividing C={C}) in a ring of 2-8, got a ring of {stages}")
+    if kc not in chunk_channels(nt, elem) or C % kc or not 2 <= stages <= 8:
+        raise ValueError(f"mrf_stage kernel: chunks of {kc} channels (one of "
+                         f"{chunk_channels(nt, elem)}, dividing C={C}) in a ring of 2-8, "
+                         f"got a ring of {stages}")
     halo = stage_halo(dilation_sets, kernel_size)
     half = (kernel_size - 1) // 2
-    ss = C + 4
-    ring = stages * kc * C
+    # the windows are f32 in both modes; the bf16 mode reads them in pairs of
+    # channels, whose four rows per load need a stride of 8 mod 32 banks
+    ss = C + (4 if elem == 4 else 8)
+    ring = stages * kc * C * elem // 4            # 32-bit words
     window = min(warps_m * mt * 16 + 2 * half * min(d[0] for d in dilation_sets),
                  ((_SMEM_MAX - 16 * stages) // 4 - ring) // (2 * ss))
     tile = window - 2 * halo
@@ -195,19 +252,22 @@ def _geometry(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, 
 
 @functools.lru_cache(maxsize=256)
 def _plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc,
-          stages):
+          stages, elem):
+    if elem not in (2, 4):
+        raise ValueError(f"mrf_stage kernel: 2-byte (bf16) or 4-byte (f32) weights, got {elem}")
     args = (C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave)
     stages = stages or _STAGES
     if kc:
-        return _geometry(*args, kc, stages)
+        return _geometry(*args, kc, stages, elem)
     nt = warp_grid(C)[0]
+    chunks = chunk_channels(nt, elem)
     plans = []
-    for k in _KC[nt]:
-        if k <= max(_CHUNK_FLOATS // C, _KC[nt][0]) and C % k == 0:
+    for k in chunks:
+        if k * elem // 4 <= max(_CHUNK_FLOATS // C, _KC[nt][0]) and C % k == 0:
             with contextlib.suppress(ValueError):
-                plans.append(_geometry(*args, k, stages))
+                plans.append(_geometry(*args, k, stages, elem))
     if not plans:
-        raise ValueError(f"mrf_stage kernel: no weight chunk of {_KC[nt]} channels fits C={C}")
+        raise ValueError(f"mrf_stage kernel: no weight chunk of {chunks} channels fits C={C}")
     # the largest chunk whose tile is within a tenth of the longest any chunk
     # gives: a smaller ring lengthens the tile where shared memory sets it
     # (fewer recomputed halo rows, fewer waves), at the cost of more chunks
@@ -218,13 +278,15 @@ def _plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave
 def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
               up_cin: int = 0, up_k: int = 0, up_stride: int = 1, B: int = 1,
               L_out: Optional[int] = None, wave: Optional[int] = None,
-              kc: Optional[int] = None, stages: Optional[int] = None) -> TilePlan:
+              kc: Optional[int] = None, stages: Optional[int] = None,
+              elem: int = 4) -> TilePlan:
     """Launch geometry for a stage of C channels (csrc/mrf_stage.cu).
 
     A cluster of len(dilation_sets) CTAs takes one time tile, a CTA per
     resblock.  Shared memory holds the weight ring (`stages` chunks of
-    kc x C floats) and two f32 windows of tile + 2*halo rows of C + 4
-    floats; the warps' row tiles must cover the first conv's rows, and the
+    kc x C weights of `elem` bytes: 4 for the f32 mode, 2 for bf16) and two
+    f32 windows of tile + 2*halo rows of C + 4 floats (C + 8 with 2-byte
+    weights); the warps' row tiles must cover the first conv's rows, and the
     pre-upsample rows must fit the conv1-output window, which stages them.
     Without L_out the tile is the longest that fits.  With B and L_out it is
     the shortest tile that needs no more waves than the longest (a wave:
@@ -232,13 +294,15 @@ def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
     tile leaves the card short of one wave, the tile shrinks until the grid
     fills it, and where it needs several, until the last wave is full; the
     extra halo rows cost less than the idle SMs.  The chunk (kc input
-    channels, at most 8192 floats) is the largest of the kernel instance's
+    channels, at most 8192 32-bit words: a bf16 chunk holds twice the
+    channels of an f32 chunk of its bytes) is the largest of the kernel instance's
     whose tile is within a tenth of the longest tile any of them gives.  kc
     and stages replace the chunk and the ring depth (3), to measure
     variants.  Raises ValueError for a stage the kernel cannot hold."""
     dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
     wave = wave or max(1, _SMS // len(dils))
-    return _plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc, stages)
+    return _plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc, stages,
+                 elem)
 
 
 # --------------------------------------------------------------------------
@@ -255,57 +319,86 @@ def _nvcc() -> str:
                        "kernel is built from source at its first CUDA call")
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernel library.
+class Library(NamedTuple):
+    """The kernel's two builds and what nvcc said of them."""
+    stage: dict            # torch dtype -> the mode's launch entry
+    max_clusters: dict     # torch dtype -> the mode's cluster-occupancy entry
+    error_string: object   # cudaGetErrorString
+    build_log: str         # nvcc's output, both modes (ptxas registers and spills)
+    build_seconds: float   # wall time of the compile, 0 when earlier builds were reused
 
-    The library's `build_log` attribute holds nvcc's output (ptxas register
-    and shared-memory report) and `build_seconds` the compile time (0 when
-    an earlier build of the same source was reused)."""
+
+_MODES = ((torch.float32, "f32", "zv_mrf_stage_f32", "zv_mrf_max_clusters"),
+          (torch.bfloat16, "bf16", "zv_mrf_stage_bf16", "zv_mrf_max_clusters_bf16"))
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> Library:
+    """Build (once per source version) and load the kernel's two libraries,
+    one per mode: the same source with -DZV_MRF_BF16=0 and =1, both nvcc
+    runs started together."""
     src = SOURCE.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"mrf_stage_{digest}.so"
-    log, seconds = "", 0.0
-    if not so.exists():
-        t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for _, tag, _, _ in _MODES:
+        so = BUILD_DIR / f"mrf_stage_{tag}_{digest}.so"
+        if not so.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs[tag] = (so, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, f"-DZV_MRF_BF16={int(tag == 'bf16')}", "-o", tmp,
+                 str(SOURCE)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    log, failed = "", ""
+    for tag, (so, tmp, proc) in procs.items():
+        out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+            failed += f"nvcc failed on {SOURCE} ({tag} mode):\n{err}\n"
+            continue
         os.replace(tmp, so)
-        log, seconds = proc.stdout + proc.stderr, time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
+        log += f"[{tag}]\n{out}{err}"
+    if failed:
+        raise RuntimeError(failed)
+    seconds = time.perf_counter() - t0 if procs else 0.0
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.zv_mrf_stage_f32.argtypes = [p, p, p, p, p, p,       # x w_up in_bias w b y
-                                     i, i, i, i, i,          # B L_in Cin C L_out
-                                     i, i, i,                # K_up stride pad
-                                     i, f, i, f,             # in/out leaky
-                                     i, i, i, p,             # n_rb n_dmax kr dils
-                                     i, i, i, i, i, i, i,    # halo tile ss kc stages nt mt
-                                     i, p]                   # smem stream
-    lib.zv_mrf_stage_f32.restype = i
-    lib.zv_mrf_max_clusters.argtypes = [i, i, i, i]
-    lib.zv_mrf_max_clusters.restype = i
-    lib.zv_cuda_error_string.argtypes = [i]
-    lib.zv_cuda_error_string.restype = ctypes.c_char_p
-    lib.build_log, lib.build_seconds = log, seconds
-    return lib
+    stage, clusters, error_string = {}, {}, None
+    for dtype, tag, stage_name, clusters_name in _MODES:
+        lib = ctypes.CDLL(str(BUILD_DIR / f"mrf_stage_{tag}_{digest}.so"))
+        fn = getattr(lib, stage_name)
+        fn.argtypes = [p, p, p, p, p, p,       # x w_up in_bias w b y
+                       i, i, i, i, i,          # B L_in Cin C L_out
+                       i, i, i,                # K_up stride pad
+                       i, f, i, f,             # in/out leaky
+                       i, i, i, p,             # n_rb n_dmax kr dils
+                       i, i, i, i, i, i, i,    # halo tile ss kc stages nt mt
+                       i, p]                   # smem stream
+        fn.restype = i
+        stage[dtype] = fn
+        fn = getattr(lib, clusters_name)
+        fn.argtypes = [i, i, i, i]
+        fn.restype = i
+        clusters[dtype] = fn
+        if dtype == torch.float32:
+            error_string = lib.zv_cuda_error_string
+            error_string.argtypes = [i]
+            error_string.restype = ctypes.c_char_p
+    return Library(stage, clusters, error_string, log, seconds)
 
 
 @functools.lru_cache(maxsize=None)
-def wave_clusters(device_index: int, n_rb: int, nt: int, mt: int) -> int:
-    """Clusters of n_rb CTAs that the card holds at once (one wave), from
-    cudaOccupancyMaxActiveClusters at full shared memory."""
+def wave_clusters(device_index: int, n_rb: int, nt: int, mt: int,
+                  dtype: torch.dtype = torch.float32) -> int:
+    """Clusters of n_rb CTAs of the mode's kernel that the card holds at
+    once (one wave), from cudaOccupancyMaxActiveClusters at full shared
+    memory."""
     lib = library()
     with torch.cuda.device(device_index):
-        n = lib.zv_mrf_max_clusters(n_rb, nt, mt, _SMEM_MAX)
+        n = lib.max_clusters[dtype](n_rb, nt, mt, _SMEM_MAX)
     if n <= 0:
         raise RuntimeError(f"mrf_stage kernel: no cluster of {n_rb} CTAs fits the card: "
-                           f"{lib.zv_cuda_error_string(-n).decode() if n else 'none'}")
+                           f"{lib.error_string(-n).decode() if n else 'none'}")
     return n
 
 
@@ -315,7 +408,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """t, or a copy of it where its data does not start on 16 bytes (the
-    kernel reads and writes float4s)."""
+    kernel reads and writes 16-byte groups)."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -332,8 +425,10 @@ def swizzle_rows(w: torch.Tensor) -> torch.Tensor:
 
 class PackedStage(NamedTuple):
     """A stage's weights in the kernel's layout (pack_stage)."""
-    w: torch.Tensor                  # (n_conv, K, C, C) [k][ci][swizzled co], chain order
-    b: torch.Tensor                  # (n_conv, C)
+    w: torch.Tensor                  # f32: (n_conv, K, C, C) [k][ci][swizzled co], chain
+    #                                  order; bf16: (n_conv, K, C/2, C, 2) [k][ci/2][swizzled
+    #                                  co][ci%2], a 32-bit word per pair of input channels
+    b: torch.Tensor                  # (n_conv, C) float32 in both modes
     w_up: Optional[torch.Tensor]     # (K_up, C_pre, C) [k][ci][co] ConvTranspose1d taps
 
 
@@ -348,9 +443,19 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     copy, with the output channel swizzled so that the kernel's loads of
     four consecutive rows hit distinct shared-memory banks (C % 32 == 0;
     other C keep co in place).  The flipped (C, C_pre, K) export upsample
-    kernel goes to PyTorch's unflipped taps as [k][ci][co]."""
+    kernel goes to PyTorch's unflipped taps as [k][ci][co].
+
+    bf16 weights (an even C) pack two consecutive input channels into one
+    32-bit word, [k][ci/2][co ^ 8 * (ci/2 % 4)][ci%2]: a row of C words
+    that the kernel addresses, swizzles and streams as it does an f32 row,
+    and a word is one register of the bf16 MMA's B fragment.  The biases
+    are widened to float32 (exact): the kernel adds them in f32."""
     C = blocks[0]["convs1"][0]["w"].shape[0]
     dev = blocks[0]["convs1"][0]["w"].device
+    dtype = blocks[0]["convs1"][0]["w"].dtype
+    _check_dtypes(dtype, blocks, None if upsample_w is None else dict(w=upsample_w))
+    if dtype == torch.bfloat16 and C % 2:
+        raise ValueError(f"bf16 weights pack pairs of input channels: C={C} is odd")
     ws, bs = [], []
     for j, blk in enumerate(blocks):
         for di in range(len(dilation_sets[j])):
@@ -362,8 +467,16 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
                 if conv["w"].device != dev or conv["b"].device != dev:
                     raise ValueError(f"block {j} {cset}[{di}] lies on {conv['w'].device}, "
                                      f"block 0 on {dev}")
-                ws.append(swizzle_rows(conv["w"].permute(2, 1, 0)))
-                bs.append(conv["b"])
+                w = conv["w"].permute(2, 1, 0)                      # [k][ci][co]
+                if dtype == torch.bfloat16:
+                    # words of (ci even, ci odd) per co, swizzled as words
+                    w = w.reshape(kernel_size, C // 2, 2, C).permute(0, 1, 3, 2).contiguous()
+                    w = swizzle_rows(w.view(torch.int32)[..., 0])
+                    w = w.contiguous().view(kernel_size, C // 2, C, 1).view(torch.bfloat16)
+                else:
+                    w = swizzle_rows(w)
+                ws.append(w)
+                bs.append(conv["b"].to(torch.float32))
     w_up = (None if upsample_w is None
             else unflip_transpose_weight(upsample_w).permute(2, 0, 1).contiguous())
     return PackedStage(torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_up)
@@ -371,13 +484,14 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
 
 def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: int, B: int,
                L_out: int, up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
-               **change) -> TilePlan:
-    """The tile plan a launch on `device` uses: tile_plan with the card's
-    own wave of clusters (`change`: tile_plan's kc / stages)."""
+               dtype: torch.dtype = torch.float32, **change) -> TilePlan:
+    """The tile plan a launch on `device` uses in the mode of `dtype`:
+    tile_plan with the card's own wave of clusters (`change`: tile_plan's
+    kc / stages)."""
     nt, mt, _ = warp_grid(C)
-    wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), nt, mt)
+    wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), nt, mt, dtype)
     return tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
-                     **change)
+                     elem=dtype.itemsize, **change)
 
 
 def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
@@ -386,8 +500,8 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     """Check the arguments and launch the kernel once (packing the weights
     first when the caller did not).  plan: a geometry other than
     stage_plan's, for measuring variants."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"mrf_stage kernel takes float32, got {x.dtype}")
+    dtype = x.dtype
+    _check_dtypes(dtype, blocks, upsample)
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("mrf_stage kernel takes a contiguous (B, L, C) tensor")
     if kernel_size % 2 != 1:
@@ -406,8 +520,9 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     C = blocks[0]["convs1"][0]["w"].shape[0]
     n_conv = sum(2 * len(ds) for ds in dilation_sets)
     halo = stage_halo(dilation_sets, kernel_size)
-    if tuple(packed.w.shape) != (n_conv, kernel_size, C, C) \
-            or tuple(packed.b.shape) != (n_conv, C):
+    w_shape = ((n_conv, kernel_size, C, C) if dtype == torch.float32
+               else (n_conv, kernel_size, C // 2, C, 2))
+    if tuple(packed.w.shape) != w_shape or tuple(packed.b.shape) != (n_conv, C):
         raise ValueError(f"packed weights {tuple(packed.w.shape)} / {tuple(packed.b.shape)} "
                          f"do not match {n_conv} convs of {C} channels")
 
@@ -419,9 +534,9 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
         if c_up != C or cin_up != Cin:
             raise ValueError(f"upsample weight maps {cin_up} -> {c_up} channels, "
                              f"the stage {Cin} -> {C}")
-        if Cin % 4:
+        if Cin % (16 // dtype.itemsize):
             raise ValueError(f"mrf_stage kernel: the upsample's input channels ({Cin}) "
-                             f"must be a multiple of 4")
+                             f"must be a multiple of {16 // dtype.itemsize}")
         stride, pad = int(upsample["stride"]), int(upsample["padding"])
         opad = int(upsample["output_padding"])
         if stride < 1 or not 0 <= opad < stride:
@@ -435,37 +550,36 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
         raise ValueError(f"empty stage: B={B}, L_out={L_out}")
     if plan is None:
         plan = stage_plan(dev, C, dilation_sets, kernel_size, B, L_out,
-                          Cin if upsample is not None else 0, K_up, stride)
+                          Cin if upsample is not None else 0, K_up, stride, dtype)
     ib = None if in_bias is None else _aligned(in_bias.to(dev, torch.float32).contiguous())
     if ib is not None and ib.shape != (C,):
         raise ValueError(f"in_bias has shape {tuple(ib.shape)}, want ({C},)")
     x = _aligned(x)
     w_up = _aligned(packed.w_up) if upsample is not None else None
     w, b = _aligned(packed.w), _aligned(packed.b)
-    for t in (w_up, w, b):
-        if t is not None and (t.device != dev or t.dtype != torch.float32
-                              or not t.is_contiguous()):
-            raise TypeError("mrf_stage kernel: weights must be contiguous float32 "
-                            "on the input's device")
+    for t, want in ((w_up, dtype), (w, dtype), (b, torch.float32)):
+        if t is not None and (t.device != dev or t.dtype != want or not t.is_contiguous()):
+            raise TypeError(f"mrf_stage kernel: packed weights must be contiguous {dtype} "
+                            f"(biases float32) on the input's device")
 
     n_dmax = max(len(d) for d in dilation_sets)
     dils = (ctypes.c_int * (len(blocks) * n_dmax))(
         *[ds[i] if i < len(ds) else 0 for ds in dilation_sets for i in range(n_dmax)])
-    y = torch.empty(B, L_out, C, device=dev, dtype=torch.float32)
+    y = torch.empty(B, L_out, C, device=dev, dtype=dtype)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zv_mrf_stage_f32(
+        err = lib.stage[dtype](
             x.data_ptr(), _ptr(w_up), _ptr(ib), w.data_ptr(), b.data_ptr(),
             y.data_ptr(), B, L_in, Cin, C, L_out, K_up, stride, pad,
             int(in_leaky is not None), float(in_leaky or 0.0),
             int(out_leaky is not None), float(out_leaky or 0.0),
             len(blocks), n_dmax, kernel_size, dils,
-            halo, plan.tile, plan.ss, plan.kc, plan.stages, plan.nt, plan.mt, plan.smem,
-            stream)
+            halo, plan.tile, plan.ss, plan.kc * dtype.itemsize // 4, plan.stages, plan.nt,
+            plan.mt, plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage kernel launch failed: "
-                           f"{lib.zv_cuda_error_string(err).decode()} ({err})")
+                           f"{lib.error_string(err).decode()} ({err})")
     return y
 
 
@@ -496,7 +610,8 @@ def mrf_stage(x: torch.Tensor,
     per model so that a launch moves no weights; packed here when omitted.
     The plain version (CPU tensors) reads `blocks` and `upsample` only.
 
-    Returns (1/n) * sum_j resblock_j(input), (B, L_out, C) float32.
+    Returns (1/n) * sum_j resblock_j(input), (B, L_out, C) in x's dtype
+    (float32 or bfloat16; the weights must have the same).
     """
     if x.device.type == "cpu":
         return mrf_stage_ref(x, blocks, dilation_sets, kernel_size,

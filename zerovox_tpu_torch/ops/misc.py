@@ -2,8 +2,18 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def scalar_as(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as a Python float.  The JAX package
+    turns a scalar that meets a bf16 array into bf16 first; PyTorch would
+    multiply by the unrounded float."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def bucketize(prediction: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -18,7 +28,7 @@ def bucketize(prediction: torch.Tensor, n_bins: int) -> torch.Tensor:
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * negative_slope)
+    return torch.where(x >= 0, x, x * scalar_as(negative_slope, x.dtype))
 
 
 def sinusoid_encoding_table(n_position: int, d_hid: int) -> np.ndarray:

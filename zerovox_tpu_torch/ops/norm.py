@@ -2,9 +2,11 @@
 
 LayerNorm reduces the channel axis (-1); InstanceNorm1d reduces **time**
 (axis -2), per channel, as the reference's ggml_norm-over-time construction
-does.  Moments are two-pass in f32 (mean, then the mean of squared
-deviations: no catastrophic cancellation), variance without Bessel's
-correction.
+does.  Moments are f32, variance without Bessel's correction.  A float32
+input takes them in two passes (mean, then the mean of squared deviations:
+no catastrophic cancellation; the parity path); any other dtype (the bf16
+serving path) in one pass, E[x^2] - E[x]^2 clamped at 0, as the JAX
+package does, so that both compute the same thing.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import torch
 
 def _normalize(x: torch.Tensor, dim: int, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
+    if x.dtype != torch.float32:
+        n = x.shape[dim]
+        mean = xf.sum(dim=dim, keepdim=True) / n
+        var = torch.clamp((xf * xf).sum(dim=dim, keepdim=True) / n - mean * mean, min=0.0)
+        return ((xf - mean) * (1.0 / torch.sqrt(var + eps))).to(x.dtype)
     mean = xf.mean(dim=dim, keepdim=True)
     centered = xf - mean
     var = (centered * centered).mean(dim=dim, keepdim=True)

@@ -15,16 +15,29 @@ the ladder top bounds the memory of one dispatch.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import ZeroVoxConfig
-from ..device import resolve_device
-from ..models import fs2_encoder, hifigan, styletts_decoder
-from ..ops import durations_from_log, length_regulate
-from ..params import params_to_device
+from ..device import resolve_device, to_host_async, wait_host
+from ..io.wav import float_to_pcm16_device
+from ..models import hifigan
+from ..models.pipeline import (LoadedModel, compute_dtype, front, load_model, pack_model,
+                               place_params, request_tensors)
+
+
+def _leaves(tree, path=""):
+    """(path, tensor) for every leaf of a params tree, in tree order."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
 
 
 class TTSEngine:
@@ -35,20 +48,16 @@ class TTSEngine:
                  precision: str = "float32",
                  batch_ladder: Sequence[int] = (1, 2, 4, 8),
                  device="cuda"):
-        if precision == "bfloat16":
-            raise NotImplementedError(
-                "precision='bfloat16' is the bf16 serving path (the kernel's "
-                "bf16 dots), a later slice of the port; use 'float32'")
-        if precision != "float32":
+        """precision "bfloat16" is the serving dtype: the weights are cast
+        once, here (and again in reload_params), the activations follow
+        cfg.compute_dtype, and the MRF kernel runs its bf16 mode."""
+        if precision not in ("float32", "bfloat16"):
             raise ValueError(f"unknown precision {precision!r}")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the port runs compute_dtype='float32' only")
         self.device = resolve_device(device)
-        self.params = params_to_device(params, self.device)
+        if precision == "bfloat16":
+            cfg = cfg.replace(compute_dtype="bfloat16")
         self.cfg = cfg
-        # the MRF kernel's weight layout, made once (the CPU path does not read it)
-        self.vocoder_packed = (hifigan.pack_vocoder(self.params, cfg)
-                               if self.device.type == "cuda" else None)
+        self._model = load_model(params, cfg, self.device)
         # truncating the mel at `bucket` only perturbs vocoder outputs within
         # the receptive field of the cut: mel_len + margin <= bucket keeps
         # the trimmed waveform equal to the full run's
@@ -60,30 +69,66 @@ class TTSEngine:
         self.batch_ladder: Tuple[int, ...] = tuple(sorted(set(
             int(b) for b in batch_ladder)))
 
+    # -------------------------------------------------------------- weights
+    @property
+    def params(self) -> dict:
+        return self._model.params
+
+    @property
+    def vocoder_packed(self) -> Optional[list]:
+        return self._model.packed
+
+    def reload_params(self, params):
+        """Hot-swap the model's weights for others of the same geometry
+        (tree structure, shapes and dtypes; anything else raises ValueError
+        and needs a new engine).  The new weights are cast as the
+        constructor cast the old ones and packed anew for the MRF kernel;
+        weights and packed weights are swapped as one reference, so a call
+        in flight finishes on the old pair and never mixes the two."""
+        placed = place_params(params, self.cfg, self.device)
+        self._validate_same_geometry(self._model.params, placed)
+        self._model = pack_model(placed, self.cfg, self.device)
+
+    @staticmethod
+    def _validate_same_geometry(old_params, new_params):
+        """Raise ValueError unless new_params has the tree structure and the
+        per-leaf shapes and dtypes of old_params."""
+        old, new = list(_leaves(old_params)), list(_leaves(new_params))
+        if [k for k, _ in old] != [k for k, _ in new]:
+            raise ValueError("checkpoint parameter tree differs from the loaded model's: "
+                             "geometry changed, a new engine is required")
+        bad = [(k, tuple(b.shape), b.dtype, tuple(a.shape), a.dtype)
+               for (k, a), (_, b) in zip(old, new)
+               if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype]
+        if bad:
+            raise ValueError("checkpoint geometry mismatch (a new engine is required): "
+                             + "; ".join(f"{k}: {bs}/{bd} vs engine {as_}/{ad}"
+                                         for k, bs, bd, as_, ad in bad[:3]))
+
     # ------------------------------------------------------------ programs
     @torch.inference_mode()
-    def _front(self, src_seq, puncts, style_embed, num_phonemes):
-        """Encoder + length regulator + decoder at full max_seq_len."""
-        cfg = self.cfg
-        mask = (fs2_encoder.phoneme_mask(num_phonemes, src_seq.shape[-1])
-                if cfg.use_attention_mask else None)
-        features, log_dur = fs2_encoder.encode(
-            self.params, cfg, src_seq, puncts, style_embed, phoneme_mask=mask)
-        durations = durations_from_log(log_dur, cfg.max_seq_len)
-        hidden, mel_len = length_regulate(
-            features, durations, cfg.max_seq_len, num_phonemes=num_phonemes)
-        mel = styletts_decoder.decode(self.params, cfg, hidden, style_embed)
+    def _front(self, src_seq, puncts, style_embed, num_phonemes,
+               model: Optional[LoadedModel] = None):
+        """Encoder + length regulator + decoder at full max_seq_len, on
+        device tensors; no host sync."""
+        mel, mel_len, _ = front((model or self._model).params, self.cfg, src_seq, puncts,
+                                style_embed.to(compute_dtype(self.cfg)), num_phonemes)
         return mel, mel_len
 
     @torch.inference_mode()
-    def _back(self, mel_b: torch.Tensor, pcm16: bool) -> np.ndarray:
-        """Vocoder on a bucket-length mel; the PCM16 quantisation (clip,
-        scale, truncate toward zero, as io.wav.float_to_pcm16) runs on the
-        device so the host fetch moves int16."""
-        wav = hifigan.vocode(self.params, self.cfg, mel_b, self.vocoder_packed)
-        if pcm16:
-            wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
-        return wav.cpu().numpy()
+    def _vocode(self, mel_b: torch.Tensor, pcm16: bool,
+                model: Optional[LoadedModel] = None) -> torch.Tensor:
+        """Vocoder on a bucket-length mel, left on the device: int16 with
+        pcm16 (quantised there, so the host fetch moves half the bytes),
+        else float32 (a bf16 waveform is widened for the caller)."""
+        model = model or self._model
+        wav = hifigan.vocode(model.params, self.cfg, mel_b, model.packed)
+        return float_to_pcm16_device(wav) if pcm16 else wav.to(torch.float32)
+
+    def _back(self, mel_b: torch.Tensor, pcm16: bool,
+              model: Optional[LoadedModel] = None) -> np.ndarray:
+        """_vocode fetched to the host."""
+        return self._vocode(mel_b, pcm16, model).cpu().numpy()
 
     # ------------------------------------------------------------- geometry
     def pick_bucket(self, mel_len: int) -> int:
@@ -132,27 +177,74 @@ class TTSEngine:
             for b in self.mel_buckets:
                 for v in ((False, True) if pcm16 else (False,)):
                     self._back(mel[:, :b], v)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ API
     def synthesize(self, src_seq, puncts, style_embed, num_phonemes=None,
-                   trim: bool = True, pcm16: bool = False
+                   trim: bool = True, single_rtt: bool = False, pcm16: bool = False
                    ) -> Tuple[List[np.ndarray], np.ndarray]:
         """Batched synthesis with bucket dispatch: the whole batch vocodes at
         the bucket of its longest utterance (synthesize_packed routes each
         bucket group separately).
 
         Returns (per-utterance waveforms, trimmed to mel_len*hop when
-        trim=True, else the full padded buffer; mel_len array)."""
-        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes)
+        trim=True, else the full padded buffer; mel_len array).
+
+        single_rtt=True delegates to synthesize_async() + fetch: the
+        vocoder runs at the largest bucket, launched before mel_len is read,
+        so the call waits on the device once instead of twice.  It is off
+        by default, where the JAX package turns it on for B == 1: there a
+        host sync is a round trip to a remote device and costs more than
+        vocoding 1500 frames instead of 256; on a local card a sync costs
+        microseconds and the longer vocode milliseconds (PERF.md)."""
+        if single_rtt:
+            return self.synthesize_async(src_seq, puncts, style_embed,
+                                         num_phonemes=num_phonemes, trim=trim, pcm16=pcm16)()
+        model = self._model
+        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, model)
         # trim=False promises the reference's full padded buffer, so it
         # vocodes at the max bucket
         bucket = (self.pick_bucket(int(mel_len_h.max()))
                   if trim else self.mel_buckets[-1])
         outs = []
         for padded, n in self._ladder_chunks(range(mel.shape[0])):
-            idx = torch.as_tensor(padded, device=self.device)
-            outs.append(self._back(mel[idx, :bucket], pcm16)[:n])
+            outs.append(self._back(self._take(mel, padded)[:, :bucket], pcm16, model)[:n])
         return self._trim(np.concatenate(outs, axis=0), mel_len_h, trim), mel_len_h
+
+    def synthesize_async(self, src_seq, puncts, style_embed, num_phonemes=None,
+                         trim: bool = True, pcm16: bool = False
+                         ) -> Callable[[], Tuple[List[np.ndarray], np.ndarray]]:
+        """Launch synthesis without waiting for the device; returns a
+        fetch() closure.
+
+        The front and a vocoder at the largest bucket (which covers every
+        mel length, so nothing is ever redone) are launched with no host
+        sync, ladder chunk by ladder chunk, and each chunk's waveform and
+        mel_len start their copy into pinned host memory behind it.
+        fetch() waits for each chunk's copies and trims on the host.  A
+        caller can launch batch k+1 while batch k is still computing or
+        being fetched."""
+        model = self._model
+        src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
+        bucket = self.mel_buckets[-1]
+        chunks = []
+        for padded, n in self._ladder_chunks(range(src.shape[0])):
+            mel, mel_len = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
+                                       model)
+            wav = self._vocode(mel[:, :bucket], pcm16, model)
+            chunks.append((to_host_async(wav), to_host_async(mel_len), n))
+
+        def fetch() -> Tuple[List[np.ndarray], np.ndarray]:
+            wavs: List[np.ndarray] = []
+            lens = []
+            for wav_p, len_p, n in chunks:
+                len_n = wait_host(len_p).numpy()[:n]
+                wavs.extend(self._trim(wait_host(wav_p).numpy()[:n], len_n, trim))
+                lens.append(len_n)
+            return wavs, np.concatenate(lens)
+
+        return fetch
 
     def synthesize_packed(self, src_seq, puncts, style_embed,
                           num_phonemes=None, trim: bool = True,
@@ -161,7 +253,8 @@ class TTSEngine:
         """Bucket-packed batched synthesis: one vocoder dispatch per bucket
         group (ladder-padded), so short utterances in a mixed batch do not
         pay the longest one's compute.  Outputs match synthesize()."""
-        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes)
+        model = self._model
+        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, model)
         B = mel.shape[0]
         hop = self.cfg.hop_size
         wavs: List[Optional[np.ndarray]] = [None] * B
@@ -169,30 +262,31 @@ class TTSEngine:
                   else {self.mel_buckets[-1]: list(range(B))})
         for bucket, idxs in groups.items():
             for padded, n in self._ladder_chunks(idxs):
-                idx = torch.as_tensor(padded, device=self.device)
-                wav_h = self._back(mel[idx, :bucket], pcm16)
+                wav_h = self._back(self._take(mel, padded)[:, :bucket], pcm16, model)
                 for k, i in enumerate(padded[:n]):
                     wavs[i] = wav_h[k, : int(mel_len_h[i]) * hop] if trim else wav_h[k]
         return wavs, mel_len_h
 
     # -------------------------------------------------------------- helpers
-    def _run_front(self, src_seq, puncts, style_embed, num_phonemes):
+    def _inputs(self, src_seq, puncts, style_embed, num_phonemes):
+        """The request's arrays as tensors on the engine's device."""
+        return request_tensors(self.cfg, self.device, src_seq, puncts, style_embed,
+                               num_phonemes)
+
+    def _take(self, t: torch.Tensor, padded: Sequence[int]) -> torch.Tensor:
+        """Rows `padded` of t (t itself where they are all its rows in order)."""
+        if list(padded) == list(range(t.shape[0])):
+            return t
+        return t[torch.as_tensor(padded, device=self.device)]
+
+    def _run_front(self, src_seq, puncts, style_embed, num_phonemes,
+                   model: Optional[LoadedModel] = None):
         """Front at ladder sizes; returns (device mel (B, T, mels), host mel_len)."""
-        cfg = self.cfg
-        dev = self.device
-        src = torch.as_tensor(np.asarray(src_seq), device=dev).long()
-        pun = torch.as_tensor(np.asarray(puncts), device=dev).long()
-        sty = torch.as_tensor(np.asarray(style_embed, np.float32), device=dev)
-        B = src.shape[0]
-        if B == 0:
-            raise ValueError("empty batch")
-        nph = (torch.full((B,), cfg.max_n_phonemes, device=dev)
-               if num_phonemes is None
-               else torch.as_tensor(np.asarray(num_phonemes), device=dev).long())
+        src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
         mels, lens = [], []
-        for padded, n in self._ladder_chunks(range(B)):
-            idx = torch.as_tensor(padded, device=dev)
-            mel_c, len_c = self._front(src[idx], pun[idx], sty[idx], nph[idx])
+        for padded, n in self._ladder_chunks(range(src.shape[0])):
+            mel_c, len_c = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
+                                       model)
             mels.append(mel_c[:n])
             lens.append(len_c[:n])
         mel = mels[0] if len(mels) == 1 else torch.cat(mels, dim=0)

@@ -2,6 +2,7 @@
 with one part of the work taken out, on the production stages.
 
     python -m zerovox_tpu_torch.tools.mrf_ablation [--shape full|bucket256]
+                                                   [--dtype float32|bfloat16]
 
 Each ablation is a text substitution in csrc/mrf_stage.cu, built with the
 kernel's own nvcc flags into build/zerovox_tpu_torch/ablation/ (all builds
@@ -13,6 +14,8 @@ something.  The difference to the kernel's time is what that part costs:
   no upsample     the fused ConvTranspose1d prologue skips its arithmetic
   no chain        the convs' k-steps (fragment loads, splits, MMAs) are skipped:
                   what remains is the work around the chain
+The first two are about the f32 mode's 3xTF32 products and are left out
+with --dtype bfloat16 (one product, nothing to split).
 Every variant runs in turns (kernel, ablations, ablations reversed,
 kernel), median of 5 CUDA-event timings each, on one card.  Needs a card.
 """
@@ -29,6 +32,7 @@ import torch
 
 from ..config import ZeroVoxConfig
 from ..models.hifigan import pack_vocoder
+from ..models.pipeline import cast_params
 from ..ops.cuda import mrf_stage as ms
 from ..params import init_params
 
@@ -56,10 +60,13 @@ ABLATIONS = {
     "no upsample": [(_UPSAMPLE, _NO_UPSAMPLE)],
     "no chain": [(_CHAIN, _NO_CHAIN)],
 }
+F32_ONLY = ("one product", "no split")
 
 
-def build_all(names):
-    """{name: CDLL} for the kernel and each ablation, nvcc runs in parallel."""
+def build_all(names, dtype):
+    """{name: ms.Library whose `dtype` entry is the ablated build} for the
+    kernel and each ablation, nvcc runs in parallel."""
+    tag, entry_name = next((m[1], m[2]) for m in ms._MODES if m[0] == dtype)
     src = ms.SOURCE.read_text()
     out = ms.BUILD_DIR / "ablation"
     out.mkdir(parents=True, exist_ok=True)
@@ -73,7 +80,8 @@ def build_all(names):
         stem = name.replace(" ", "_")
         (out / f"{stem}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [ms._nvcc(), *ms.NVCC_FLAGS, "-o", str(out / f"{stem}.so"), str(out / f"{stem}.cu")],
+            [ms._nvcc(), *ms.NVCC_FLAGS, f"-DZV_MRF_BF16={int(tag == 'bf16')}",
+             "-o", str(out / f"{stem}_{tag}.so"), str(out / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     proto = ms.library()
@@ -81,11 +89,10 @@ def build_all(names):
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on ablation {name!r}:\n{log}")
-        lib = ctypes.CDLL(str(out / f"{name.replace(' ', '_')}.so"))
-        for fn in ("zv_mrf_stage_f32", "zv_mrf_max_clusters", "zv_cuda_error_string"):
-            getattr(lib, fn).argtypes = getattr(proto, fn).argtypes
-            getattr(lib, fn).restype = getattr(proto, fn).restype
-        libs[name] = lib
+        entry = getattr(ctypes.CDLL(str(out / f"{name.replace(' ', '_')}_{tag}.so")), entry_name)
+        entry.argtypes = proto.stage[dtype].argtypes
+        entry.restype = proto.stage[dtype].restype
+        libs[name] = proto._replace(stage={**proto.stage, dtype: entry})
     return libs
 
 
@@ -105,26 +112,30 @@ def cuda_ms(fn, reps=5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shape", choices=("full", "bucket256"), default="full")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mrf_ablation: needs a CUDA card", file=sys.stderr)
         return 2
     torch.backends.cudnn.allow_tf32 = False
-    names = ["kernel", *ABLATIONS]
-    libs = build_all(names)
+    dtype = getattr(torch, args.dtype)
+    names = ["kernel", *(n for n in ABLATIONS
+                         if dtype == torch.float32 or n not in F32_ONLY)]
+    libs = build_all(names, dtype)
     cfg = ZeroVoxConfig()
-    params = init_params(cfg, seed=0, device="cuda")
+    params = cast_params(init_params(cfg, seed=0, device="cuda"), dtype)
     packs = pack_vocoder(params, cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     voc, dils, kr = params["vocoder"], cfg.resblock_dilations, cfg.resblock_kernel_size
     L_pre, c_pre = (cfg.max_seq_len if args.shape == "full" else 256), cfg.hifigan_channels
-    print(f"card: {torch.cuda.get_device_name(0)}; shape B=1, {L_pre} mel frames", flush=True)
+    print(f"card: {torch.cuda.get_device_name(0)}; {args.dtype}, shape B=1, {L_pre} mel frames",
+          flush=True)
     real = ms.library
     try:
         for i, s in enumerate(cfg.upsample_scales):
             up = voc["upsamples"][i]
             blocks = [voc["blocks"][i * cfg.num_resblocks + j] for j in range(cfg.num_resblocks)]
-            x = torch.randn(1, L_pre, c_pre, generator=gen, device="cuda")
+            x = torch.randn(1, L_pre, c_pre, generator=gen, device="cuda").to(dtype)
             kw = dict(upsample=dict(w=up["w"], stride=s, padding=s // 2 + s % 2,
                                     output_padding=s % 2),
                       in_bias=up["b"], in_leaky=0.1 if i == 0 else None,
