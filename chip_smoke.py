@@ -12,10 +12,12 @@ Phases (any failure exits non-zero and prints no result line):
   3. hold the kernel against its plain PyTorch version (mrf_stage_ref) on
      the four production MRF stages (the options vocode gives them) and
      the mrf_stage_unfolded entry, TF32 off, in float32 and in bfloat16, at
-     three shapes (B=1 full length, B=1 and B=8 at bucket 256) and at every
-     window size of the streaming chunk plan (80, 96 and 44 mel frames: the
-     first chunk, an interior one, the tail); time every launch with CUDA
-     events next to the plain version and its bounds (f32: f32 FMA and
+     every shape a serving process launches: each batch size of the
+     engine's ladder (1, 2, 4, 8) at each mel bucket (256, 512, 1024, 1500)
+     and every window size of the streaming chunk plan (80, 96 and 44 mel
+     frames: the first chunk, an interior one, the tail); at three of them
+     (B=1 full length, B=1 and B=8 at bucket 256) and at the windows, time
+     every launch with CUDA events next to the plain version and its bounds (f32: f32 FMA and
      3xTF32 tensor cores; bf16: dense bf16 tensor cores); print each
      launch's cluster geometry; time variants of the f32 geometry (longest
      tile, half and twice the weight chunk, rings of 2 and 4) against the
@@ -36,18 +38,40 @@ Phases (any failure exits non-zero and prints no result line):
   6. the engine's remainder, in both dtypes: synthesize_async + fetch
      against synthesize, single_rtt on and off timed, reload_params with
      other weights and with a wrong geometry;
-  7. print the kernels line, then the card line, then {"ok": true, ...}.
+  7. the serving daemon, in bfloat16 (the serving dtype) and float32: an
+     in-process TTSServer on a loopback port and a TTSClient: /healthz and
+     /metrics (the device row names the card), /synthesize as JSON and as a
+     binary body against engine.synthesize, /batch against
+     synthesize_packed, /stream against /synthesize, ?split=1 on a
+     300-phoneme utterance on both endpoints, bad requests (400, 413, 404,
+     503 with max_concurrent=1); sequential latency of /synthesize (JSON,
+     binary) beside the engine called directly; 8 closed-loop client
+     threads against a daemon with the batcher off and one with
+     batch_window_ms=5 (every answer held against the direct one;
+     requests/s, p50, p95, mean batch size), /stream's time to first byte
+     alone and beside 7 other streams; /reload to other weights, to another
+     geometry (409) and under a stream in flight; what another batch size
+     does to an answer (the variance adaptor's buckets tapped at B=1 and at
+     the ladder's sizes); once, a subprocess
+     `python -m zerovox_tpu_torch.cli --serve` answered by the module
+     client and drained by SIGTERM.  Phases 4-7 fail if they launch the
+     kernel at a shape that phase 3 did not hold;
+  8. print the kernels line, then the card line, then {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import http.client
 import json
 import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -72,6 +96,18 @@ WAV_ATOL_BF16 = 2.0 ** -7
 STREAM_TOL = dict(atol=2e-5, rtol=1e-4)        # f32 stream vs full run
 STREAM_ATOL_BF16 = 2.0 ** -8                   # bf16 stream vs full run: 1 ulp at the top
 CHUNK_FRAMES, OVERLAP = 64, 16                 # the CLI's streaming defaults
+# the daemon's PCM16 answers against the engine's, in LSB of int16.  float32:
+# the same code on the same weights and shapes, 1 LSB (a batched request
+# runs at another batch size and bucket: a last-ulp float difference can
+# cross a quantisation boundary).  bfloat16: the waveform gates above at
+# int16 scale (another bucket or batch size: 2^-7; the stream: 2^-8).
+PCM_LSB = {"float32": 1, "bfloat16": WAV_ATOL_BF16 * 32767}
+PCM_LSB_STREAM = {"float32": 1, "bfloat16": STREAM_ATOL_BF16 * 32767}
+# the engine's batch ladder and mel buckets (its defaults; the last bucket is
+# max_seq_len): every (batch size, bucket) a serving process can vocode at
+LADDER, BUCKETS = (1, 2, 4, 8), (256, 512, 1024, 1500)
+LOAD_CLIENTS, LOAD_ROUNDS = 8, 10              # closed-loop client threads x requests each
+LATENCY_REQUESTS = 30
 
 
 def log(msg: str):
@@ -94,21 +130,40 @@ def peaks(name: str):
     raise RuntimeError(f"no published peak rates for {name!r}")
 
 
+def p95(xs):
+    """The 95th percentile of xs (nearest rank)."""
+    xs = sorted(xs)
+    return xs[max(0, -(-95 * len(xs) // 100) - 1)]
+
+
+def in_threads(fn, n, timeout=600):
+    """fn(i) on n threads started together; their results in order.  A
+    failure, or a thread still alive at the timeout, raises here."""
+    barrier = threading.Barrier(n)
+    results, errors = [None] * n, []
+
+    def worker(i):
+        try:
+            barrier.wait(timeout=timeout)
+            results[i] = fn(i)
+        except Exception as e:          # noqa: BLE001  (reported below)
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"client threads failed or hung: {errors[:3]}")
+    return results
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Median device time of fn() over `reps` runs (CUDA events), after one
     warm-up call."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from zerovox_tpu_torch.utils.profiling import device_time
+    return device_time(fn, iters=1, reps=reps, cuda=True)
 
 
 # --------------------------------------------------------------------------
@@ -227,16 +282,20 @@ def check_stages(cfg, params, gen, pk):
     """Kernel vs plain on the production stages, in the params' dtype;
     returns per-entry records for the kernels line (times and bounds of
     the B=1 full-length shape, the largest error of all shapes), the
-    packed weights and the streaming window sizes that were held.
+    packed weights, the streaming window sizes that were held, and the set
+    of (dtype, input shape) of every mrf_stage call that was held.
 
-    B=1 at the full max_seq_len (the --no-trim / longest-bucket shape), B=1
+    Timed: B=1 at the full max_seq_len (the --no-trim / longest-bucket shape), B=1
     at bucket 256 (the serving shape of a 3 s utterance), B=8 at bucket 256
     (the engine's packed batch; every CTA's batch-row offset is checked),
     and every window size a stream gives the kernel (stream_windows: 80
     frames for the first chunk, 64 + 16 of overlap on one side; 96 for an
     interior chunk; 44 for the tail of a 1500-frame plan, 28 + 16), where a
-    stage is less than one wave of clusters.  Each launch runs on weights
-    packed beforehand, as the engine packs them."""
+    stage is less than one wave of clusters.  Held and not timed: every
+    other batch size of LADDER at every bucket of BUCKETS (what the
+    batcher, /batch, ?split=1 and the warm-ups vocode at: tile_plan depends
+    on B, L and the wave, so each is another launch geometry).  Each launch
+    runs on weights packed beforehand, as the engine packs them."""
     import torch
     from zerovox_tpu_torch.models.hifigan import pack_vocoder
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
@@ -250,11 +309,32 @@ def check_stages(cfg, params, gen, pk):
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
     suffix = "_bf16" if dtype == torch.bfloat16 else ""
     records = {}
+    held = set()
     windows = stream_windows(cfg)
-    for shape, B, L0 in [("B=1 full", 1, cfg.max_seq_len), ("B=1 bucket 256", 1, 256),
-                         ("B=8 bucket 256", 8, 256)] \
-            + [(f"B=1 window {w}", 1, w) for w in windows]:
+    if BUCKETS[-1] != cfg.max_seq_len:
+        raise RuntimeError(f"the last bucket is {BUCKETS[-1]}, max_seq_len {cfg.max_seq_len}")
+    timed = [("B=1 full", 1, cfg.max_seq_len), ("B=1 bucket 256", 1, 256),
+             ("B=8 bucket 256", 8, 256)] + [(f"B=1 window {w}", 1, w) for w in windows]
+    for B in LADDER:
+        for L0 in BUCKETS:
+            if (B, L0) in {t[1:] for t in timed}:
+                continue
+            worst, clusters = [], []
+            for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, B, L0):
+                got, err, tol = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
+                held.add((x.dtype, tuple(x.shape)))
+                worst.append(err / tol)
+                clusters.append(launch_plan(ms, cfg, x, C, K_up, kw, got.shape[1]))
+                records[name + suffix] = dict(max_abs_err=max(
+                    err, records.get(name + suffix, {}).get("max_abs_err", 0.0)))
+                del got
+            log(f"{tag} B={B} bucket {L0} held against the plain version, stages 1-4: max|d| at "
+                + ", ".join(f"{w:.2f}" for w in worst) + " of the tolerance at max|out|; "
+                + ", ".join(f"{p.clusters} clusters of tile {p.tile}" for p in clusters))
+    torch.cuda.empty_cache()
+    for shape, B, L0 in timed:
         stages = stage_calls(cfg, params, gen, B, L0)
+        held.update((x.dtype, tuple(x.shape)) for _, _, x, *_ in stages)
         if shape == "B=1 full":
             # the unfolded entry (every option off) on stage 2's geometry
             _, _, x2, blocks2, _, C2, _ = stages[1]
@@ -289,8 +369,10 @@ def check_stages(cfg, params, gen, pk):
                     tot[k] += v
             key = name + suffix
             if shape == "B=1 full":
-                r = records.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                                 max_abs_err=0.0, bound_by="operations"))
+                r = records.setdefault(key, {})
+                for k, v in dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                                 bound_by="operations").items():
+                    r.setdefault(k, v)
                 r["ms"] += ms_k
                 r["plain_ms"] += ms_p
                 r["bound_ms"] += bounds["tc"]
@@ -303,7 +385,7 @@ def check_stages(cfg, params, gen, pk):
             + (f"f32-FMA {tot['fma']:.3f} ms ({100 * tot['fma'] / tot['ms']:.0f} %), 3xTF32 "
                if tot["fma"] else "bf16 tensor cores ")
             + f"{tot['tc']:.3f} ms ({100 * tot['tc'] / tot['ms']:.0f} %)")
-    return records, packs, windows
+    return records, packs, windows, held
 
 
 def time_variants(cfg, params, gen, packs):
@@ -403,6 +485,9 @@ def main_path(cfg, params, model, tmp, precision):
     expected = n_stages                          # one B=1 vocode dispatch
 
     engine = TTSEngine(params, cfg, precision=precision)
+    if engine.batch_ladder != LADDER or engine.mel_buckets != BUCKETS:
+        raise RuntimeError(f"the engine's ladder {engine.batch_ladder} and buckets "
+                           f"{engine.mel_buckets} are not those phase 3 held")
     want = torch.bfloat16 if precision == "bfloat16" else torch.float32
     if engine.params["vocoder"]["upsamples"][0]["w"].dtype != want \
             or engine.vocoder_packed[0].w.dtype != want:
@@ -461,6 +546,38 @@ def main_path(cfg, params, model, tmp, precision):
             f"bucket {bucket} {statistics.median(backs):.2f} ms (medians of 3; "
             f"fronts {['%.2f' % r for r in fronts]}, vocoders {['%.2f' % r for r in backs]})")
     return counts, walls, engine
+
+
+def record_launch_shapes():
+    """From here on, every vocoder call of mrf_stage in this process is
+    noted by (dtype, input shape) before it goes on to the kernel's
+    wrapper; returns the dict of counts."""
+    from zerovox_tpu_torch.models import hifigan
+    wrapper = hifigan.mrf_stage
+    seen, lock = {}, threading.Lock()
+
+    def recording(x, *a, **kw):
+        key = (x.dtype, tuple(x.shape))
+        with lock:
+            seen[key] = seen.get(key, 0) + 1
+        return wrapper(x, *a, **kw)
+
+    hifigan.mrf_stage = recording
+    return seen
+
+
+def hold_launched_shapes(seen, held, what):
+    """Fail if the main path launched mrf_stage at a shape that phase 3 did
+    not hold against the plain version."""
+    missing = sorted((str(k[0]), k[1]) for k in seen if k not in held)
+    by_batch = {}
+    for (_, shape), n in seen.items():
+        by_batch[shape[0]] = by_batch.get(shape[0], 0) + n
+    log(f"{what}: mrf_stage was launched at {len(seen)} distinct (dtype, shape) so far, by batch "
+        f"size {dict(sorted(by_batch.items()))}; all held against the plain version in phase 3: "
+        f"{not missing}")
+    if missing:
+        raise RuntimeError(f"{what}: mrf_stage ran at shapes phase 3 did not hold: {missing[:8]}")
 
 
 @contextlib.contextmanager
@@ -681,6 +798,604 @@ def engine_remainder(cfg, engine):
         raise RuntimeError("reload_params back to the first weights does not restore the output")
 
 
+
+# --------------------------------------------------------------------------
+# phase 7: the serving daemon
+# --------------------------------------------------------------------------
+
+def lsb_diff(a, b, what):
+    """max |a - b| of two PCM16 arrays of one length, in LSB."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.size == 0 or a.dtype != np.int16 or b.dtype != np.int16:
+        raise RuntimeError(f"{what}: {a.dtype} {a.shape} against {b.dtype} {b.shape}")
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
+def hold(a, b, gate, what):
+    d = lsb_diff(a, b, what)
+    if d > gate:
+        raise RuntimeError(f"{what}: PCM16 differs by {d} LSB (gate {gate})")
+    return d
+
+
+def raw_post(address, path, body=b"{}", claim_length=None):
+    """(status, headers, body) of a POST; claim_length sends that
+    Content-Length and no body (a server that refuses by the header alone
+    answers without reading it)."""
+    c = http.client.HTTPConnection(*address, timeout=60)
+    try:
+        c.putrequest("POST", path)
+        c.putheader("Content-Type", "application/json")
+        c.putheader("Content-Length", str(len(body) if claim_length is None else claim_length))
+        c.endheaders()
+        if claim_length is None:
+            c.send(body)
+        r = c.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        c.close()
+
+
+def expect_error(fn, error_type, status, what):
+    try:
+        fn()
+    except error_type as e:
+        if e.status != status:
+            raise RuntimeError(f"{what}: HTTP {e.status}, expected {status}") from e
+        return str(e)
+    raise RuntimeError(f"{what}: no error, expected HTTP {status}")
+
+
+def daemon_endpoints(cfg, engine, server, client, precision):
+    """Every endpoint of a running daemon against the engine on the same
+    weights; returns the demo request and its direct answer."""
+    import numpy as np
+    import torch
+    from zerovox_tpu_torch.cli import _demo_utterance
+    from zerovox_tpu_torch.runtime.client import TTSServerError, utterance
+    from zerovox_tpu_torch.runtime.longform import split_utterance, synthesize_long
+
+    gate, gate_stream = PCM_LSB[precision], PCM_LSB_STREAM[precision]
+    hop = cfg.hop_size
+    h = client.health()
+    m = client.metrics()
+    row = m["device"]["devices"][0]
+    if h["status"] != "ok" or h["precision"] != precision or h["max_seq_len"] != cfg.max_seq_len \
+            or row["kind"] != torch.cuda.get_device_name(0) or row["platform"] != "gpu" \
+            or not row["bytes_in_use"] > 0 or not row["bytes_limit"] > row["bytes_in_use"]:
+        raise RuntimeError(f"/healthz {h} or /metrics device row {row} is wrong")
+    log(f"{precision} daemon /healthz {h}; /metrics device {m['device']}")
+
+    src, pun, style, n = _demo_utterance(cfg)
+    ph, st, pu = src[0], style[0], pun[0]
+    want, want_len = engine.synthesize(src, pun, style, n, pcm16=True)
+    check_wavs([want[0] / 32767.0], want_len, hop, "engine.synthesize pcm16")
+    as_json, rate = client.synthesize(ph, st, pu)
+    as_binary, _ = client.synthesize(ph, st, pu, binary=True)
+    untrimmed, _ = client.synthesize(ph, st, pu, trim=False)
+    if rate != cfg.sampling_rate or not np.array_equal(as_json, as_binary) \
+            or len(untrimmed) != cfg.max_seq_len * hop:
+        raise RuntimeError("/synthesize: JSON and binary bodies differ, or a wrong rate or length")
+    d_direct = hold(as_json, want[0], gate, "/synthesize against engine.synthesize")
+    d_trim = hold(untrimmed[:len(as_json)], as_json, gate, "/synthesize?trim=0 against trim=1")
+
+    src8, pun8, style8, lens8 = mixed_batch(cfg, 8, 3)
+    wavs8, mel8 = engine.synthesize_packed(src8, pun8, style8, lens8, pcm16=True)
+    got8, got_mel8, _ = client.batch([utterance(src8[i, :lens8[i]], style8[i], pun8[i, :lens8[i]])
+                                      for i in range(8)])
+    if list(got_mel8) != [int(x) for x in mel8]:
+        raise RuntimeError(f"/batch mel_len {got_mel8} against synthesize_packed {mel8.tolist()}")
+    d_batch = max(hold(a, b, gate, f"/batch row {i}") for i, (a, b) in enumerate(zip(got8, wavs8)))
+
+    streamed = np.concatenate(list(client.stream(ph, st, pu)))
+    streamed_b = np.concatenate(list(client.stream(ph, st, pu, binary=True)))
+    n_chunks = -(-int(want_len[0]) // CHUNK_FRAMES)
+    if len(streamed) != n_chunks * CHUNK_FRAMES * hop or not np.array_equal(streamed, streamed_b):
+        raise RuntimeError(f"/stream: {len(streamed)} samples for mel_len {int(want_len[0])}")
+    d_stream = hold(streamed[:len(as_json)], as_json, gate_stream, "/stream against /synthesize")
+
+    rng = np.random.default_rng(41)
+    long_ph = rng.integers(1, cfg.num_phonemes + 1, size=300)
+    long_pu = (rng.random(300) < 0.1).astype(np.int32)
+    long_wav, long_mel = synthesize_long(engine, long_ph, long_pu, st, pcm16=True)
+    got_long, _ = client.synthesize(long_ph, st, long_pu, split=True)
+    d_long = hold(got_long, long_wav, gate, "/synthesize?split=1 against synthesize_long")
+    long_stream = np.concatenate(list(client.stream(long_ph, st, long_pu, split=True)))
+    expect = sum(max(1, -(-int(x) // CHUNK_FRAMES)) for x in long_mel) * CHUNK_FRAMES * hop
+    if len(long_mel) < 3 or len(long_stream) != expect:
+        raise RuntimeError(f"/stream?split=1: {len(long_stream)} samples for windows "
+                           f"{long_mel.tolist()}, expected {expect}")
+    # the split stream is its windows' own streams, one after the other, bit for bit
+    srcs, puns, lens = split_utterance(long_ph, long_pu, cfg.max_n_phonemes)
+    one_by_one = np.concatenate([c for i in range(len(lens))
+                                 for c in client.stream(srcs[i, :lens[i]], st, puns[i, :lens[i]])])
+    if not np.array_equal(long_stream, one_by_one):
+        raise RuntimeError("/stream?split=1 differs from its windows streamed one by one")
+    # each window's audio (then the rest of its last chunk) is held against the engine's answer
+    # to that window alone, at the stream's gate.  Against /synthesize?split=1 it is gated in
+    # float32 only: that ran the windows as one packed batch, at another batch size than a
+    # stream's B=1 windows, which in bfloat16 can move a bucket of the variance adaptor and
+    # with it the audio (batch_size_effect shows it), so there it is reported
+    at, at_s, d_long_stream, d_long_direct = 0, 0, 0, 0
+    for i, x in enumerate(long_mel):
+        k = int(x) * hop
+        d_long_stream = max(d_long_stream, lsb_diff(long_stream[at_s:at_s + k],
+                                                    got_long[at:at + k], "/stream?split=1 window"))
+        alone, alone_len = engine.synthesize(srcs[i:i + 1], puns[i:i + 1], st[None],
+                                             lens[i:i + 1], pcm16=True)
+        if int(alone_len[0]) != int(x) and precision == "float32":
+            raise RuntimeError(f"window {i}: mel_len {int(x)} in the batch, {alone_len} alone")
+        d_long_direct = max(d_long_direct, hold(
+            long_stream[at_s:at_s + int(alone_len[0]) * hop], alone[0], gate_stream,
+            f"/stream?split=1 window {i} against engine.synthesize of that window"))
+        at += k
+        at_s += max(1, -(-int(x) // CHUNK_FRAMES)) * CHUNK_FRAMES * hop
+    if precision == "float32" and d_long_stream > gate:
+        raise RuntimeError(f"/stream?split=1 against /synthesize?split=1: {d_long_stream} LSB")
+
+    expect_error(lambda: client.synthesize([1, 2, 3], [0.0]), TTSServerError, 400, "bad style")
+    expect_error(lambda: client.synthesize(np.ones(cfg.max_n_phonemes + 1, np.int32), st),
+                 TTSServerError, 400, "too many phonemes")
+    for path, kw, status in (("/synthesize", dict(body=b"{]"), 400),
+                             ("/synthesize", dict(claim_length=server.max_body_bytes + 1), 413),
+                             ("/nope", {}, 404)):
+        got, _, body = raw_post(server.address, path, **kw)
+        if got != status or "error" not in json.loads(body):
+            raise RuntimeError(f"POST {path} {list(kw)}: HTTP {got}, expected {status}")
+    log(f"{precision} daemon endpoints, PCM16 LSB: /synthesize vs engine {d_direct}, trim=0 vs "
+        f"trim=1 {d_trim} (gate {gate}); JSON == binary bit for bit; /batch of 8 mixed vs "
+        f"synthesize_packed {d_batch}; /stream vs /synthesize {d_stream} (gate {gate_stream:g}), "
+        f"{n_chunks} chunks; ?split=1 of 300 phonemes: {len(long_mel)} windows "
+        f"{long_mel.tolist()}, /synthesize vs synthesize_long {d_long}, /stream == its windows "
+        f"streamed one by one, per window vs engine.synthesize of it {d_long_direct} (gate "
+        f"{gate_stream:g}), vs /synthesize?split=1 (a packed batch) per window "
+        f"{d_long_stream}{' (reported, not gated)' if precision != 'float32' else ''}; 400, 413, "
+        f"404 answered")
+    return (ph, st, pu), as_json
+
+
+def daemon_admission(cfg, params, precision, request):
+    """max_concurrent=1: a second request while the first is inside the
+    engine gets 503 + Retry-After and no body; the slot frees afterwards."""
+    from zerovox_tpu_torch.runtime.client import TTSClient, TTSServerError
+    from zerovox_tpu_torch.runtime.server import TTSServer
+    ph, st, pu = request
+    s = TTSServer(params, cfg, port=0, precision=precision, warmup=False, max_concurrent=1)
+    gate, entered = threading.Event(), threading.Event()
+    inner = s.engine.synthesize
+
+    def slow(*a, **kw):
+        entered.set()
+        gate.wait(timeout=60)
+        return inner(*a, **kw)
+
+    s.engine.synthesize = slow
+    s.start()
+    try:
+        no_retry = TTSClient(*s.address, timeout=120, retries_503=0)
+        first = {}
+        t = threading.Thread(target=lambda: first.update(wav=no_retry.synthesize(ph, st, pu)[0]),
+                             daemon=True)
+        t.start()
+        if not entered.wait(timeout=60):
+            raise RuntimeError("the first request never reached the engine")
+        expect_error(lambda: no_retry.synthesize(ph, st, pu), TTSServerError, 503,
+                     "second request at max_concurrent=1")
+        status, headers, body = raw_post(s.address, "/stream", json.dumps({}).encode())
+        if (status, headers.get("Retry-After"), body) != (503, "1", b""):
+            raise RuntimeError(f"/stream at max_concurrent=1: {status} {headers} {body[:80]}")
+        gate.set()
+        t.join(timeout=120)
+        if t.is_alive() or len(first.get("wav", ())) == 0:
+            raise RuntimeError("the first request did not finish after the gate opened")
+        again, _ = TTSClient(*s.address, timeout=120).synthesize(ph, st, pu)
+        if lsb_diff(again, first["wav"], "after the slot freed") != 0:
+            raise RuntimeError("the request after the shed one differs from the first")
+        errors = s.metrics.snapshot()["endpoints"]["/synthesize"]["errors"]
+    finally:
+        gate.set()
+        s.shutdown()
+    log(f"{precision} daemon max_concurrent=1: 503 + Retry-After on /synthesize and /stream while "
+        f"one request is in flight, 200 after it; {errors} shed /synthesize in /metrics")
+
+
+def daemon_latency(engine, client, precision, request, want):
+    """Sequential /synthesize requests, JSON and binary, beside the engine
+    called directly in this process: what HTTP, JSON and WAV cost."""
+    import numpy as np
+    ph, st, pu = request
+    P = len(ph)
+    src, pun, style, n = ph[None], pu[None], st[None], np.asarray([P], np.int32)
+    runs = {"json": [], "binary": [], "direct": []}
+    calls = {"json": lambda: client.synthesize(ph, st, pu)[0],
+             "binary": lambda: client.synthesize(ph, st, pu, binary=True)[0],
+             "direct": lambda: engine.synthesize(src, pun, style, n, pcm16=True)[0][0]}
+    for _ in range(LATENCY_REQUESTS):                      # in turns, so they share the host's mood
+        for name, call in calls.items():
+            t0 = time.perf_counter()
+            got = call()
+            runs[name].append(1e3 * (time.perf_counter() - t0))
+            # the daemon repeats itself bit for bit; the other engine is held at the gate
+            hold(got, want, PCM_LSB[precision] if name == "direct" else 0,
+                 f"a sequential {name} request against the first answer")
+    log(f"{precision} daemon latency, {LATENCY_REQUESTS} sequential requests each, in turns "
+        f"(host clock, ms): " + "; ".join(
+            f"{name} p50 {statistics.median(r):.2f} p95 {p95(r):.2f} min {min(r):.2f}"
+            for name, r in runs.items())
+        + f"; HTTP + JSON + WAV cost at p50 "
+          f"{statistics.median(runs['json']) - statistics.median(runs['direct']):.2f} ms")
+    return {k: statistics.median(v) for k, v in runs.items()}
+
+
+def ladder_answers(engine, request):
+    """The engine's PCM16 answer to `request` at every ladder size, as a
+    batched dispatch gives it (synthesize_async: the largest bucket; a batch
+    of k equal requests padded to ladder size L is L equal rows).  Each is
+    held against the plain pipeline (every stage through mrf_stage_ref) at
+    the same batch size and bucket, at the pipeline gate of the dtype."""
+    import numpy as np
+    ph, st, pu = request
+    precision = engine.cfg.compute_dtype
+    gate = 32767 * (WAV_ATOL_BF16 if precision == "bfloat16" else PIPELINE_WAV_ATOL)
+    n = np.asarray([len(ph)], np.int32)
+
+    def answers():
+        return {L: engine.synthesize_async(np.repeat(ph[None], L, 0), np.repeat(pu[None], L, 0),
+                                           np.repeat(st[None], L, 0), np.repeat(n, L),
+                                           pcm16=True)()[0][0]
+                for L in engine.batch_ladder}
+
+    got = answers()
+    with plain_vocoder():
+        plain = answers()
+    worst = {L: hold(got[L], plain[L], gate, f"the batched answer at B={L}, bucket "
+                     f"{engine.mel_buckets[-1]}, against the plain pipeline at that shape")
+             for L in got}
+    log(f"{precision} engine.synthesize_async at B={list(got)}, bucket {engine.mel_buckets[-1]}: "
+        f"kernel pipeline vs plain pipeline at the same shape, PCM16 LSB {worst} (gate {gate:g})")
+    return got
+
+
+def daemon_load(server, precision, request, want, label, batched=None):
+    """LOAD_CLIENTS closed-loop client threads, LOAD_ROUNDS requests each.
+    Past the batcher every answer is held against the direct one (`want`:
+    B=1, its own bucket).  Through the batcher a request runs at another
+    batch size and at the largest bucket; the daemon says at which size
+    (X-Batch-Size), and the answer is held to 1 LSB against the engine's own
+    at that size (`batched`: ladder_answers, each held against the plain
+    pipeline).  In float32 it is also held against the direct answer; in
+    bfloat16 its distance to the direct one is reported (another batch size
+    can move a bucket of the variance adaptor: batch_size_effect)."""
+    from zerovox_tpu_torch.runtime.client import parse_wav_bytes, utterance
+    ph, st, pu = request
+    gate = PCM_LSB[precision]
+    body = json.dumps(utterance(ph, st, pu)).encode()
+    sizes, sizes_lock = {}, threading.Lock()
+
+    def loop(i):
+        lat, worst, worst_direct = [], 0, 0
+        for _ in range(LOAD_ROUNDS):
+            t0 = time.perf_counter()
+            status, headers, raw = raw_post(server.address, "/synthesize?trim=1", body)
+            if status != 200:
+                raise RuntimeError(f"{label}: HTTP {status} under load")
+            got, _ = parse_wav_bytes(raw)
+            lat.append(1e3 * (time.perf_counter() - t0))
+            worst_direct = max(worst_direct, lsb_diff(got, want, label))
+            if batched is None:
+                worst = worst_direct
+            else:
+                size = int(headers["X-Batch-Size"])
+                with sizes_lock:
+                    sizes[size] = sizes.get(size, 0) + 1
+                worst = max(worst, lsb_diff(got, batched[size],
+                                            f"{label}: an answer computed at B={size}"))
+        return lat, worst, worst_direct
+
+    before = server.batcher.snapshot() if server.batcher is not None else None
+    t0 = time.perf_counter()
+    out = in_threads(loop, LOAD_CLIENTS)
+    wall = time.perf_counter() - t0
+    lat = [x for l, _, _ in out for x in l]
+    worst, worst_direct = max(o[1] for o in out), max(o[2] for o in out)
+    line = (f"{precision} daemon load, {label}: {LOAD_CLIENTS} clients x {LOAD_ROUNDS} requests in "
+            f"{wall:.3f} s = {len(lat) / wall:.1f} requests/s; per request p50 "
+            f"{statistics.median(lat):.2f} ms, p95 {p95(lat):.2f} ms; worst PCM16 difference to "
+            f"the direct answer {worst_direct} LSB"
+            + (f" (gate {gate:g})" if batched is None or precision == "float32" else " (reported)")
+            + (f", to the engine's answer at the batch size the daemon named {worst} LSB (gate 1; "
+               f"answers by X-Batch-Size {dict(sorted(sizes.items()))})" if batched else ""))
+    if before is not None:
+        snap = server.batcher.snapshot()
+        reqs = snap["requests"] - before["requests"]
+        disp = snap["dispatches"] - before["dispatches"]
+        line += (f"; batcher: {disp} dispatches, mean batch size {reqs / max(1, disp):.2f}, "
+                 f"max_batch {snap['max_batch']}")
+    log(line)
+    if worst > (1 if batched else gate):
+        raise RuntimeError(f"{label}: an answer under load is {worst} LSB from the engine's")
+    if precision == "float32" and worst_direct > gate:
+        raise RuntimeError(f"{label}: an answer under load is {worst_direct} LSB from the "
+                           "direct one")
+    if before is not None and (reqs != len(lat) or snap["max_batch"] <= 1):
+        raise RuntimeError(f"batcher under load: {snap} after {len(lat)} requests: nothing "
+                           "was coalesced")
+    return len(lat) / wall
+
+
+def batch_size_effect(cfg, engine):
+    """What another batch size does to an answer, in the engine's dtype.
+
+    Nine utterances (the demo request, eight of mixed lengths) go through
+    the engine alone and as the first of 2, 4 and 8 equal rows, each at its
+    own bucket.  The front's taps (utils.debug.capture_run) give the
+    variance adaptor's pitch and energy predictions and the log-durations;
+    their bucket indices and frame counts at B > 1 are compared with B=1,
+    phoneme by phoneme, and printed where they differ.  Where none differs,
+    the audio is held against the B=1 answer at the dtype's gate (float32:
+    1 LSB; bfloat16: 2^-7 of full scale).  Where one does, the utterance is
+    another input to the decoder from there on, and its distance is
+    reported."""
+    import numpy as np
+    from zerovox_tpu_torch.cli import _demo_utterance
+    from zerovox_tpu_torch.ops.length_regulator import durations_from_log
+    from zerovox_tpu_torch.ops.misc import bucketize
+    from zerovox_tpu_torch.utils.debug import capture_run
+    precision = engine.cfg.compute_dtype
+    gate = PCM_LSB[precision]
+    src8, pun8, style8, lens8 = mixed_batch(cfg, 8, 3)
+    demo = _demo_utterance(cfg)
+    utts = [tuple(np.asarray(a) for a in demo[:3]) + (np.atleast_1d(demo[3]),)] \
+        + [(src8[i:i + 1], pun8[i:i + 1], style8[i:i + 1], lens8[i:i + 1]) for i in range(8)]
+
+    def run(utt, L):
+        rows = [np.repeat(a, L, axis=0) for a in utt]
+        n = int(utt[3][0])
+        _, taps = capture_run(engine._issue_front, *engine._inputs(*rows), engine.model)
+        idx = {k: bucketize(taps[k], cfg.ve_n_bins)[0, :n].cpu().numpy()
+               for k in ("pitch", "energy")}
+        idx["frames"] = durations_from_log(taps["log_duration"],
+                                           cfg.max_seq_len)[0, :n].cpu().numpy()
+        wavs, mel_len = engine.synthesize(*rows, pcm16=True)
+        return idx, wavs[0], int(mel_len[0])
+
+    same, moved, failed = [], [], []
+    for u, utt in enumerate(utts):
+        base_idx, base_wav, base_len = run(utt, 1)
+        for L in LADDER[1:]:
+            idx, wav, mel_len = run(utt, L)
+            flips = [f"{k} of phoneme {p}: {base_idx[k][p]} -> {idx[k][p]}"
+                     for k in idx for p in np.flatnonzero(idx[k] != base_idx[k])]
+            d = lsb_diff(wav, base_wav, "batch_size_effect") if mel_len == base_len else None
+            if flips:
+                moved.append(d)
+                log(f"  {precision} utterance {u} ({int(utt[3][0])} phonemes) at B={L}: "
+                    f"{len(flips)} bucket or frame count(s) differ from B=1 ({'; '.join(flips[:4])}"
+                    f"{' ...' if len(flips) > 4 else ''}); mel_len {base_len} -> {mel_len}; audio "
+                    + (f"{d} LSB from B=1" if d is not None else "of another length"))
+            else:
+                same.append(d)
+                if d is None or d > gate:
+                    failed.append((u, L, d))
+    known = [d for d in moved if d is not None]
+    log(f"{precision} batch size against B=1, {len(utts)} utterances x B={list(LADDER[1:])}: "
+        f"{len(same)} runs with every pitch and energy bucket and frame count as at B=1: audio "
+        f"within {max(same, default=None)} LSB (gate {gate:g}); {len(moved)} runs where one "
+        f"differs: audio {min(known, default=None)} to {max(known, default=None)} LSB from B=1, "
+        f"{len(moved) - len(known)} of another length (reported)")
+    if failed:
+        raise RuntimeError(f"{precision}: with every bucket as at B=1 the audio still differs "
+                           f"beyond the gate (utterance, B, LSB): {failed}")
+    if not same and precision == "float32":
+        raise RuntimeError("float32: a bucket moved with the batch size in every run")
+
+
+def daemon_ttfb(server, precision, request):
+    """/stream's time to the first audio bytes at the client, alone and
+    beside LOAD_CLIENTS - 1 other streams started together."""
+    import numpy as np
+    from zerovox_tpu_torch.runtime.client import TTSClient
+    ph, st, pu = request
+    client = TTSClient(*server.address, timeout=120)
+
+    def one(_=0):
+        t0 = time.perf_counter()
+        it = client.stream(ph, st, pu)
+        first = next(it)
+        t1 = time.perf_counter()
+        rest = [first] + list(it)
+        return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0), np.concatenate(rest)
+
+    alone = [one() for _ in range(6)][1:]
+    rounds = [in_threads(one, LOAD_CLIENTS) for _ in range(3)]
+    ref = alone[0][2]
+    for r in rounds:
+        for _, _, wav in r:
+            if not np.array_equal(wav, ref):
+                raise RuntimeError("a stream beside others differs from the stream alone")
+    together = [x[0] for r in rounds for x in r]
+    log(f"{precision} daemon /stream time to first byte (host clock at the client, ms): alone "
+        f"median {statistics.median(a[0] for a in alone):.2f} of 5 "
+        f"({' '.join('%.2f' % a[0] for a in alone)}), whole stream "
+        f"{statistics.median(a[1] for a in alone):.2f}; beside {LOAD_CLIENTS - 1} other streams, "
+        f"3 rounds of {LOAD_CLIENTS}: median {statistics.median(together):.2f}, min "
+        f"{min(together):.2f}, max {max(together):.2f}, whole stream median "
+        f"{statistics.median(x[1] for r in rounds for x in r):.2f}; every stream bit-equal to "
+        f"the stream alone")
+
+
+def daemon_reload(cfg, server, client, precision, request, model, other_model, tiny_model):
+    """/reload to other weights, to another geometry, and under a stream."""
+    import numpy as np
+    from zerovox_tpu_torch.params import load_params
+    from zerovox_tpu_torch.runtime.client import TTSServerError
+    from zerovox_tpu_torch.runtime.engine import TTSEngine
+    ph, st, pu = request
+    P = len(ph)
+    gate = PCM_LSB[precision]
+    before, _ = client.synthesize(ph, st, pu)
+    t0 = time.perf_counter()
+    answer = client.reload(other_model)
+    t_reload = time.perf_counter() - t0
+    after, _ = client.synthesize(ph, st, pu)
+    if answer.get("status") != "reloaded" or server.stream._model is not server.engine.model \
+            or (len(after) == len(before) and np.array_equal(after, before)):
+        raise RuntimeError(f"/reload {answer}: the output did not change, or the synthesizer "
+                           "holds weights of its own")
+    _, loaded = load_params(other_model)
+    fresh = TTSEngine(loaded, cfg, precision=precision)
+    want, _ = fresh.synthesize(ph[None], pu[None], st[None], np.asarray([P], np.int32), pcm16=True)
+    d_fresh = hold(after, want[0], gate, "after /reload against a fresh engine")
+    streamed = np.concatenate(list(client.stream(ph, st, pu)))
+    d_stream = hold(streamed[:len(after)], after, PCM_LSB_STREAM[precision],
+                    "/stream after /reload against /synthesize")
+    msg = expect_error(lambda: client.reload(tiny_model), TTSServerError, 409, "another geometry")
+    still, _ = client.synthesize(ph, st, pu)
+    if not np.array_equal(still, after):
+        raise RuntimeError("a refused /reload changed the daemon's output")
+    # a stream in flight while the weights are swapped back
+    it = client.stream(ph, st, pu)
+    chunks = [next(it)]
+    client.reload(model)
+    chunks.extend(it)
+    mid = np.concatenate(chunks)
+    # it read its weights once, at its start: it ends as the stream before it did
+    if not np.array_equal(mid, streamed):
+        raise RuntimeError(f"a stream across /reload ended with {len(mid)} samples that are "
+                           f"not the {len(streamed)} of the stream before it")
+    back, _ = client.synthesize(ph, st, pu)
+    if np.array_equal(back, after):
+        raise RuntimeError("/reload back to the first checkpoint left the output unchanged")
+    log(f"{precision} daemon /reload: {t_reload:.2f} s; the output changes and is a fresh "
+        f"engine's on the new checkpoint to {d_fresh} LSB (gate {gate:g}), /stream follows "
+        f"({d_stream} LSB); another geometry: 409 ({msg[:60]}...), output unchanged; a stream in "
+        f"flight across a reload ends bit-equal to the stream before it ({len(mid)} samples)")
+
+
+def daemon_subprocess(model, tmp, cfg, precision):
+    """python -m zerovox_tpu_torch.cli --serve in a process of its own, one
+    request of the module client, then SIGTERM: exit code 0, no traceback."""
+    from zerovox_tpu_torch.cli import _demo_utterance
+    from zerovox_tpu_torch.io.wav import read_wav
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    src, pun, style, _ = _demo_utterance(cfg)
+    utt = os.path.join(tmp, "utt.json")
+    with open(utt, "w") as f:
+        json.dump({"phonemes": src[0].tolist(), "puncts": pun[0].tolist(),
+                   "style": style[0].tolist()}, f)
+    out = os.path.join(tmp, "served.wav")
+    err_path = os.path.join(tmp, "serve.err")
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "zerovox_tpu_torch.cli", "--model", model, "--serve",
+             "--port", str(port), "--precision", precision, "--batch-window-ms", "5"],
+            stderr=err, stdout=subprocess.DEVNULL, cwd=str(ROOT), env=env)
+        try:
+            deadline = time.time() + 240
+            up = False
+            while time.time() < deadline and proc.poll() is None and not up:
+                time.sleep(0.25)
+                with open(err_path) as f:
+                    up = "serving on http://" in f.read()
+            if not up:
+                with open(err_path) as f:
+                    raise RuntimeError(f"cli --serve never came up (rc {proc.poll()}): "
+                                       f"{f.read()[-2000:]}")
+            t_up = time.perf_counter() - t0
+            one = subprocess.run(
+                [sys.executable, "-m", "zerovox_tpu_torch.runtime.client", "--port", str(port),
+                 "--json", utt, "--out", out],
+                capture_output=True, text=True, timeout=120, cwd=str(ROOT), env=env)
+            if one.returncode != 0:
+                raise RuntimeError(f"module client failed: {one.stderr[-1000:]}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    with open(err_path) as f:
+        said = f.read()
+    wav, rate = read_wav(out)
+    if rc != 0 or "Traceback" in said or rate != cfg.sampling_rate or len(wav) == 0:
+        raise RuntimeError(f"cli --serve: rc {rc}, {len(wav)} samples at {rate} Hz; stderr: "
+                           f"{said[-2000:]}")
+    log(f"{precision} cli --serve in a subprocess: serving after {t_up:.1f} s (CUDA start, load, "
+        f"warm-up); module client: {one.stdout.strip().splitlines()[-1]}; SIGTERM -> exit code "
+        f"{rc}, no traceback")
+
+
+def daemon_path(cfg, params, engine, models, tmp, precision, subprocess_too):
+    """Phase 7 at `precision`; returns the phase's mrf_stage launches in
+    this process: the daemons' (their warm-ups included: they go through
+    the kernel too) and those of the engines their answers are held
+    against."""
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    from zerovox_tpu_torch.runtime.client import TTSClient
+    from zerovox_tpu_torch.runtime.server import TTSServer
+    model, other_model, tiny_model = models
+    ms.mrf_stage.launches = ms.mrf_stage_unfolded.launches = 0
+    kw = dict(port=0, precision=precision, chunk_frames=CHUNK_FRAMES, overlap=OVERLAP)
+    t0 = time.perf_counter()
+    server = TTSServer(params, cfg, allow_reload=True, batch_window_ms=0, **kw)
+    log(f"{precision} TTSServer up in {time.perf_counter() - t0:.2f} s (engine warm-up at the "
+        f"ladder top over buckets {server.engine.mel_buckets}, stream warm-up); the synthesizer "
+        f"reads the engine's weights: {server.stream._model is server.engine.model}")
+    if server.stream._model is not server.engine.model:
+        raise RuntimeError("the daemon's synthesizer holds weights of its own")
+    server.start()
+    try:
+        client = TTSClient(*server.address, timeout=120)
+        request, want = daemon_endpoints(cfg, engine, server, client, precision)
+        daemon_admission(cfg, params, precision, request)
+        daemon_latency(engine, client, precision, request, want)
+        off = daemon_load(server, precision, request, want, "batcher off")
+        batching = TTSServer(params, cfg, batch_window_ms=5, **kw)
+        batching.start()
+        try:
+            batched = ladder_answers(engine, request)
+            on = daemon_load(batching, precision, request, want, "batch_window_ms=5", batched)
+            lone, _ = TTSClient(*batching.address, timeout=120).synthesize(*request)
+            hold(lone, batched[1], 0, "a lone request through the batcher against "
+                                      "engine.synthesize_async at B=1")
+            hold(lone, want, PCM_LSB[precision], "a lone request through the batcher")
+            lat = []
+            for _ in range(10):
+                time.sleep(0.02)                  # let the dispatcher go idle
+                t1 = time.perf_counter()
+                TTSClient(*batching.address, timeout=120).synthesize(*request)
+                lat.append(1e3 * (time.perf_counter() - t1))
+            log(f"{precision} daemon, a lone request through the batcher (vocodes at bucket "
+                f"{batching.engine.mel_buckets[-1]}): p50 {statistics.median(lat):.2f} ms of 10; "
+                f"load: batching / off = {on / off:.2f}")
+        finally:
+            batching.shutdown()
+        daemon_ttfb(server, precision, request)
+        daemon_reload(cfg, server, client, precision, request, model, other_model, tiny_model)
+        batch_size_effect(cfg, engine)
+        snap = client.metrics()
+        log(f"{precision} daemon /metrics at the end: " + ", ".join(
+            f"{k} {v['count']} requests ({v['errors']} errors) p50 {v['p50_ms']} ms"
+            for k, v in sorted(snap["endpoints"].items()))
+            + f"; device bytes_in_use {snap['device']['devices'][0]['bytes_in_use'] / 1e6:.0f} MB")
+    finally:
+        server.shutdown()
+    launches = ms.mrf_stage.launches
+    if launches == 0 or ms.mrf_stage_unfolded.launches:
+        raise RuntimeError(f"daemon phase: {launches} mrf_stage launches")
+    if subprocess_too:
+        daemon_subprocess(model, tmp, cfg, precision)
+    log(f"{precision} daemon phase: {launches} mrf_stage launches in this process (the daemons "
+        f"and the engines their answers are held against)")
+    return launches
+
+
 def run() -> int:
     try:
         import torch
@@ -696,7 +1411,7 @@ def run() -> int:
               "it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.config import TINY_CONFIG, ZeroVoxConfig
     from zerovox_tpu_torch.models.pipeline import cast_params
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
     from zerovox_tpu_torch.params import init_params, save_params
@@ -726,10 +1441,12 @@ def run() -> int:
     params16 = cast_params(params, torch.bfloat16)
     log(f"production params (seed 0) on the card in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    records, packs, held = check_stages(cfg, params, gen, pk)
-    records16, _, _ = check_stages(cfg, params16, gen, pk)
+    records, packs, held, shapes = check_stages(cfg, params, gen, pk)
+    records16, _, _, shapes16 = check_stages(cfg, params16, gen, pk)
     records.update(records16)
+    shapes |= shapes16
     time_variants(cfg, params, gen, packs)
+    seen = record_launch_shapes()
 
     launches = {}
     walls = {}
@@ -739,14 +1456,24 @@ def run() -> int:
         save_params(model, params, cfg)
         log(f"wrote {model} ({os.path.getsize(model) / 1e6:.1f} MB, "
             f"{time.perf_counter() - t0:.1f} s)")
+        # /reload's checkpoints: other weights of this geometry, and another geometry
+        other_model = os.path.join(tmp, "other.gguf")
+        save_params(other_model, init_params(cfg, seed=1, device="cuda"), cfg)
+        tiny_model = os.path.join(tmp, "tiny.gguf")
+        save_params(tiny_model, init_params(TINY_CONFIG, seed=0, device="cuda"), TINY_CONFIG)
+        models = (model, other_model, tiny_model)
         for precision, suffix in (("float32", ""), ("bfloat16", "_bf16")):
             counts, walls[precision], engine = main_path(cfg, params, model, tmp, precision)
             compare_pipelines(engine)
             streamed = stream_path(cfg, params, model, tmp, engine, held)
             engine_remainder(cfg, engine)
-            launches["mrf_stage" + suffix] = counts["mrf_stage"] + streamed
+            served = daemon_path(cfg, params, engine, models, tmp, precision,
+                                 subprocess_too=precision == "bfloat16")
+            launches["mrf_stage" + suffix] = counts["mrf_stage"] + streamed + served
             launches["mrf_stage_unfolded" + suffix] = counts["mrf_stage_unfolded"]
-            log(f"{precision} launches: main path {counts}, streams {streamed}")
+            log(f"{precision} launches: main path {counts}, streams {streamed}, daemon phase "
+                f"(daemons and reference engines) {served}")
+            hold_launched_shapes(seen, shapes, f"{precision} phases 4-7")
 
     replaces = {"mrf_stage": "zerovox_tpu/ops/pallas/folded_mrf.py:446",
                 "mrf_stage_unfolded": "zerovox_tpu/ops/pallas/folded_mrf.py:720"}
@@ -760,7 +1487,8 @@ def run() -> int:
         "full-length stages (the unfolded entry: its one call); bound_ms is the "
         "tensor-core bound of the mode: f32 max(3 FLOPs / TF32 rate, bytes / HBM rate), "
         "bf16 max(FLOPs / bf16 rate, bytes / HBM rate); launches are those of the mode's "
-        "main path (CLI, engine requests) plus its streams, each counted from 0")
+        "main path (CLI, engine requests), its streams and its daemon phase (the daemons and "
+        "the engines they are held against), each counted from 0")
     log("e2e: " + "; ".join(f"{p} B=1 wall {w[1]:.2f} ms, B=8 wall {w[8]:.2f} ms"
                             for p, w in walls.items())
         + f"; smoke total {time.perf_counter() - t_start:.1f} s")

@@ -4,6 +4,7 @@ chip_smoke.py refuses to run without a card or outside a checkout."""
 
 import os
 import shutil
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -27,7 +28,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 15, mods
+assert len(mods) >= 33, mods
 """
 
 
@@ -68,6 +69,18 @@ def test_entry_points_default_to_cuda():
         load_params("unused.gguf")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--model", "unused.gguf", "--demo"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--model", "unused.gguf", "--serve", "--port", "0"])
+    # the daemon binds its socket first, then raises and gives the port back
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zt.TTSServer(params, cfg, port=port)
+    again = socket.socket()
+    again.bind(("127.0.0.1", port))
+    again.close()
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):

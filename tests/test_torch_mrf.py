@@ -519,3 +519,57 @@ def test_tile_plan_bf16_rejects():
     with pytest.raises(ValueError):                       # chunk not dividing C
         ms.tile_plan(64, PROD_DILS, kc=128, elem=2)
     assert ms.tile_plan(256, PROD_DILS, kc=32, elem=2).kc == 32
+
+
+def test_library_builds_once_under_concurrent_first_calls(monkeypatch):
+    """Eight threads make the first call of library() together: one of them
+    builds, the others wait for it and get the same object (nothing is
+    compiled here: the build itself is replaced)."""
+    import threading
+    import time
+    builds = []
+
+    def fake_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)                           # an nvcc run takes seconds
+        return ms.Library({}, {}, None, "log", 0.2)
+
+    monkeypatch.setattr(ms, "_build_library", fake_build)
+    monkeypatch.setattr(ms, "_library", None)
+    barrier = threading.Barrier(8)
+    got = []
+
+    def first_call():
+        barrier.wait(timeout=30)
+        got.append(ms.library())
+
+    threads = [threading.Thread(target=first_call) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert len(builds) == 1 and len(got) == 8 and all(g is got[0] for g in got)
+    assert ms.library() is got[0] and len(builds) == 1
+
+
+def test_launch_counts_survive_concurrent_threads(monkeypatch):
+    """Launches counted from 8 threads at once lose nothing (the daemon's
+    handler threads all launch; an unlocked += would drop counts)."""
+    import sys
+    import threading
+    monkeypatch.setattr(ms.mrf_stage, "launches", 0)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(
+            target=lambda: [ms._count_launch(ms.mrf_stage) for _ in range(2000)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert ms.mrf_stage.launches == 16000

@@ -111,18 +111,72 @@ def test_conv_transpose1d_rejects_bad_output_padding():
 
 
 def test_convs_run_without_tf32(monkeypatch):
-    """cuDNN's TF32 is off inside both convs and restored after them."""
+    """cuDNN's TF32 is off inside both convs once the process-wide switch is
+    set (device.full_precision_products, called where a CUDA device is
+    resolved), and the convs themselves toggle no flag."""
     import torch.nn.functional as F
+    from zerovox_tpu_torch.device import full_precision_products
     seen = []
     for name in ("conv1d", "conv_transpose1d"):
         real = getattr(F, name)
         monkeypatch.setattr(F, name, lambda *a, _real=real, **k: (
             seen.append(torch.backends.cudnn.allow_tf32), _real(*a, **k))[1])
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
+    full_precision_products()
     tops.conv1d(torch.zeros(1, 4, 2), torch.zeros(3, 2, 3), padding=1)
     tops.conv_transpose1d(torch.zeros(1, 4, 2), torch.zeros(3, 2, 4),
                           stride=2, padding=1)
-    assert seen == [False, False] and torch.backends.cudnn.allow_tf32
+    assert seen == [False, False] and not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+
+
+def test_tf32_flag_is_not_raced_between_threads(monkeypatch):
+    """Two products on two threads, one inside the other in time: thread A
+    enters its product, thread B enters its own after it, A runs to its end
+    while B's convolution is still to be issued.  B must then find cuDNN's
+    TF32 off.  (A save / clear / restore of the process-wide flag around each
+    product fails here: B saves A's False, A restores True under B.)"""
+    import threading
+    from zerovox_tpu_torch.device import full_precision_products
+    from zerovox_tpu_torch.ops.conv import _product
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", True)
+    full_precision_products()                 # what resolving a CUDA device does, once
+    a_in, a_go, b_in, b_go = (threading.Event() for _ in range(4))
+    seen = {}
+
+    def fn_a(x, w, b):
+        a_in.set()
+        assert a_go.wait(timeout=30)
+        return x
+
+    def fn_b(x, w, b):
+        b_in.set()
+        assert b_go.wait(timeout=30)
+        seen["tf32"] = torch.backends.cudnn.allow_tf32      # just before B's conv is issued
+        return x
+
+    x, w = torch.zeros(1, 2, 4), torch.zeros(2, 2, 1)
+    ta = threading.Thread(target=_product, args=(fn_a, x, w, None))
+    tb = threading.Thread(target=_product, args=(fn_b, x, w, None))
+    ta.start()
+    assert a_in.wait(timeout=30)
+    tb.start()
+    assert b_in.wait(timeout=30)
+    a_go.set()
+    ta.join(timeout=30)
+    assert not ta.is_alive()
+    b_go.set()
+    tb.join(timeout=30)
+    assert not tb.is_alive()
+    assert seen == {"tf32": False}
+    assert not torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.parametrize("Cin,Cout", [(56, 112), (528, 1056)])

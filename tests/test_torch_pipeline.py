@@ -294,7 +294,7 @@ def test_cli_input_file_and_unported_flags(tmp_path, rng, model):
                       "--device", "cpu", "--precision", "bfloat16"]) == 0
     w16 = read_wav(out16)[0]
     assert len(w16) > 0 and np.isfinite(w16).all()
-    for flag in ("--serve", "--verify", "--mesh=2,1", "--compile-cache=/tmp/x"):
+    for flag in ("--verify", "--mesh=2,1", "--compile-cache=/tmp/x"):
         with pytest.raises(SystemExit, match="not yet ported"):
             tcli.main(["--model", ckpt, "--demo", "--device", "cpu", flag])
     with pytest.raises(ValueError, match="max_n_phonemes"):
@@ -308,3 +308,71 @@ def test_wav_roundtrip(tmp_path, rng):
     y, sr = read_wav(p)
     assert sr == 24000
     np.testing.assert_array_equal(y, float_to_pcm16(x).astype(np.float32) / 32767.0)
+
+
+def test_serving_threads_issue_one_at_a_time(rng, model, monkeypatch):
+    """The engine and the streaming synthesizer issue every front and every
+    vocoder call on the process's one issuing thread (device.on_issuing_thread): with 4
+    threads on each at once, pipeline.front and hifigan.vocode only ever run
+    on that thread, never two at a time, and every result is the
+    single-threaded one.  A debug capture around an engine call still sees
+    the taps made over there."""
+    import threading
+    import time
+    from zerovox_tpu_torch.device import on_issuing_thread
+    from zerovox_tpu_torch.models import hifigan, streaming
+    from zerovox_tpu_torch.models.streaming import StreamingSynthesizer
+    from zerovox_tpu_torch.runtime import engine as engine_mod
+    from zerovox_tpu_torch.utils.debug import capture_run
+    _, pt = model
+    engine = TTSEngine(pt, TINY_CONFIG, device="cpu")
+    synth = StreamingSynthesizer(engine.model, TINY_CONFIG, chunk_frames=16, overlap=8,
+                                 device="cpu")
+    src, pun, sty, n = _batch(rng, 1, (16,))
+    want = engine.synthesize(src, pun, sty, n)[0][0]
+    want_stream = np.concatenate(list(synth.stream(src, pun, sty, n)), axis=1)
+    inside, worst, guard, where = [0], [0], threading.Lock(), set()
+
+    def watched(fn):
+        def run(*a, **k):
+            with guard:
+                inside[0] += 1
+                worst[0] = max(worst[0], inside[0])
+                where.add(threading.get_ident())
+            try:
+                time.sleep(0.002)               # give another thread every chance to enter
+                return fn(*a, **k)
+            finally:
+                with guard:
+                    inside[0] -= 1
+        return run
+
+    monkeypatch.setattr(engine_mod, "front", watched(engine_mod.front))
+    monkeypatch.setattr(streaming, "front", watched(streaming.front))
+    monkeypatch.setattr(hifigan, "vocode", watched(hifigan.vocode))
+    results, errors = [None] * 8, []
+
+    def worker(i):
+        try:
+            for _ in range(3):
+                results[i] = (engine.synthesize(src, pun, sty, n)[0][0] if i % 2 else
+                              np.concatenate(list(synth.stream(src, pun, sty, n)), axis=1))
+        except Exception as e:          # noqa: BLE001
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors and worst[0] == 1, (errors, worst)
+    assert where == {on_issuing_thread(threading.get_ident)} and threading.get_ident() not in where
+    assert on_issuing_thread(on_issuing_thread, threading.get_ident) == on_issuing_thread(threading.get_ident)   # inline from there
+    for i, r in enumerate(results):
+        np.testing.assert_array_equal(r, want if i % 2 else want_stream)
+    with pytest.raises(ZeroDivisionError):      # the caller gets the exception
+        on_issuing_thread(lambda: 1 / 0)
+    (wavs, _), taps = capture_run(engine.synthesize, src, pun, sty, n, trim=False)
+    assert {"encoder_output", "mel", "wav"} <= set(taps)
+    np.testing.assert_array_equal(taps["wav"].numpy()[0], wavs[0])

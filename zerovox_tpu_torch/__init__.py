@@ -7,7 +7,10 @@ parameter paths as the JAX package, which it imports nothing of.
 
 float32 is the parity dtype, bfloat16 (TTSEngine(precision="bfloat16"),
 cfg.compute_dtype) the serving dtype; StreamingSynthesizer vocodes in
-chunks for a short time to first audio.
+chunks for a short time to first audio.  TTSServer is the HTTP serving
+daemon (the CLI's --serve) over one engine and one synthesizer, with
+DynamicBatcher coalescing concurrent requests; TTSClient talks to it, in
+the JAX package's wire format.
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu".
@@ -19,12 +22,16 @@ from .config import TINY_CONFIG, ZeroVoxConfig
 from .models.pipeline import SynthesisResult, cast_params, synthesize
 from .models.streaming import StreamingSynthesizer
 from .params import init_params, load_params, save_params
+from .runtime.batcher import DynamicBatcher
+from .runtime.client import TTSClient
 from .runtime.engine import TTSEngine
 from .runtime.longform import synthesize_long
+from .runtime.server import TTSServer
 
 __all__ = [
     "ZeroVoxConfig", "TINY_CONFIG",
     "init_params", "load_params", "save_params",
     "synthesize", "SynthesisResult", "cast_params", "TTSEngine",
     "StreamingSynthesizer", "synthesize_long",
+    "TTSServer", "DynamicBatcher", "TTSClient",
 ]

@@ -1,4 +1,5 @@
-"""Command-line interface: GGUF checkpoint -> WAV synthesis (one-shot mode).
+"""Command-line interface: GGUF checkpoint -> WAV synthesis, one-shot or as
+the HTTP serving daemon (--serve).
 
 Input JSON format (one utterance, arrays padded or not):
   {"phonemes": [69, 26, ...], "puncts": [0, 1, ...], "style": [528 floats]}
@@ -10,12 +11,16 @@ Usage:
       --stream --output out.wav
   python -m zerovox_tpu_torch.cli --model model.gguf --input long.json --split-long
   python -m zerovox_tpu_torch.cli --model model.gguf --demo --device cpu
+  python -m zerovox_tpu_torch.cli --model model.gguf --serve --port 8765 \\
+      --precision bfloat16 [--batch-window-ms 5] [--allow-reload]
 
 Runs on the card (--device cuda, the default) unless asked for the CPU.
 --precision bfloat16 is the serving dtype; --stream vocodes in chunks and
 writes each to the WAV file as it arrives (the TTFA line on stderr is the
 time to the first chunk on disk); --split-long takes an utterance longer
-than max_n_phonemes, split at punctuation.
+than max_n_phonemes, split at punctuation.  --serve runs the daemon of
+runtime/server.py (runtime/client.py talks to it) until SIGTERM or Ctrl-C,
+then drains and exits 0.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import time
 import numpy as np
 
 # flags of the JAX package's CLI whose paths later slices of the port bring
-_NOT_PORTED = ("serve", "verify", "mesh", "compile_cache")
+_NOT_PORTED = ("verify", "mesh", "compile_cache")
 
 
 def _load_utterance(path: str, cfg):
@@ -52,6 +57,40 @@ def _demo_utterance(cfg, seed: int = 0):
     pun = rng.integers(0, cfg.num_puncts + 1, size=(1, P)).astype(np.int32)
     style = rng.normal(scale=0.05, size=(1, cfg.d_model)).astype(np.float32)
     return src, pun, style, np.asarray([P], np.int32)
+
+
+def _serve(args, params, cfg, buckets) -> int:
+    """Run the daemon until SIGTERM or Ctrl-C, then drain and return 0."""
+    import signal
+    import threading
+
+    from zerovox_tpu_torch.runtime.server import TTSServer
+    server = TTSServer(params, cfg, host=args.host, port=args.port,
+                       precision=args.precision, mel_buckets=buckets,
+                       chunk_frames=args.chunk_frames, overlap=args.overlap,
+                       batch_window_ms=args.batch_window_ms,
+                       allow_reload=args.allow_reload,
+                       max_concurrent=args.max_concurrent, device=args.device)
+    host, port = server.address
+    print(f"serving on http://{host}:{port} "
+          "(/healthz /metrics /synthesize /batch /stream"
+          + (" /reload" if args.allow_reload else "") + ")",
+          file=sys.stderr, flush=True)
+    # orchestrators stop containers with SIGTERM: drain cleanly instead of
+    # dying with a traceback.  The handler only UNBLOCKS serve_forever, from
+    # a helper thread (stopping it on the thread that serves deadlocks); the
+    # main thread then performs the drain (close the listener, stop the
+    # batcher after it finishes queued work), so the process cannot exit
+    # before the drain runs.
+    signal.signal(signal.SIGTERM,
+                  lambda *_: threading.Thread(target=server.stop_serving,
+                                              daemon=True).start())
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    server.shutdown()
+    return 0
 
 
 def main(argv=None):
@@ -78,6 +117,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu for the "
                          "plain PyTorch path)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run the HTTP serving daemon instead of one-shot "
+                         "synthesis (endpoints: /healthz /metrics /synthesize "
+                         "/batch /stream)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8765)
+    ap.add_argument("--batch-window-ms", type=float, default=0.0,
+                    help="with --serve: coalesce concurrent /synthesize "
+                         "requests arriving within this window into one "
+                         "packed device dispatch. 0 = off")
+    ap.add_argument("--max-concurrent", type=int, default=64,
+                    help="with --serve: max in-flight synthesis/stream "
+                         "requests; excess answers 503 + Retry-After "
+                         "(fast load shedding)")
+    ap.add_argument("--allow-reload", action="store_true",
+                    help="with --serve: enable POST /reload, which hot-swaps "
+                         "weights from a new same-geometry GGUF without "
+                         "restarting (admin-plane deployments only)")
     for flag in _NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), nargs="?", const=True,
                         default=None, help=argparse.SUPPRESS)
@@ -103,6 +160,9 @@ def main(argv=None):
           f"d_model={cfg.d_model} max_seq_len={cfg.max_seq_len} "
           f"sr={cfg.sampling_rate} device={args.device}", file=sys.stderr)
     buckets = tuple(int(b) for b in args.buckets.split(",") if b)
+
+    if args.serve:
+        return _serve(args, params, cfg, buckets)
 
     if args.split_long:
         if not args.input:

@@ -4,24 +4,80 @@ Every entry point defaults to ``device="cuda"``.  Asking for CUDA where
 PyTorch has no card raises here, with a message that names the way out
 (``device="cpu"``); nothing silently carries on on the CPU.
 
-Resolving a CUDA device also sets, once and for the process, the switch
-that keeps cuBLAS's bfloat16 products accumulating in float32
-(full_precision_products): the port's bf16 rule is bf16 operands, f32
-accumulation, one rounding.
+Resolving a CUDA device also sets, once and for the process, the switches
+that keep the port's products at their full precision
+(full_precision_products): no TF32 in float32 convolutions and matmuls
+(float32 is the parity path), and cuBLAS's bfloat16 products accumulating in
+float32 (the port's bf16 rule is bf16 operands, f32 accumulation, one
+rounding).  They are process-wide flags, so they are set once and never
+toggled around a product: a serving daemon runs products on many threads.
+
+on_issuing_thread() runs a function on the process's one issuing thread:
+the serving paths make every run of launches (a front, a vocoder call)
+there, whatever thread the request came in on.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextvars
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Optional, Tuple
 
 import torch
 
+_issuer: Optional[ThreadPoolExecutor] = None
+_issuer_guard = threading.Lock()
+_issuer_thread = threading.local()
+
+
+def on_issuing_thread(fn: Callable, *args, **kwargs):
+    """fn(*args, **kwargs) on the process's one issuing thread; returns its
+    result or raises its exception.  Called from that thread, fn runs inline.
+
+    The serving engine and the streaming synthesizer issue their launches
+    through here and wait for the device on their own threads, so that one
+    request's device work overlaps the next one's launches.  Two facts of
+    PyTorch on a card make one long-lived thread the place to issue from
+    (measured on an H100, PERF.md):
+
+    * cuDNN's execution plans are cached by the thread that ran the
+      convolution.  A thread's first front builds a plan for every
+      convolution geometry of the model, 60-180 ms against 10-20 ms for a
+      warm front, so a server that starts a thread per connection, or has a
+      pool of handler threads, pays that again and again.
+    * A front is several hundred small calls, each of which gives up the
+      interpreter lock and takes it again.  Threads that issue at the same
+      time hand the interpreter back and forth at every call: 8 threads
+      issuing B=1 fronts freely took 2.5-3 times the wall of the same
+      fronts issued one at a time.
+
+    The thread is started by the first call and lives as long as the
+    process; PyTorch's thread-local switches (inference mode, the current
+    device) are fn's to set."""
+    global _issuer
+    if getattr(_issuer_thread, "here", False):
+        return fn(*args, **kwargs)
+    if _issuer is None:
+        with _issuer_guard:
+            if _issuer is None:
+                _issuer = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="zv-launch",
+                    initializer=lambda: setattr(_issuer_thread, "here", True))
+    # in the caller's context: a debug capture (utils.debug) sees the taps made there
+    return _issuer.submit(contextvars.copy_context().run, fn, *args, **kwargs).result()
+
 
 def full_precision_products():
-    """cuBLAS may split a bf16 product's reduction and sum the parts in
-    bf16 (PyTorch's default); switch that off, so that every bf16 matmul of
-    the port accumulates in f32 to the end.  A process-wide flag, set where
-    a CUDA device is resolved and not around each product."""
+    """Process-wide flags, set where a CUDA device is resolved and not
+    around each product (a save/restore per product races between threads).
+
+    PyTorch lets cuDNN use TF32 for float32 convolutions by default, which
+    keeps about three decimal digits: off, for convolutions and matmuls.
+    cuBLAS may split a bf16 product's reduction and sum the parts in bf16:
+    off, so that every bf16 matmul of the port accumulates in f32 to the end."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 

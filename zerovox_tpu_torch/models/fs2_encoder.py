@@ -17,6 +17,7 @@ import torch
 
 from ..config import ZeroVoxConfig
 from ..ops import bucketize, conv1d, layer_norm, linear, multi_head_attention
+from ..utils.debug import tap
 
 
 def fft_block(x: torch.Tensor, p: dict, cfg: ZeroVoxConfig,
@@ -73,15 +74,18 @@ def encode(params: dict, cfg: ZeroVoxConfig,
     attn_mask = phoneme_mask if cfg.use_attention_mask else None
     for layer in enc["layers"]:
         x = fft_block(x, layer, cfg, mask=attn_mask)
+    tap("encoder_output", x)
 
     features = x + style_embed[:, None, :].to(x.dtype)
 
     log_duration = variance_predictor(features, enc["duration_predictor"], cfg)
 
-    pitch = variance_predictor(features, enc["pitch_predictor"], cfg)
+    pitch = tap("pitch", variance_predictor(features, enc["pitch_predictor"], cfg))
     features = features + enc["pitch_emb"][bucketize(pitch, cfg.ve_n_bins)].to(x.dtype)
 
     # energy is predicted on the pitch-updated features
-    energy = variance_predictor(features, enc["energy_predictor"], cfg)
+    energy = tap("energy", variance_predictor(features, enc["energy_predictor"], cfg))
     features = features + enc["energy_emb"][bucketize(energy, cfg.ve_n_bins)].to(x.dtype)
+    tap("features", features)
+    tap("log_duration", log_duration)
     return features, log_duration

@@ -20,6 +20,7 @@ import torch
 from ..config import ZeroVoxConfig
 from ..ops import conv1d
 from ..ops.cuda.mrf_stage import PackedStage, mrf_stage, pack_stage, residual_block
+from ..utils.debug import tap
 
 __all__ = ["vocode", "pack_vocoder", "residual_block", "receptive_field_frames"]
 
@@ -85,4 +86,6 @@ def vocode(params: dict, cfg: ZeroVoxConfig, mel: torch.Tensor,
 
     c = torch.tanh(conv1d(c, voc["output_conv_w"], voc["output_conv_b"], padding=pad))
     wav_len = mel.shape[1] * cfg.hop_size
-    return c[:, :wav_len, 0]     # nonstandard upsample kernels overshoot
+    c = c[:, :wav_len]           # nonstandard upsample kernels overshoot
+    tap("dbg", c)                # the reference's permanent probe, (B, wav_len, 1)
+    return tap("wav", c[..., 0])

@@ -108,8 +108,12 @@ def pack_model(placed: dict, cfg: ZeroVoxConfig, device: torch.device) -> Loaded
     return LoadedModel(placed, packed)
 
 
-def load_model(params: dict, cfg: ZeroVoxConfig, device: torch.device) -> LoadedModel:
-    """place_params, then pack_model."""
+def load_model(params, cfg: ZeroVoxConfig, device: torch.device) -> LoadedModel:
+    """place_params, then pack_model.  A LoadedModel comes back as it is
+    (it was placed, cast and packed by whoever made it): that is how a
+    daemon's streaming synthesizer shares its engine's weights, held once."""
+    if isinstance(params, LoadedModel):
+        return params
     return pack_model(place_params(params, cfg, device), cfg, device)
 
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..config import ZeroVoxConfig
-from ..device import resolve_device, to_host_async, wait_host
+from ..device import on_issuing_thread, resolve_device, to_host_async, wait_host
 from ..io.wav import float_to_pcm16_device
 from . import hifigan
 from .pipeline import LoadedModel, compute_dtype, front, load_model, request_tensors
@@ -84,7 +84,11 @@ class StreamingSynthesizer:
         wasted on a client that abandons the stream.
 
         cfg.compute_dtype "bfloat16" runs the serving dtype: params are cast
-        here (and in set_params), as TTSEngine(precision="bfloat16") does."""
+        here (and in set_params), as TTSEngine(precision="bfloat16") does.
+
+        params may be a LoadedModel (TTSEngine.model) on this device and in
+        cfg's dtype: the synthesizer then reads those weights and packed
+        weights and keeps no copy of its own."""
         if chunk_frames <= 0 or overlap < 0:
             raise ValueError("chunk_frames must be > 0, overlap >= 0")
         if ahead is not None and ahead < 1:
@@ -102,9 +106,10 @@ class StreamingSynthesizer:
         return self._model.params
 
     def set_params(self, params):
-        """Hot-swap the weights (same geometry): cast and packed for the MRF
-        kernel as the constructor did, swapped as one reference, so a
-        stream in flight finishes on the weights it started with."""
+        """Hot-swap the weights (same geometry; a params tree or a
+        LoadedModel): cast and packed for the MRF kernel as the constructor
+        did, swapped as one reference, so a stream in flight finishes on
+        the weights it started with."""
         self._model = load_model(params, self.cfg, self.device)
 
     # ------------------------------------------------------------- programs
@@ -117,12 +122,15 @@ class StreamingSynthesizer:
         hop = self.cfg.hop_size
 
         @torch.inference_mode()
-        def run(model: LoadedModel, mel_window: torch.Tensor) -> torch.Tensor:
-            if mel_window.shape[1] != window:
-                raise ValueError(f"window of {mel_window.shape[1]} frames, want {window}")
+        def launch(model: LoadedModel, mel_window: torch.Tensor) -> torch.Tensor:
             wav = hifigan.vocode(model.params, self.cfg, mel_window, model.packed)
             wav = wav[:, emit_from * hop: (emit_from + emit_frames) * hop]
             return float_to_pcm16_device(wav) if self.pcm16 else wav.to(torch.float32)
+
+        def run(model: LoadedModel, mel_window: torch.Tensor) -> torch.Tensor:
+            if mel_window.shape[1] != window:
+                raise ValueError(f"window of {mel_window.shape[1]} frames, want {window}")
+            return on_issuing_thread(launch, model, mel_window)
 
         return run
 
@@ -142,9 +150,15 @@ class StreamingSynthesizer:
         for w in self.chunk_plan(mel.shape[1], n_chunks):
             yield self._vocode_window(model, mel, w)
 
-    @torch.inference_mode()
     def _prefix(self, model: LoadedModel, src_seq, puncts, style_embed, num_phonemes):
-        """Request arrays -> device (mel, mel_len, max mel_len), no host sync."""
+        """Request arrays -> device (mel, mel_len, max mel_len), no host
+        sync; launched on the process's issuing thread
+        (device.on_issuing_thread)."""
+        return on_issuing_thread(self._issue_prefix, model, src_seq, puncts, style_embed,
+                                 num_phonemes)
+
+    @torch.inference_mode()
+    def _issue_prefix(self, model: LoadedModel, src_seq, puncts, style_embed, num_phonemes):
         cfg = self.cfg
         src, pun, sty, nph = request_tensors(cfg, self.device, src_seq, puncts, style_embed,
                                              num_phonemes)

@@ -14,6 +14,7 @@ import torch
 
 from ..config import ZeroVoxConfig
 from ..ops import conv1d, instance_norm, leaky_relu, linear, scalar_as
+from ..utils.debug import tap
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -76,4 +77,4 @@ def decode(params: dict, cfg: ZeroVoxConfig,
     x = adain_res_blk1d(x, style_embed, dec["decode4"], cfg)
 
     out = dec["to_out"]
-    return conv1d(x, out["conv_w"], out["conv_b"])
+    return tap("mel", conv1d(x, out["conv_w"], out["conv_b"]))

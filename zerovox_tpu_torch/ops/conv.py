@@ -14,7 +14,10 @@ On a card the convolutions run in full float32: PyTorch lets cuDNN use
 TF32 for float32 convolutions by default, which keeps about three decimal
 digits, and the float32 path is the parity path (a TF32 duration or pitch
 predictor can flip a bucketize or a rounded duration against the JAX
-package).
+package).  TF32 is switched off once per process, where a CUDA device is
+resolved (device.full_precision_products), never around a product: the flag
+is process-wide, and a save/restore per product races between the threads
+of a serving daemon.
 
 bfloat16 (the serving dtype) follows the JAX package's rule for every
 product: bf16 operands, f32 accumulation, the result rounded once to bf16,
@@ -27,22 +30,10 @@ f32 result is rounded, which is the same rule and needs no bf16 CPU kernels.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """No TF32 in cuDNN's float32 convolutions (PyTorch's default allows it)."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def _product(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
@@ -50,13 +41,12 @@ def _product(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) ->
     and the result too.  float32: one call, bias inside.  Other dtypes: f32
     accumulation, one rounding to x.dtype, then the bias added in x.dtype
     (operands widened for a CPU tensor)."""
-    with _no_tf32():
-        if x.dtype == torch.float32:
-            return fn(x, w, b)
-        if x.device.type == "cpu":
-            y = fn(x.to(torch.float32), w.to(torch.float32), None).to(x.dtype)
-        else:
-            y = fn(x, w, None)
+    if x.dtype == torch.float32:
+        return fn(x, w, b)
+    if x.device.type == "cpu":
+        y = fn(x.to(torch.float32), w.to(torch.float32), None).to(x.dtype)
+    else:
+        y = fn(x, w, None)
     return y if b is None else y + b[:, None]
 
 

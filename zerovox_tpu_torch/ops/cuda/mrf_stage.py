@@ -10,7 +10,8 @@ upsample, its bias and the leaky-relus on either side fused in.
 For a CUDA tensor the wrappers launch the kernel or raise; they take the
 plain version (`mrf_stage_ref`, built from F.conv1d / F.conv_transpose1d)
 only for tensors that lie on the CPU.  Each wrapper counts its kernel
-launches in a plain integer attribute (`mrf_stage.launches`).  The kernel
+launches in a plain integer attribute (`mrf_stage.launches`), added to under
+a lock: a serving daemon launches from many threads.  The kernel
 reads its weights in its own layout (`pack_stage`), which a serving caller
 makes once per model and passes as `packed=`.
 
@@ -33,7 +34,9 @@ A bf16 input with f32 weights (or the reverse) raises.
 The kernel is compiled with nvcc, at its first CUDA call (never at import),
 into build/zerovox_tpu_torch/ at the root of the checkout, as one shared
 library per mode (the same source, -DZV_MRF_BF16=0/1, both compiled at
-once) with a plain C interface loaded through ctypes.
+once) with a plain C interface loaded through ctypes.  The build is guarded
+by a lock: concurrent first calls (a server made without a warm-up) wait
+for the one nvcc run.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Sequence
@@ -332,8 +336,30 @@ _MODES = ((torch.float32, "f32", "zv_mrf_stage_f32", "zv_mrf_max_clusters"),
           (torch.bfloat16, "bf16", "zv_mrf_stage_bf16", "zv_mrf_max_clusters_bf16"))
 
 
-@functools.lru_cache(maxsize=None)
+_build_lock = threading.Lock()
+_library: Optional[Library] = None
+_count_lock = threading.Lock()
+
+
 def library() -> Library:
+    """The kernel's two libraries, built and loaded by the first call; calls
+    that arrive while that one builds wait for it and build nothing."""
+    global _library
+    if _library is None:
+        with _build_lock:
+            if _library is None:
+                _library = _build_library()
+    return _library
+
+
+def _count_launch(wrapper):
+    """wrapper.launches += 1, under a lock (an unlocked += loses counts
+    between threads)."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def _build_library() -> Library:
     """Build (once per source version) and load the kernel's two libraries,
     one per mode: the same source with -DZV_MRF_BF16=0 and =1, both nvcc
     runs started together."""
@@ -620,7 +646,7 @@ def mrf_stage(x: torch.Tensor,
     _check_options(upsample, in_leaky)
     y = _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
                 in_leaky, out_leaky, packed)
-    mrf_stage.launches += 1
+    _count_launch(mrf_stage)
     return y
 
 
@@ -637,7 +663,7 @@ def mrf_stage_unfolded(x: torch.Tensor,
     if x.device.type == "cpu":
         return mrf_stage_ref(x, blocks, dilation_sets, kernel_size)
     y = _launch(x, blocks, dilation_sets, kernel_size, None, None, None, None, packed)
-    mrf_stage_unfolded.launches += 1
+    _count_launch(mrf_stage_unfolded)
     return y
 
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import ZeroVoxConfig
-from ..device import resolve_device, to_host_async, wait_host
+from ..device import on_issuing_thread, resolve_device, to_host_async, wait_host
 from ..io.wav import float_to_pcm16_device
 from ..models import hifigan
 from ..models.pipeline import (LoadedModel, compute_dtype, front, load_model, pack_model,
@@ -71,6 +71,12 @@ class TTSEngine:
 
     # -------------------------------------------------------------- weights
     @property
+    def model(self) -> LoadedModel:
+        """The weights and packed weights in use, as one reference (what
+        StreamingSynthesizer takes to share them)."""
+        return self._model
+
+    @property
     def params(self) -> dict:
         return self._model.params
 
@@ -106,22 +112,31 @@ class TTSEngine:
                                          for k, bs, bd, as_, ad in bad[:3]))
 
     # ------------------------------------------------------------ programs
-    @torch.inference_mode()
     def _front(self, src_seq, puncts, style_embed, num_phonemes,
                model: Optional[LoadedModel] = None):
         """Encoder + length regulator + decoder at full max_seq_len, on
-        device tensors; no host sync."""
-        mel, mel_len, _ = front((model or self._model).params, self.cfg, src_seq, puncts,
+        device tensors; no host sync.  Issued on the process's issuing
+        thread (device.on_issuing_thread), whatever thread calls."""
+        return on_issuing_thread(self._issue_front, src_seq, puncts, style_embed,
+                                 num_phonemes, model or self._model)
+
+    @torch.inference_mode()
+    def _issue_front(self, src_seq, puncts, style_embed, num_phonemes, model: LoadedModel):
+        mel, mel_len, _ = front(model.params, self.cfg, src_seq, puncts,
                                 style_embed.to(compute_dtype(self.cfg)), num_phonemes)
         return mel, mel_len
 
-    @torch.inference_mode()
     def _vocode(self, mel_b: torch.Tensor, pcm16: bool,
                 model: Optional[LoadedModel] = None) -> torch.Tensor:
         """Vocoder on a bucket-length mel, left on the device: int16 with
         pcm16 (quantised there, so the host fetch moves half the bytes),
-        else float32 (a bf16 waveform is widened for the caller)."""
-        model = model or self._model
+        else float32 (a bf16 waveform is widened for the caller).  Issued on
+        the issuing thread, as _front."""
+        return on_issuing_thread(self._issue_vocode, mel_b, pcm16, model or self._model)
+
+    @torch.inference_mode()
+    def _issue_vocode(self, mel_b: torch.Tensor, pcm16: bool,
+                      model: LoadedModel) -> torch.Tensor:
         wav = hifigan.vocode(model.params, self.cfg, mel_b, model.packed)
         return float_to_pcm16_device(wav) if pcm16 else wav.to(torch.float32)
 

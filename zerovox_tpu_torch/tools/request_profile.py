@@ -1,6 +1,7 @@
 """Where a B=1 request's time goes, on the host and on the card.
 
     python -m zerovox_tpu_torch.tools.request_profile [--precision float32|bfloat16|both]
+    python -m zerovox_tpu_torch.tools.request_profile --threads 8
 
 For a full-length demo request at the production config (random weights
 from seed 0) it prints, per precision:
@@ -15,14 +16,27 @@ from seed 0) it prints, per precision:
     busy time per front; the idle share of the front is 1 - busy / the
     front's time between events;
   * the wall of a whole stream of the same request (chunk 64, overlap 16).
+
+With --threads N it prints instead, per precision, what N Python threads
+that each issue B=1 fronts cost beside one thread doing the same (the
+serving daemon runs one handler thread per connection, all on one
+interpreter and one CUDA stream): what a thread's first front costs (cuDNN's
+execution plans are cached per thread, so a new thread builds them all
+again), then, with every thread warm, the wall per front, how long a
+front's launches take to issue inside its thread, the card's busy time per
+front (torch.profiler) and the card's idle share of the wall.  Fronts that
+cost the same busy time but N times the issue time are held up by the
+interpreter, not by the card.
 Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import sys
+import threading
 import time
 
 import numpy as np
@@ -51,9 +65,67 @@ def _fmt(ts):
     return f"median {statistics.median(ts):.2f} ms ({' '.join('%.2f' % t for t in ts)})"
 
 
+def threaded_fronts(run_front, n_threads: int, rounds: int = 6, lock=None):
+    """`rounds` fronts from each of n_threads new threads started together,
+    after each thread has run one front alone.  Returns (median ms of a
+    thread's first front, to the card's end; wall ms per later front; median
+    ms a later front takes to issue inside its thread; card busy ms per
+    later front; idle share of that wall).  With `lock`, a thread makes a
+    front's launches only while it holds it: one thread at a time, which is
+    what the serving paths get from device.on_issuing_thread."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    barrier = threading.Barrier(n_threads + 1)
+    warm = threading.Barrier(n_threads + 1)
+    first, issued, errors = [], [], []
+    turn = threading.Lock()
+
+    def worker():
+        try:
+            with turn:                  # first fronts one thread at a time, each timed alone
+                t0 = time.perf_counter()
+                run_front()
+                torch.cuda.synchronize()
+                first.append(1e3 * (time.perf_counter() - t0))
+            warm.wait(timeout=120)
+            barrier.wait(timeout=120)
+            for _ in range(rounds):
+                with lock or contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    run_front()
+                    issued.append(1e3 * (time.perf_counter() - t0))  # list.append is atomic
+        except Exception as e:          # noqa: BLE001  (reported below)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, daemon=True) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    warm.wait(timeout=300)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        barrier.wait(timeout=120)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"front threads failed or hung: {errors[:3]}")
+    averages = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    busy = sum(getattr(e, attr) for e in averages if e.device_type == DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    n = n_threads * rounds
+    return statistics.median(first), wall / n, statistics.median(issued), busy / n, 1 - busy / wall
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--precision", choices=("float32", "bfloat16", "both"), default="both")
+    ap.add_argument("--threads", type=int, default=0, metavar="N",
+                    help="report N threads issuing B=1 fronts beside one thread, and nothing else")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("request_profile: needs a CUDA card", file=sys.stderr)
@@ -75,6 +147,20 @@ def main(argv=None) -> int:
             """The engine's front (pipeline.front on its params), no host sync."""
             return front(engine.params, engine.cfg, s_, p_, sty, nph)
 
+        if args.threads:
+            run_front()
+            turns = [(1, False), (args.threads, False), (args.threads, True),
+                     (args.threads, True), (args.threads, False), (1, False)]
+            for n, locked in turns:
+                first_ms, per, issue_ms, busy_ms, idle = threaded_fronts(
+                    run_front, n, lock=threading.Lock() if locked else None)
+                print(f"{prec} {n} new thread(s){', one issuing at a time' if locked else ''}: a "
+                      f"thread's first front {first_ms:.2f} ms (median, each alone); then x 6 "
+                      f"fronts: wall {per:.2f} ms per front "
+                      f"({1e3 / per:.0f} fronts/s), a front issued in {issue_ms:.2f} ms inside its "
+                      f"thread (median), card busy {busy_ms:.2f} ms per front, card idle "
+                      f"{100 * idle:.0f} % of the wall", flush=True)
+            continue
         print(f"{prec} synthesize wall: {_fmt(_walls(lambda: engine.synthesize(src, pun, style, lens)))}")
         print(f"{prec} front + mel_len fetch: {_fmt(_walls(lambda: run_front()[1].cpu()))}")
         print(f"{prec} front, no fetch, then sync: {_fmt(_walls(run_front))}")
