@@ -56,7 +56,20 @@ Phases (any failure exits non-zero and prints no result line):
      `python -m zerovox_tpu_torch.cli --serve` answered by the module
      client and drained by SIGTERM.  Phases 4-7 fail if they launch the
      kernel at a shape that phase 3 did not hold;
-  8. print the kernels line, then the card line, then {"ok": true, ...}.
+  8. training, in float32 (zerovox_tpu_torch.training): (a) vocode through
+     the kernel with weights that require a gradient raises, and
+     vocode(differentiable=True) gives every vocoder weight a gradient
+     without a kernel launch; (b) three AdamW steps at TINY on the card
+     against the same on the CPU; (c) one production-geometry loss and its
+     gradients (B=1, max_seq_len, the STFT loss) on the card and on the
+     CPU, per leaf, each against the same loss in float64; step time (host
+     clock and CUDA events) and peak memory at B = 1, 2, 4, 8, where (f)
+     the loss of 10 B=1 steps on one batch must fall; (d) `python -m zerovox_tpu_torch.training.cli` at
+     production geometry (24 datums, batch 8, --accum 2, 2 steps and 1
+     validation batch), then again, resuming; the checkpoints' sizes; (e)
+     a TTSEngine on its exported GGUF, kernel pipeline against the plain one,
+     launched shapes held;
+  9. print the kernels line, then the card line, then {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -1396,6 +1409,239 @@ def daemon_path(cfg, params, engine, models, tmp, precision, subprocess_too):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 8: training on the card (f32)
+# --------------------------------------------------------------------------
+
+def named_leaves(tree, cfg):
+    """[(GGUF name, tensor)] of a parameter-shaped tree, in the name map's order."""
+    from zerovox_tpu_torch.params import get_path, gguf_name_map
+    return [(name, get_path(tree, path)) for path, (name, _) in gguf_name_map(cfg).items()]
+
+
+def grad_distances(g, g64, cfg):
+    """{GGUF name: (max|g - g64|, max|g64|)} per leaf."""
+    return {n: ((a.detach().cpu().double() - c.detach().cpu()).abs().max().item(),
+                c.abs().max().item())
+            for (n, a), (_, c) in zip(named_leaves(g, cfg), named_leaves(g64, cfg))}
+
+
+def hold_grads(grads, g64, cfg, what):
+    """grads: {label: float32 gradient tree}, the card's under "card".  Logs
+    each one's per-leaf distance to the float64 gradient, max|d| /
+    max|g64_leaf| (worst and median over the leaves above 1e-6 max|g64|),
+    and card against CPU.  Gate: every card leaf within 0.1 * max|g64_leaf|
+    + 1e-6 * max|g64| (a wrong or missing term of the gradient is off by its
+    whole size), and the card's median within 5 x the CPU's."""
+    import numpy as np
+    dist = {k: grad_distances(g, g64, cfg) for k, g in grads.items()}
+    dist["card-CPU"] = {n: (d, dist["card"][n][1]) for n, (d, _) in
+                        grad_distances(grads["card"], grads["CPU"], cfg).items()}
+    gmax = max(m for _, m in dist["card"].values())
+    medians = {}
+    for label, rows in dist.items():
+        ratios = sorted((d / m, n) for n, (d, m) in rows.items() if m > 1e-6 * gmax)
+        medians[label] = float(np.median([r for r, _ in ratios]))
+        log(f"  {what}, {label}{'' if label == 'card-CPU' else '-f64'}: max|d| / max|g64_leaf| "
+            f"worst {ratios[-1][0]:.3e} ({ratios[-1][1]}), median {medians[label]:.3e} over "
+            f"{len(ratios)} leaves")
+    bad = [f"{n}: max|d| {d:.3e}, max|g64| {m:.3e}" for n, (d, m) in dist["card"].items()
+           if not d <= 0.1 * m + 1e-6 * gmax]
+    log(f"  {what}: gate per card leaf 0.1 * max|g64_leaf| + 1e-6 * max|g64| ({gmax:.3e}), "
+        f"card median <= 5 x CPU median")
+    if bad or not medians["card"] <= 5 * medians["CPU"]:
+        raise RuntimeError(f"{what}: {len(bad)} leaves outside the gate {bad[:4]}; medians "
+                           f"{medians}")
+
+
+def timed_steps(step, state, batch, n):
+    """n train steps on the card; per step the host-clock wall (synchronised)
+    and the CUDA-event time, ms, and the losses' totals."""
+    import torch
+    walls, events, totals = [], [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        state, losses = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        events.append(start.elapsed_time(end))
+        totals.append(losses["total"].item())
+    return state, walls, events, totals
+
+
+def training_path(cfg, params, tmp, card, seen, held):
+    """Phase 8: the repair, TINY and production steps card against CPU, the
+    training CLI twice (a resume) at production geometry, the engine on its
+    export, the loss falling, step times and peak memory per batch size.
+    Returns the mrf_stage launches of the engine served from the export."""
+    import torch
+    from zerovox_tpu_torch.config import TINY_CONFIG
+    from zerovox_tpu_torch.models import hifigan
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    from zerovox_tpu_torch.params import init_params, load_params, tree_leaves, tree_map
+    from zerovox_tpu_torch.runtime.engine import TTSEngine
+    from zerovox_tpu_torch.training import make_train_step
+    from zerovox_tpu_torch.training.cli import synthetic_dataset
+    from zerovox_tpu_torch.training.losses import stft_loss
+    from zerovox_tpu_torch.training.train import TrainBatch, batch_to, value_and_grad
+
+    t_phase = time.perf_counter()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    launches0 = ms.mrf_stage.launches + ms.mrf_stage_unfolded.launches
+
+    # (a) the kernel refuses autograd; the differentiable route gives every
+    # vocoder leaf a gradient, and launches no kernel
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    mel = torch.randn(1, cfg.max_seq_len, cfg.num_mels, device=cuda)
+    try:
+        hifigan.vocode(live, cfg, mel)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        log(f"  (a) vocode on the card with grad-requiring weights raises: {str(e)[:90]}...")
+    else:
+        raise RuntimeError("(a) vocode through the kernel with grad-requiring weights did not raise")
+    mel = torch.randn(1, BUCKETS[0], cfg.num_mels, device=cuda)
+    wav = hifigan.vocode(live, cfg, mel, differentiable=True)
+    loss = stft_loss(wav, 0.1 * torch.randn_like(wav))
+    voc = tree_leaves(live["vocoder"])
+    grads = torch.autograd.grad(loss, voc)
+    zero = sum(int(not g.abs().max().item() > 0) for g in grads)
+    if zero or ms.mrf_stage.launches + ms.mrf_stage_unfolded.launches != launches0:
+        raise RuntimeError(f"(a) differentiable route: {zero} of {len(voc)} vocoder leaves with "
+                           f"no gradient, launches {launches0} -> {ms.mrf_stage.launches}")
+    log(f"  (a) vocode(differentiable=True) at {BUCKETS[0]} frames: STFT loss "
+        f"{loss.item():.6f}, a non-zero gradient on all {len(voc)} vocoder leaves, no kernel launch")
+    del live, wav, loss, grads
+
+    # (b) TINY: three AdamW steps on the card against the same three on the CPU
+    res = ((256, 30, 120), (128, 15, 60))
+    p_tiny = init_params(TINY_CONFIG, seed=0, device="cpu")
+    data = synthetic_dataset(TINY_CONFIG, 4, seed=0)
+    lr = 1e-4
+    runs = []
+    for dev in (cuda, cpu):
+        state, step = make_train_step(TINY_CONFIG, p_tiny, device=dev, stft_resolutions=res)
+        totals = []
+        for _ in range(3):
+            state, losses = step(state, data)
+            totals.append(losses["total"].item())
+        runs.append((state, totals))
+    (s_card, l_card), (s_cpu, l_cpu) = runs
+    dp = max((a.cpu() - b).abs().max().item() for a, b in
+             zip(tree_leaves(s_card.params), tree_leaves(s_cpu.params)))
+    dl = abs(l_card[0] - l_cpu[0]) / abs(l_cpu[0])
+    log(f"  (b) TINY, 3 AdamW steps (lr {lr}), card vs CPU: params max|d| {dp:.3e} (gate "
+        f"2 * lr * 3 = {6 * lr:.1e}: Adam moves a near-zero gradient's weight by about lr "
+        f"whatever its float noise); first loss {l_card[0]:.7f} vs {l_cpu[0]:.7f} (rel "
+        f"{dl:.2e}, gate 1e-5); losses card {['%.6f' % v for v in l_card]}")
+    if not (dp <= 6 * lr and dl <= 1e-5 and s_card.step == 3):
+        raise RuntimeError(f"(b) TINY steps: params max|d| {dp:.3e}, first loss rel {dl:.2e}")
+
+    # (c) production geometry, B=1, full max_seq_len, the STFT loss: one
+    # loss_fn value and its gradients on the card and on the CPU, each held
+    # against the same loss computed in float64 (the plain path, on the card)
+    batch = synthetic_dataset(cfg, 1, seed=0)
+    wide = lambda t: t.double() if t.is_floating_point() else t     # noqa: E731
+    t0 = time.perf_counter()
+    l_card, g_card = value_and_grad(params, cfg, batch_to(batch, cuda))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l64, g64 = value_and_grad(tree_map(wide, params), cfg,
+                              TrainBatch(*map(wide, batch_to(batch, cuda))))
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = value_and_grad(p_cpu, cfg, batch_to(batch, cpu))
+    cpu_s = time.perf_counter() - t0
+    rel = {n: max(abs(l[k].item() - l64[k].item()) / abs(l64[k].item()) for k in l64)
+           for n, l in (("card", l_card), ("CPU", l_cpu))}
+    log(f"  (c) production loss_fn B=1 with the STFT: card {l_card['total'].item():.7f}, CPU "
+        f"{l_cpu['total'].item():.7f}, float64 {l64['total'].item():.7f} (worst term rel to "
+        f"float64: card {rel['card']:.2e}, CPU {rel['CPU']:.2e}, gate 1e-5); loss + gradients "
+        f"card f32 {card_s:.2f} s (first call), card f64 {f64_s:.2f} s, CPU f32 {cpu_s:.1f} s "
+        f"({os.cpu_count()} cores) [{card}]")
+    if not max(rel.values()) <= 1e-5:
+        raise RuntimeError(f"(c) production loss against float64: {rel}")
+    # the same on the card with PyTorch's own convolutions in place of cuDNN's
+    torch.backends.cudnn.enabled = False
+    try:
+        _, g_native = value_and_grad(params, cfg, batch_to(batch, cuda))
+    finally:
+        torch.backends.cudnn.enabled = True
+    hold_grads({"card": g_card, "CPU": g_cpu, "card without cuDNN": g_native}, g64, cfg,
+               "(c) production gradients")
+    del g_card, g_cpu, g_native, g64, p_cpu
+
+    # (f) and the times: one repeated production batch per batch size; B=1
+    # takes 10 steps and its loss must fall
+    for B in (1, 2, 4, 8):
+        state, step = make_train_step(cfg, params, device=cuda)
+        batch = batch_to(synthetic_dataset(cfg, B, seed=B), cuda)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, walls, events, totals = timed_steps(step, state, batch, 10 if B == 1 else 3)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  step B={B} (AdamW, STFT, f32, TF32 off): wall {statistics.median(walls[1:]):.1f} ms, "
+            f"CUDA events {statistics.median(events[1:]):.1f} ms (medians after the first; walls "
+            f"{['%.1f' % w for w in walls]}); peak memory {peak / 2**30:.2f} GiB "
+            f"(max_memory_allocated; {base / 2**30:.2f} GiB held before the step) [{card}]")
+        if B == 1:
+            log(f"  (f) loss over 10 steps on one batch: {['%.5f' % v for v in totals]}")
+            if not totals[-1] < totals[0]:
+                raise RuntimeError(f"(f) the loss did not fall: {totals[0]} -> {totals[-1]}")
+        del state, step, batch
+
+    # (d) the training CLI in a subprocess at production geometry, twice;
+    # the blocks this process's allocator caches go back to the card first
+    torch.cuda.empty_cache()
+    ck, out = os.path.join(tmp, "train_ck"), os.path.join(tmp, "trained.gguf")
+    argv = [sys.executable, "-m", "zerovox_tpu_torch.training.cli", "--synthetic", "24",
+            "--batch-size", "8", "--val-split", "0.33", "--accum", "2", "--epochs", "1",
+            "--checkpoint-dir", ck, "--checkpoint-every", "2", "--export", out]
+    for i, want in ((1, 2), (2, 4)):
+        t0 = time.perf_counter()
+        run = subprocess.run(argv, capture_output=True, text=True, timeout=600, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in run.stderr.splitlines() if ln.startswith(("train:", "fit:"))]
+        for ln in lines:
+            log(f"    cli run {i}: {ln}")
+        if run.returncode != 0 or f"train: {want} total steps" not in run.stderr \
+                or (i == 2) != ("resumed from step 2" in run.stderr):
+            raise RuntimeError(f"(d) training CLI run {i}: rc {run.returncode}\n{run.stderr[-3000:]}")
+        log(f"  (d) training CLI run {i}: rc 0, {want} steps, {wall:.1f} s in the subprocess "
+            f"(import, card, init, 2 steps of 8 rows in 2 microbatches, 1 validation batch, "
+            f"checkpoints, export) [{card}]")
+    sizes = {n: os.path.getsize(os.path.join(ck, n)) for n in sorted(os.listdir(ck))}
+    log(f"  (d) checkpoints {', '.join(f'{n} {s / 1e6:.1f} MB' for n, s in sizes.items())}; "
+        f"export {os.path.getsize(out) / 1e6:.1f} MB")
+    if sorted(sizes) != ["step_2.pt", "step_4.pt"]:
+        raise RuntimeError(f"(d) checkpoint directory holds {sorted(sizes)}")
+
+    # (e) the export, served through the kernel and held against the plain pipeline
+    ms.mrf_stage.launches = ms.mrf_stage_unfolded.launches = 0
+    tcfg, tparams_ = load_params(out, device="cuda")
+    if tcfg != cfg:
+        raise RuntimeError("(e) the exported GGUF has another geometry")
+    engine = TTSEngine(tparams_, tcfg)
+    compare_pipelines(engine)
+    served = ms.mrf_stage.launches
+    if not served or ms.mrf_stage_unfolded.launches:
+        raise RuntimeError(f"(e) the engine on the export launched mrf_stage {served} times")
+    hold_launched_shapes(seen, held, "phase 8")
+    log(f"  (e) the exported GGUF served by a TTSEngine: {served} mrf_stage launches, kernel "
+        f"pipeline within {PIPELINE_WAV_ATOL} of the plain one")
+    log(f"phase 8 (training) {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return served
+
+
 def run() -> int:
     try:
         import torch
@@ -1474,6 +1720,8 @@ def run() -> int:
             log(f"{precision} launches: main path {counts}, streams {streamed}, daemon phase "
                 f"(daemons and reference engines) {served}")
             hold_launched_shapes(seen, shapes, f"{precision} phases 4-7")
+        log("phase 8: training on the card, float32")
+        launches["mrf_stage"] += training_path(cfg, params, tmp, card, seen, shapes)
 
     replaces = {"mrf_stage": "zerovox_tpu/ops/pallas/folded_mrf.py:446",
                 "mrf_stage_unfolded": "zerovox_tpu/ops/pallas/folded_mrf.py:720"}
@@ -1488,7 +1736,8 @@ def run() -> int:
         "tensor-core bound of the mode: f32 max(3 FLOPs / TF32 rate, bytes / HBM rate), "
         "bf16 max(FLOPs / bf16 rate, bytes / HBM rate); launches are those of the mode's "
         "main path (CLI, engine requests), its streams and its daemon phase (the daemons and "
-        "the engines they are held against), each counted from 0")
+        "the engines they are held against), each counted from 0, and for float32 those of "
+        "phase 8's engine on the trained export")
     log("e2e: " + "; ".join(f"{p} B=1 wall {w[1]:.2f} ms, B=8 wall {w[8]:.2f} ms"
                             for p, w in walls.items())
         + f"; smoke total {time.perf_counter() - t_start:.1f} s")

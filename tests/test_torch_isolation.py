@@ -28,7 +28,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 33, mods
+assert len(mods) >= 41, mods
 """
 
 
@@ -50,6 +50,8 @@ def test_entry_points_default_to_cuda():
     import zerovox_tpu_torch as zt
     from zerovox_tpu_torch import cli
     from zerovox_tpu_torch.params import load_params
+    from zerovox_tpu_torch.training import cli as train_cli
+    from zerovox_tpu_torch.training import make_train_step
     cfg = zt.TINY_CONFIG
     params = zt.init_params(cfg, seed=0, device="cpu")
     P = cfg.max_n_phonemes
@@ -71,6 +73,10 @@ def test_entry_points_default_to_cuda():
         cli.main(["--model", "unused.gguf", "--demo"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--model", "unused.gguf", "--serve", "--port", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--synthetic", "2", "--tiny", "--batch-size", "2"])
     # the daemon binds its socket first, then raises and gives the port back
     probe = socket.socket()
     probe.bind(("127.0.0.1", 0))

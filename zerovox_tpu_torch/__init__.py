@@ -10,7 +10,8 @@ cfg.compute_dtype) the serving dtype; StreamingSynthesizer vocodes in
 chunks for a short time to first audio.  TTSServer is the HTTP serving
 daemon (the CLI's --serve) over one engine and one synthesizer, with
 DynamicBatcher coalescing concurrent requests; TTSClient talks to it, in
-the JAX package's wire format.
+the JAX package's wire format.  zerovox_tpu_torch.training trains on one
+card (losses, AdamW, fit, checkpoints, GGUF export, its CLI).
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu".

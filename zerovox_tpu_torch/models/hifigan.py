@@ -9,6 +9,9 @@ device memory.  `pack_vocoder` puts the stages' weights in the kernel's
 layout once per model; a serving caller passes the result to `vocode`.
 Everything runs in the params' dtype: float32, or bfloat16 after
 cast_params (the MRF stages then take the kernel's bf16 mode).
+Training differentiates through the vocoder with `differentiable=True`:
+the stages then run the kernel's plain version, on any device (the
+kernel has no backward).
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from ..config import ZeroVoxConfig
 from ..ops import conv1d
-from ..ops.cuda.mrf_stage import PackedStage, mrf_stage, pack_stage, residual_block
+from ..ops.cuda.mrf_stage import (PackedStage, mrf_stage, mrf_stage_ref, pack_stage,
+                                  residual_block)
 from ..utils.debug import tap
 
 __all__ = ["vocode", "pack_vocoder", "residual_block", "receptive_field_frames"]
@@ -57,12 +61,17 @@ def pack_vocoder(params: dict, cfg: ZeroVoxConfig) -> List[PackedStage]:
 
 
 def vocode(params: dict, cfg: ZeroVoxConfig, mel: torch.Tensor,
-           packed: Optional[List[PackedStage]] = None) -> torch.Tensor:
+           packed: Optional[List[PackedStage]] = None,
+           differentiable: bool = False) -> torch.Tensor:
     """mel (B, T, num_mels) -> waveform (B, T * hop_size).
 
     Each stage is one mrf_stage call: the CUDA kernel on a card, its plain
     version on the CPU.  packed: pack_vocoder(params, cfg), so that the
-    kernel's launches move no weights (packed per call when omitted)."""
+    kernel's launches move no weights (packed per call when omitted).
+    differentiable: every stage through mrf_stage_ref (plain convolutions
+    that autograd follows) on any device: the route of a training loss, the
+    counterpart of the JAX package's vocoder_backend="folded" there.  The
+    kernel refuses a CUDA call whose weights or input require a gradient."""
     voc = params["vocoder"]
     mel = mel.to(voc["input_conv_w"].dtype)
     x = (mel - voc["mean"]) / voc["scale"]
@@ -72,17 +81,19 @@ def vocode(params: dict, cfg: ZeroVoxConfig, mel: torch.Tensor,
     n_stages = len(cfg.upsample_scales)
     for i, scale in enumerate(cfg.upsample_scales):
         up = voc["upsamples"][i]
-        c = mrf_stage(c.contiguous(), _stage_blocks(voc, cfg, i), cfg.resblock_dilations,
-                      cfg.resblock_kernel_size,
-                      upsample=dict(w=up["w"], stride=scale,
-                                    padding=scale // 2 + scale % 2,
-                                    output_padding=scale % 2),
-                      in_bias=up["b"],
-                      # the input conv applies no activation; every later stage
-                      # already ends in the leaky the next upsample needs
-                      in_leaky=0.1 if i == 0 else None,
-                      out_leaky=0.01 if i == n_stages - 1 else 0.1,
-                      packed=None if packed is None else packed[i])
+        args = (_stage_blocks(voc, cfg, i), cfg.resblock_dilations, cfg.resblock_kernel_size)
+        opts = dict(upsample=dict(w=up["w"], stride=scale, padding=scale // 2 + scale % 2,
+                                  output_padding=scale % 2),
+                    in_bias=up["b"],
+                    # the input conv applies no activation; every later stage
+                    # already ends in the leaky the next upsample needs
+                    in_leaky=0.1 if i == 0 else None,
+                    out_leaky=0.01 if i == n_stages - 1 else 0.1)
+        if differentiable:
+            c = mrf_stage_ref(c, *args, **opts)
+        else:
+            c = mrf_stage(c.contiguous(), *args, **opts,
+                          packed=None if packed is None else packed[i])
 
     c = torch.tanh(conv1d(c, voc["output_conv_w"], voc["output_conv_b"], padding=pad))
     wav_len = mel.shape[1] * cfg.hop_size

@@ -2,9 +2,9 @@
 
 Per-layer Linear Q/K/V, per-head softmax(q k^T / sqrt(d_k)) v, head
 concat, output Linear, residual + LayerNorm.  The scores and the softmax
-are f32 in every dtype; 1/sqrt(d_k) is rounded to the activation dtype
-first and the probabilities are rounded to it before they meet v, as in
-the JAX package.  The reference applies no
+are f32 in every dtype but float64 (f64 there); 1/sqrt(d_k) is rounded to
+the activation dtype first and the probabilities are rounded to it before
+they meet v, as in the JAX package.  The reference applies no
 attention mask over padding; that stays the default, and a masked mode
 (-1e9 on padded keys) sits behind `mask`.
 """
@@ -43,7 +43,8 @@ def multi_head_attention(x: torch.Tensor,
     v = heads(linear(x, p["wv"], p["bv"]))
 
     scale = scalar_as(1.0 / math.sqrt(d_k), x.dtype)
-    attn = matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    attn = matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if mask is not None:
         attn = attn.masked_fill(~mask[:, None, None, :], -1e9)
     attn = torch.exp(attn - attn.amax(dim=-1, keepdim=True))

@@ -26,6 +26,9 @@ path with reduced-precision reductions switched off (once per process, by
 device.resolve_device); for a tensor on the
 CPU the operands are widened to f32 (every product is then exact) and the
 f32 result is rounded, which is the same rule and needs no bf16 CPU kernels.
+
+float64 (the reference that training's gradient checks hold float32
+against) is computed in float64, as float32 is in float32.
 """
 
 from __future__ import annotations
@@ -35,13 +38,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+_OWN_DTYPE = (torch.float32, torch.float64)     # products computed in the operands' dtype
+
 
 def _product(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     """fn(x, w, bias) by the dtype's rule, with x channels-first (B, C, T)
-    and the result too.  float32: one call, bias inside.  Other dtypes: f32
+    and the result too.  float32 / float64: one call, bias inside.  Other dtypes: f32
     accumulation, one rounding to x.dtype, then the bias added in x.dtype
     (operands widened for a CPU tensor)."""
-    if x.dtype == torch.float32:
+    if x.dtype in _OWN_DTYPE:
         return fn(x, w, b)
     if x.device.type == "cpu":
         y = fn(x.to(torch.float32), w.to(torch.float32), None).to(x.dtype)
@@ -66,7 +71,7 @@ def conv1d(x: torch.Tensor,
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w.T + b with w: (out, in)."""
-    if x.dtype == torch.float32:
+    if x.dtype in _OWN_DTYPE:
         return F.linear(x, w, b)
     y = matmul(x, w.t())
     return y if b is None else y + b
@@ -74,7 +79,7 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b by the dtype's rule (see the module docstring)."""
-    if a.dtype == torch.float32 or a.device.type != "cpu":
+    if a.dtype in _OWN_DTYPE or a.device.type != "cpu":
         return torch.matmul(a, b)
     return torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
 

@@ -31,6 +31,13 @@ modes, chosen by the input's dtype:
 
 A bf16 input with f32 weights (or the reverse) raises.
 
+The kernel has no backward (neither has the TPU kernel: the JAX package's
+training takes plain convolutions, zerovox_tpu/training/train.py:101-106).
+With autograd on, a CUDA call whose input or weights require a gradient
+raises (`refuse_autograd`) instead of returning a result detached from the
+graph; training takes `hifigan.vocode(..., differentiable=True)`, which runs
+`mrf_stage_ref`.
+
 The kernel is compiled with nvcc, at its first CUDA call (never at import),
 into build/zerovox_tpu_torch/ at the root of the checkout, as one shared
 library per mode (the same source, -DZV_MRF_BF16=0/1, both compiled at
@@ -123,21 +130,24 @@ def mrf_stage_ref(x: torch.Tensor,
     For bf16 tensors it computes what the kernel's bf16 mode computes (and
     the TPU kernel's dot_bf16), not a bf16 convolution: the chain state is
     f32, only the operands of each product are bf16 values, and the output
-    is rounded once, after 1/n and out_leaky."""
+    is rounded once, after 1/n and out_leaky.  It also takes float64 (the
+    kernel does not): the reference training's gradient checks hold the
+    float32 route against; the chain is then float64."""
     _check_options(upsample, in_leaky)
     dtype = x.dtype
-    _check_dtypes(dtype, blocks, upsample)
-    x = x.to(torch.float32)
+    _check_dtypes(dtype, blocks, upsample, plain=True)
+    chain = torch.float64 if dtype == torch.float64 else torch.float32
+    x = x.to(chain)
     if upsample is not None:
         if in_leaky is not None:
             x = leaky_relu(x, in_leaky)
             if dtype == torch.bfloat16:
                 x = round_bf16(x)
-        x = conv_transpose1d(x, upsample["w"].to(torch.float32), None,
+        x = conv_transpose1d(x, upsample["w"].to(chain), None,
                              stride=upsample["stride"], padding=upsample["padding"],
                              output_padding=upsample["output_padding"])
     if in_bias is not None:
-        x = x + in_bias.to(torch.float32)
+        x = x + in_bias.to(chain)
     acc = None
     for j, blk in enumerate(blocks):
         r = residual_block(x, blk, dilation_sets[j], kernel_size)
@@ -153,9 +163,11 @@ def _check_options(upsample, in_leaky):
         raise ValueError("in_leaky acts on the pre-upsample input; it needs upsample=")
 
 
-def _check_dtypes(dtype, blocks, upsample):
-    """The stage runs in one dtype, float32 or bfloat16: the input's."""
-    if dtype not in (torch.float32, torch.bfloat16):
+def _check_dtypes(dtype, blocks, upsample, plain: bool = False):
+    """The stage runs in one dtype, float32 or bfloat16 (the plain version
+    also float64): the input's."""
+    allowed = (torch.float32, torch.bfloat16) + ((torch.float64,) if plain else ())
+    if dtype not in allowed:
         raise TypeError(f"mrf_stage takes float32 or bfloat16, got {dtype}")
     ws = [c["w"] for blk in blocks for cs in ("convs1", "convs2") for c in blk[cs]]
     if upsample is not None:
@@ -613,6 +625,26 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
 # entry points
 # --------------------------------------------------------------------------
 
+def refuse_autograd(x: torch.Tensor, blocks: Sequence[dict],
+                    upsample: Optional[dict] = None,
+                    in_bias: Optional[torch.Tensor] = None):
+    """Raise RuntimeError if autograd is on and the stage input, a resblock
+    weight or bias, the upsample weight or in_bias requires a gradient: the
+    kernel writes into a fresh tensor with no grad_fn, so its result would
+    silently cut the graph there.  The wrappers call it before they launch."""
+    if not torch.is_grad_enabled():
+        return
+    tensors = [x, in_bias, None if upsample is None else upsample["w"]]
+    tensors += [c[k] for blk in blocks for cs in ("convs1", "convs2")
+                for c in blk[cs] for k in ("w", "b")]
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "mrf_stage: the CUDA kernel has no backward, and a tensor of this stage requires "
+            "a gradient; differentiate through the plain version instead "
+            "(hifigan.vocode(..., differentiable=True), which runs mrf_stage_ref), or call "
+            "under torch.no_grad()")
+
+
 def mrf_stage(x: torch.Tensor,
               blocks: Sequence[dict],
               dilation_sets: Sequence[Sequence[int]],
@@ -644,6 +676,7 @@ def mrf_stage(x: torch.Tensor,
                              upsample=upsample, in_bias=in_bias,
                              in_leaky=in_leaky, out_leaky=out_leaky)
     _check_options(upsample, in_leaky)
+    refuse_autograd(x, blocks, upsample, in_bias)
     y = _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
                 in_leaky, out_leaky, packed)
     _count_launch(mrf_stage)
@@ -662,6 +695,7 @@ def mrf_stage_unfolded(x: torch.Tensor,
     mrf_stage, counted in `mrf_stage_unfolded.launches`."""
     if x.device.type == "cpu":
         return mrf_stage_ref(x, blocks, dilation_sets, kernel_size)
+    refuse_autograd(x, blocks)
     y = _launch(x, blocks, dilation_sets, kernel_size, None, None, None, None, packed)
     _count_launch(mrf_stage_unfolded)
     return y

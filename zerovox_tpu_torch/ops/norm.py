@@ -6,7 +6,9 @@ does.  Moments are f32, variance without Bessel's correction.  A float32
 input takes them in two passes (mean, then the mean of squared deviations:
 no catastrophic cancellation; the parity path); any other dtype (the bf16
 serving path) in one pass, E[x^2] - E[x]^2 clamped at 0, as the JAX
-package does, so that both compute the same thing.
+package does, so that both compute the same thing.  A float64 input (the
+reference that training's gradient checks hold float32 against) takes two
+passes in float64.
 """
 
 from __future__ import annotations
@@ -17,16 +19,16 @@ import torch
 
 
 def _normalize(x: torch.Tensor, dim: int, eps: float) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    if x.dtype != torch.float32:
+    if x.dtype not in (torch.float32, torch.float64):
+        xf = x.to(torch.float32)
         n = x.shape[dim]
         mean = xf.sum(dim=dim, keepdim=True) / n
         var = torch.clamp((xf * xf).sum(dim=dim, keepdim=True) / n - mean * mean, min=0.0)
         return ((xf - mean) * (1.0 / torch.sqrt(var + eps))).to(x.dtype)
-    mean = xf.mean(dim=dim, keepdim=True)
-    centered = xf - mean
+    mean = x.mean(dim=dim, keepdim=True)
+    centered = x - mean
     var = (centered * centered).mean(dim=dim, keepdim=True)
-    return (centered * (1.0 / torch.sqrt(var + eps))).to(x.dtype)
+    return centered * (1.0 / torch.sqrt(var + eps))
 
 
 def _affine(out, gamma, beta):

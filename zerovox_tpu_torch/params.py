@@ -192,13 +192,22 @@ def get_path(tree, path: tuple):
     return node
 
 
-def tree_map(fn, tree):
-    """Apply `fn` to every tensor leaf of a nested dict/list tree."""
+def tree_map(fn, tree, *rest):
+    """Apply `fn` to every tensor leaf of a nested dict/list tree, in
+    tree_leaves order; with `rest`, trees of the same structure, fn also
+    gets their leaves at the same path."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a nested dict/list tree, in tree_map's order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
 
 
 def params_to_device(params: dict, device) -> dict:
