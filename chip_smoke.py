@@ -15,7 +15,10 @@ Phases (any failure exits non-zero and prints no result line):
      every shape a serving process launches: each batch size of the
      engine's ladder (1, 2, 4, 8) at each mel bucket (256, 512, 1024, 1500)
      and every window size of the streaming chunk plan (80, 96 and 44 mel
-     frames: the first chunk, an interior one, the tail); at three of them
+     frames: the first chunk, an interior one, the tail), and in float32
+     phase 9's windows (phase9_shapes: the time-sharded TP windows of 786
+     frames at B = 1, 2, 4, 8 and of 411 at B = 4, the time-parallel
+     vocoder's 76 and 92 at B = 1); at three of them
      (B=1 full length, B=1 and B=8 at bucket 256) and at the windows, time
      every launch with CUDA events next to the plain version and its bounds (f32: f32 FMA and
      3xTF32 tensor cores; bf16: dense bf16 tensor cores); print each
@@ -54,7 +57,7 @@ Phases (any failure exits non-zero and prints no result line):
      does to an answer (the variance adaptor's buckets tapped at B=1 and at
      the ladder's sizes); once, a subprocess
      `python -m zerovox_tpu_torch.cli --serve` answered by the module
-     client and drained by SIGTERM.  Phases 4-7 fail if they launch the
+     client and drained by SIGTERM.  Phases 4-9 fail if they launch the
      kernel at a shape that phase 3 did not hold;
   8. training, in float32 (zerovox_tpu_torch.training): (a) vocode through
      the kernel with weights that require a gradient raises, and
@@ -69,7 +72,31 @@ Phases (any failure exits non-zero and prints no result line):
      validation batch), then again, resuming; the checkpoints' sizes; (e)
      a TTSEngine on its exported GGUF, kernel pipeline against the plain one,
      launched shapes held;
-  9. print the kernels line, then the card line, then {"ok": true, ...}.
+  9. multi-device serving (zerovox_tpu_torch.parallel), on meshes of the
+     one card repeated (and of distinct cards where the machine has them),
+     at production width: make_sharded_synthesize on (4, 1), (2, 2) and
+     (1, 4) in float32 (pure DP also in bfloat16) and the channel-sharded
+     TP fallback on (2, 2); TTSEngine(mesh=(4, 1)) over its whole scaled
+     ladder; TPServingEngine on (2, 2) with a reload; PipelinedTTS with
+     front = back = cuda:0 over 8 utterances; TimeParallelVocoder over 4; a
+     TTSServer on (2, 1) with two concurrent /stream sessions on the
+     rotation and one on (1, 2); each held against the single-device run
+     on the card, its weights packed once (TP: atol 2e-4 / rtol 1e-3, and
+     where float order moved a pitch or energy bucket or a frame count,
+     each move within FLIP_DELTA and the answer at the same gate against
+     the one-device back end continuing the TP front; DP, pipeline,
+     time-parallel: the stream gate; bf16 DP: 2^-7; the daemons in LSB),
+     with its kernel launches, wall (median of 3) and card time and its
+     cost over the single-device run (on one card a regime cannot be
+     faster: its cost is its extra work); FLIP_DELTA's readings: the
+     largest f32 TP prediction gap, and the gap with TF32 products;
+     then a TINY checkpoint served on the card, every stage on the plain
+     route (its widths are not the kernel's);
+ 10. print the kernels line, then the card line, then {"ok": true, ...}.
+
+With --multi-device-only it runs phases 1-3 and 9 and prints no result
+line: the quick way to drive the distinct-card regimes on a machine with
+several cards.
 """
 
 from __future__ import annotations
@@ -121,6 +148,10 @@ PCM_LSB_STREAM = {"float32": 1, "bfloat16": STREAM_ATOL_BF16 * 32767}
 LADDER, BUCKETS = (1, 2, 4, 8), (256, 512, 1024, 1500)
 LOAD_CLIENTS, LOAD_ROUNDS = 8, 10              # closed-loop client threads x requests each
 LATENCY_REQUESTS = 30
+# `python3 chip_smoke.py --multi-device-only`: phases 1-3, then phase 9 alone
+# (on a machine with several cards, its distinct-card regimes), and no
+# result line
+MULTI_DEVICE_ONLY = "--multi-device-only"
 
 
 def log(msg: str):
@@ -291,7 +322,7 @@ def stream_windows(cfg):
     return list(dict.fromkeys(w[1] for w in plan))
 
 
-def check_stages(cfg, params, gen, pk):
+def check_stages(cfg, params, gen, pk, extra=()):
     """Kernel vs plain on the production stages, in the params' dtype;
     returns per-entry records for the kernels line (times and bounds of
     the B=1 full-length shape, the largest error of all shapes), the
@@ -307,8 +338,9 @@ def check_stages(cfg, params, gen, pk):
     stage is less than one wave of clusters.  Held and not timed: every
     other batch size of LADDER at every bucket of BUCKETS (what the
     batcher, /batch, ?split=1 and the warm-ups vocode at: tile_plan depends
-    on B, L and the wave, so each is another launch geometry).  Each launch
-    runs on weights packed beforehand, as the engine packs them."""
+    on B, L and the wave, so each is another launch geometry), and every
+    (B, mel frames) of `extra` (phase 9's windows).  Each launch runs on
+    weights packed beforehand, as the engine packs them."""
     import torch
     from zerovox_tpu_torch.models.hifigan import pack_vocoder
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
@@ -328,22 +360,21 @@ def check_stages(cfg, params, gen, pk):
         raise RuntimeError(f"the last bucket is {BUCKETS[-1]}, max_seq_len {cfg.max_seq_len}")
     timed = [("B=1 full", 1, cfg.max_seq_len), ("B=1 bucket 256", 1, 256),
              ("B=8 bucket 256", 8, 256)] + [(f"B=1 window {w}", 1, w) for w in windows]
-    for B in LADDER:
-        for L0 in BUCKETS:
-            if (B, L0) in {t[1:] for t in timed}:
-                continue
-            worst, clusters = [], []
-            for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, B, L0):
-                got, err, tol = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
-                held.add((x.dtype, tuple(x.shape)))
-                worst.append(err / tol)
-                clusters.append(launch_plan(ms, cfg, x, C, K_up, kw, got.shape[1]))
-                records[name + suffix] = dict(max_abs_err=max(
-                    err, records.get(name + suffix, {}).get("max_abs_err", 0.0)))
-                del got
-            log(f"{tag} B={B} bucket {L0} held against the plain version, stages 1-4: max|d| at "
-                + ", ".join(f"{w:.2f}" for w in worst) + " of the tolerance at max|out|; "
-                + ", ".join(f"{p.clusters} clusters of tile {p.tile}" for p in clusters))
+    for B, L0 in [(B, L0) for B in LADDER for L0 in BUCKETS] + list(extra):
+        if (B, L0) in {t[1:] for t in timed}:
+            continue
+        worst, clusters = [], []
+        for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, B, L0):
+            got, err, tol = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
+            held.add((x.dtype, tuple(x.shape)))
+            worst.append(err / tol)
+            clusters.append(launch_plan(ms, cfg, x, C, K_up, kw, got.shape[1]))
+            records[name + suffix] = dict(max_abs_err=max(
+                err, records.get(name + suffix, {}).get("max_abs_err", 0.0)))
+            del got
+        log(f"{tag} B={B} at {L0} mel frames held against the plain version, stages 1-4: max|d| at "
+            + ", ".join(f"{w:.2f}" for w in worst) + " of the tolerance at max|out|; "
+            + ", ".join(f"{p.clusters} clusters of tile {p.tile}" for p in clusters))
     torch.cuda.empty_cache()
     for shape, B, L0 in timed:
         stages = stage_calls(cfg, params, gen, B, L0)
@@ -1642,6 +1673,625 @@ def training_path(cfg, params, tmp, card, seen, held):
     return served
 
 
+# --------------------------------------------------------------------------
+# phase 9: multi-device serving
+# --------------------------------------------------------------------------
+
+TPV_CHUNK, TPV_OVERLAP = 60, 16                # TimeParallelVocoder's defaults
+TP_TOL = dict(atol=2e-4, rtol=1e-3)            # f32 TP against one device (the JAX tests' gate)
+
+
+def phase9_shapes(cfg):
+    """Every (per-device batch, mel frames) phase 9 vocodes through the
+    kernel beyond LADDER x BUCKETS: the time-sharded TP windows at model 2
+    (every ladder size: the TP engine and daemon) and model 4 (B=4: a
+    (1, 4) mesh over a batch of 4), and the time-parallel vocoder's windows
+    at B=1."""
+    from zerovox_tpu_torch.models.streaming import chunk_plan
+    from zerovox_tpu_torch.parallel.infer import time_shard_geometry
+    w2, w4 = time_shard_geometry(cfg, 2)[2], time_shard_geometry(cfg, 4)[2]
+    tpv = {w[1] for w in chunk_plan(cfg.max_seq_len, -(-cfg.max_seq_len // TPV_CHUNK),
+                                    TPV_CHUNK, TPV_OVERLAP)}
+    return sorted({(b, w2) for b in LADDER} | {(4, w4)} | {(1, w) for w in tpv})
+
+
+def timed_run(fn):
+    """(fn(), host-clock ms, ms between CUDA events on the card's stream)
+    from a synchronised start to a synchronised end."""
+    import torch
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
+
+
+def busy_ms(fn) -> float:
+    """The card's busy time of one fn() call: the device time of every
+    kernel and copy torch.profiler saw (launches from every thread)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    attr = ("self_device_time_total" if hasattr(averages[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    busy = sum(getattr(e, attr) for e in averages if e.device_type == DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return busy
+
+
+TIMED_RUNS = 3          # timed runs of each phase 9 regime and of its one-device run
+
+
+def regime(name, run, single, hold_fn, kernel=True):
+    """Drive `run` once to warm it (cuDNN's plans on the issuing thread),
+    then TIMED_RUNS times, the first with the launch count set to 0 and
+    read just after, each timed on the host clock and between CUDA events;
+    then the single-device `single` the same way; then each once under
+    torch.profiler for the card's busy time.  hold_fn(got, want) checks the
+    first runs' answers and describes.  Reports medians beside every
+    reading; returns the regime's mrf_stage launches."""
+    import torch
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+
+    def one_device():
+        with torch.inference_mode():          # as the serving paths run
+            return single()
+
+    def timed(fn):
+        runs = [timed_run(fn) for _ in range(TIMED_RUNS)]
+        return (runs[0][0], statistics.median(r[1] for r in runs),
+                statistics.median(r[2] for r in runs), [r[1] for r in runs])
+    run()
+    one_device()
+    ms.mrf_stage.launches = ms.mrf_stage_unfolded.launches = 0
+    got, _, _ = timed_run(run)
+    launches, unfolded = ms.mrf_stage.launches, ms.mrf_stage_unfolded.launches
+    _, wall, span, walls = timed(run)
+    want, wall1, span1, walls1 = timed(one_device)
+    detail = hold_fn(got, want)
+    busy, busy1 = busy_ms(run), busy_ms(one_device)
+
+    def ms_list(xs):
+        return ", ".join(f"{x:.2f}" for x in xs)
+    log(f"phase 9 {name}: {launches} mrf_stage launches; wall median {wall:.2f} ms of "
+        f"{TIMED_RUNS} ({ms_list(walls)}; CUDA-event span {span:.2f}), card busy {busy:.2f} ms; "
+        f"the single-device run wall {wall1:.2f} ms ({ms_list(walls1)}; span {span1:.2f}), "
+        f"busy {busy1:.2f} ms: cost x{wall / wall1:.2f} wall, x{busy / busy1:.2f} busy; {detail}")
+    if (launches > 0) != kernel or unfolded:
+        raise RuntimeError(f"phase 9 {name}: {launches} mrf_stage launches, kernel path {kernel}")
+    return launches
+
+
+def one_device_synthesize(model, cfg, src, pun, style, n):
+    """The single-device pipeline on a LoadedModel packed once (the baseline
+    of phase 9's sharded regimes): front, then the vocoder on its packed
+    weights, on the model's device."""
+    import torch
+    from zerovox_tpu_torch.models import hifigan
+    from zerovox_tpu_torch.models.pipeline import compute_dtype, front
+    dev = model.device
+    src, pun, n = (torch.as_tensor(a, device=dev).long() for a in (src, pun, n))
+    style = torch.as_tensor(style, device=dev, dtype=torch.float32).to(compute_dtype(cfg))
+    mel, mel_len, _ = front(model.params, cfg, src, pun, style, n)
+    return hifigan.vocode(model.params, cfg, mel, model.packed), mel, mel_len
+
+
+def hold_arrays(pairs, gate, what):
+    """Each (got, want) float pair within `gate` (np.allclose keywords, or
+    an atol); returns max|d| and whether all are bitwise equal."""
+    import numpy as np
+    worst, bitwise = 0.0, True
+    for got, want in pairs:
+        got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise RuntimeError(f"{what}: {got.shape} against {want.shape}, or not finite")
+        ok = (np.allclose(got, want, **gate) if isinstance(gate, dict)
+              else np.abs(got - want).max(initial=0) <= gate)
+        if not ok:
+            raise RuntimeError(f"{what}: max|d| {np.abs(got - want).max():.3e} beyond {gate}")
+        worst = max(worst, float(np.abs(got - want).max(initial=0)))
+        bitwise &= np.array_equal(got, want)
+    return f"max|d| {worst:.3e} (gate {gate}), bitwise equal: {bitwise}"
+
+
+def variance_of(cfg, front_fn, rows):
+    """Per utterance of the row blocks `rows` ((src, pun, style, lens) on the
+    card), what front_fn(*row) tapped (utils.debug.capture_run): the pitch
+    and energy predictions, the log-durations and the frame counts, as
+    numpy, cut to the utterance's phonemes; and under "front" the tensors a
+    one-device back end and energy predictor need to continue from this
+    front (its encoder output, pitch, features, log-durations, style and
+    phoneme count, on the device that computed them)."""
+    from zerovox_tpu_torch.ops.length_regulator import durations_from_log
+    from zerovox_tpu_torch.utils.debug import capture_run
+    out = []
+    for row in rows:
+        _, taps = capture_run(front_fn, *row)
+        frames = durations_from_log(taps["log_duration"], cfg.max_seq_len)
+        for b, n in enumerate(row[3].tolist()):
+            u = {k: t[b, :n].float().cpu().numpy() for k, t in
+                 (("pitch", taps["pitch"]), ("energy", taps["energy"]), ("frames", frames),
+                  ("log_duration", taps["log_duration"]))}
+            u["front"] = {k: taps[k][b:b + 1] for k in
+                          ("encoder_output", "pitch", "features", "log_duration")}
+            u["front"].update(style=row[2][b:b + 1], num_phonemes=row[3][b:b + 1])
+            out.append(u)
+    return out
+
+
+def energy_after(cfg, model, fr):
+    """The one-device energy predictor on the pitch-updated features of the
+    front `fr` (variance_of's "front"): encode's own steps from that
+    front's encoder output and pitch buckets, so the input is that front's
+    to the bit and only the predictor's sums differ."""
+    from zerovox_tpu_torch.models import fs2_encoder
+    from zerovox_tpu_torch.ops.misc import bucketize
+    enc, dev = model.params["encoder"], model.device
+    x = fr["encoder_output"].to(dev)
+    features = x + fr["style"].to(dev)[:, None, :].to(x.dtype)
+    features = features + enc["pitch_emb"][bucketize(fr["pitch"].to(dev), cfg.ve_n_bins)].to(x.dtype)
+    return fs2_encoder.variance_predictor(features, enc["energy_predictor"], cfg)
+
+
+def back_from(cfg, model, fr):
+    """The one-device length regulator, decoder and vocoder (packed weights)
+    continuing the front `fr`: (mel, wav) of one utterance, as numpy, the
+    full max_seq_len buffer."""
+    import torch
+    from zerovox_tpu_torch.models import hifigan, styletts_decoder
+    from zerovox_tpu_torch.ops import durations_from_log, length_regulate
+    dev = model.device
+    with torch.inference_mode():
+        durations = durations_from_log(fr["log_duration"].to(dev), cfg.max_seq_len)
+        hidden, _ = length_regulate(fr["features"].to(dev), durations, cfg.max_seq_len,
+                                    num_phonemes=fr["num_phonemes"].to(dev))
+        mel = styletts_decoder.decode(model.params, cfg, hidden, fr["style"].to(dev))
+        wav = hifigan.vocode(model.params, cfg, mel, model.packed)
+    return {"mel": mel[0].float().cpu().numpy(), "wav": wav[0].float().cpu().numpy()}
+
+
+# a TP prediction this close to one device's (on the same input to the bit
+# where a pitch bucket moved: energy_after) differs by the order of float
+# sums only; set from phase 9's readings (the largest gap under f32 TP and
+# the TF32 probe's, both printed at the end of the phase; PERF.md)
+FLIP_DELTA = 1e-4
+TP_UTTERANCES = {"same": 0, "moved": 0}     # over every hold_tp of the run
+TP_GAPS = {"pitch": 0.0, "energy": 0.0, "log_duration": 0.0}   # largest f32 TP gaps of the run
+TF32_GAPS = {}                              # the same, for the TF32 probe's front
+
+
+def tp_audit(cfg, model, got, want, gaps=TP_GAPS):
+    """A TP front's variance_of (`got`) against one device's (`want`, on
+    `model`, a LoadedModel): per utterance the pitch or energy buckets and
+    frame counts that moved, [(what, phoneme, one device -> TP, |TP - one
+    device| of the prediction (the log-duration for a frame count))], and
+    for an utterance with a move, the one-device back end continuing the
+    TP front (back_from), which the TP answer is held against.  Where a
+    pitch bucket moved, the energy is held against the one-device
+    predictor on the TP's pitch-updated features (energy_after).  The
+    largest gap per prediction goes to `gaps`.  Returns (moves, anchors)."""
+    import numpy as np
+    import torch
+    from zerovox_tpu_torch.ops.misc import bucketize
+
+    def buckets(v):
+        return bucketize(torch.as_tensor(v), cfg.ve_n_bins).numpy()
+    moves, anchors = [], {}
+    for u, (g, w) in enumerate(zip(got, want)):
+        f = []
+        ref = {"pitch": w["pitch"], "energy": w["energy"], "log_duration": w["log_duration"]}
+        if (buckets(g["pitch"]) != buckets(w["pitch"])).any():
+            with torch.inference_mode():
+                ref["energy"] = energy_after(cfg, model, g["front"])[0, :len(g["energy"])] \
+                    .float().cpu().numpy()
+        for k in ("pitch", "energy"):
+            bg, bw = buckets(g[k]), buckets(w[k])
+            f += [(k, int(p), int(bw[p]), int(bg[p]), abs(float(g[k][p] - ref[k][p])))
+                  for p in np.flatnonzero(bg != bw)]
+        f += [("frames", int(p), int(w["frames"][p]), int(g["frames"][p]),
+               abs(float(g["log_duration"][p] - w["log_duration"][p])))
+              for p in np.flatnonzero(g["frames"] != w["frames"])]
+        for k in gaps:
+            gaps[k] = max(gaps[k], float(np.abs(g[k] - ref[k]).max(initial=0)))
+        if f:
+            anchors[u] = back_from(cfg, model, g["front"])
+        moves.append(f)
+    return moves, anchors
+
+
+def hold_tp(got, want, audit, what, key):
+    """TP answers (per-utterance arrays, `key` "mel" or "wav") against the
+    single device's.  Where no bucket or frame count moved (tp_audit), within
+    the f32 TP gate.  Where one moved, the utterance is another input to the
+    decoder from there on: each move must be float order (its two
+    predictions within FLIP_DELTA), and the answer is held at the same gate
+    against the one-device back end continuing the TP front; its distance
+    from the one-device answer is reported.  The counts go to
+    TP_UTTERANCES."""
+    import numpy as np
+    moves, anchors = audit
+    same, moved = [], []
+    for u, (g, w, f) in enumerate(zip(got, want, moves)):
+        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
+        d = float(np.abs(g - w).max(initial=0)) if g.shape == w.shape else None
+        ref = anchors[u][key][:len(g)] if f else w
+        if (g.shape != ref.shape or not np.isfinite(g).all()
+                or not np.allclose(g, ref, **TP_TOL)):
+            raise RuntimeError(f"{what}: utterance {u} differs from "
+                               + ("the one-device back end on the TP front" if f else
+                                  "one device, every bucket as there")
+                               + f": max|d| {np.abs(g - ref).max() if g.shape == ref.shape else None}"
+                               f" (gate {TP_TOL})")
+        if not f:
+            same.append(d)
+            continue
+        d_back = float(np.abs(g - ref).max(initial=0))
+        log(f"  {what}: utterance {u}: {len(f)} bucket or frame count(s) moved under TP ("
+            + "; ".join(f"{k} of phoneme {p}: {a} -> {b}, predictions {e:.1e} apart"
+                        for k, p, a, b, e in f[:4])
+            + f"{' ...' if len(f) > 4 else ''}); max|d| {d_back:.3e} from the one-device back "
+            f"end on the TP front; "
+            + (f"{d:.3e} from one device" if d is not None else "another length than one device"))
+        unexplained = [x for x in f if x[4] > FLIP_DELTA]
+        if unexplained:
+            raise RuntimeError(f"{what}: utterance {u}: a bucket moved by more than float "
+                               f"order: {unexplained}")
+        moved.append(d_back)
+    TP_UTTERANCES["same"] += len(same)
+    TP_UTTERANCES["moved"] += len(moved)
+    return (f"{len(same)} utterance(s) with every bucket as on one device within {TP_TOL}: "
+            f"max|d| {max(same, default=0.0):.3e}; {len(moved)} with a moved bucket, within "
+            f"it of the one-device back end on the TP front: max|d| {max(moved, default=0.0):.3e}")
+
+
+def tf32_probe(cfg, model, tp_front, rows, want):
+    """The gate's power: the TP front with TF32 products switched on (a fault
+    the port once had: a raced cuDNN TF32 switch) moves the predictions by
+    TF32_GAPS; phase 9 fails unless that is beyond FLIP_DELTA and every
+    f32 TP gap below it."""
+    import torch
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = sum((variance_of(cfg, tp_front[i], [r]) for i, r in enumerate(rows)), [])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    TF32_GAPS.update(pitch=0.0, energy=0.0, log_duration=0.0)
+    tp_audit(cfg, model, got, want, gaps=TF32_GAPS)
+
+
+def sharded_regimes(cfg, params, meshes, precision):
+    """make_sharded_synthesize on each (name, mesh, kwargs), a batch of 4
+    mixed lengths, held against the single-device pipeline (a LoadedModel
+    packed once) on each data row (TP: per utterance, hold_tp); returns
+    the launches."""
+    import numpy as np
+    import torch
+    from zerovox_tpu_torch.models.pipeline import compute_dtype, front, load_model
+    from zerovox_tpu_torch.parallel import make_sharded_synthesize, param_partition_specs
+    from zerovox_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    from zerovox_tpu_torch.parallel.tp import front_tp, tp_view
+    src, pun, style, lens = mixed_batch(cfg, 4, 90)
+    launches = 0
+    for name, mesh, kw in meshes:
+        tp = mesh.shape[MODEL_AXIS] > 1
+        sp, fn = make_sharded_synthesize(cfg, mesh, params, **kw)
+        one = load_model(params, cfg, mesh.devices[0, 0])
+        n = mesh.shape[DATA_AXIS]
+        rows = [tuple(a[j * 4 // n:(j + 1) * 4 // n] for a in (src, pun, style, lens))
+                for j in range(n)]
+        if tp:
+            specs = param_partition_specs(params)
+            views = [tp_view([m.params for m in sp[i]], specs) for i in range(n)]
+
+            def on(dev, r):
+                return tuple(torch.as_tensor(a, device=dev).to(t) for a, t in
+                             zip(r, (torch.long, torch.long, compute_dtype(cfg), torch.long)))
+            # each row's TP front on its row's devices; one device's front where it lies
+            tp_front = [lambda *x, v=v: front_tp(v, cfg, *x) for v in views]
+            tp_rows = [on(mesh.devices[i, 0], r) for i, r in enumerate(rows)]
+            got_v = sum((variance_of(cfg, tp_front[i], [r]) for i, r in enumerate(tp_rows)), [])
+            want_v = variance_of(cfg, lambda *x: front(one.params, cfg, *x),
+                                 [on(one.device, r) for r in rows])
+            audit = tp_audit(cfg, one, got_v, want_v)
+            if not TF32_GAPS:
+                tf32_probe(cfg, one, tp_front, tp_rows, want_v)
+
+            def hold_fn(got, want, audit=audit, name=name):
+                wav = [w[0][b].float().cpu().numpy() for w in want for b in range(len(w[0]))]
+                mel = [w[1][b].float().cpu().numpy() for w in want for b in range(len(w[1]))]
+                return ("mel: " + hold_tp(got.mel.float().cpu().numpy(), mel, audit,
+                                          name + " mel", "mel")
+                        + "; wav: " + hold_tp(got.wav.float().cpu().numpy(), wav, audit,
+                                               name + " wav", "wav"))
+        else:
+            gate = WAV_ATOL_BF16 if precision == "bfloat16" else STREAM_TOL
+
+            def hold_fn(got, want, gate=gate, name=name):
+                if not np.array_equal(got.mel_len.cpu().numpy(),
+                                      torch.cat([w[2] for w in want]).cpu().numpy()):
+                    raise RuntimeError(f"{name}: mel_len differs from the single-device run")
+                return ("mel " + hold_arrays([(got.mel.float().cpu(), torch.cat(
+                    [w[1] for w in want]).float().cpu())], gate, name)
+                    + "; wav " + hold_arrays([(got.wav.float().cpu(), torch.cat(
+                        [w[0] for w in want]).float().cpu())], gate, name))
+        launches += regime(
+            f"{precision} make_sharded_synthesize {name} (mesh {mesh.shape}, batch 4)",
+            lambda: fn(sp, src, pun, style, lens),
+            lambda: [one_device_synthesize(one, cfg, *r) for r in rows],
+            hold_fn,
+            kernel=kw.get("time_shard_vocoder", True) is not False)
+        del sp, fn, one
+        torch.cuda.empty_cache()
+    return launches
+
+
+def tp_engine_audit(cfg, model, engine, batch):
+    """tp_audit of a TPServingEngine's front against one device's (on
+    `model`, a LoadedModel) for `batch`, on the rows the engine runs it in
+    (ladder-padded, split over the data axis)."""
+    import numpy as np
+    import torch
+    from zerovox_tpu_torch.models.pipeline import front
+    from zerovox_tpu_torch.parallel import param_partition_specs
+    from zerovox_tpu_torch.parallel.mesh import DATA_AXIS
+    from zerovox_tpu_torch.parallel.tp import front_tp, tp_view
+    n = engine.mesh.shape[DATA_AXIS]
+    specs = param_partition_specs(model.params)
+    got, want = [], []
+    for padded, real in engine._ladder_chunks(range(len(batch[0]))):
+        # the ladder-padded rows (the first `real` are the request's), split
+        # over the data axis as the engine splits them
+        for i, pos in enumerate(np.array_split(np.arange(len(padded)), n)):
+            idx = np.asarray(padded)[pos]
+
+            def row(dev):
+                return [tuple(torch.as_tensor(a[idx], device=dev).to(t) for a, t in
+                              zip(batch, (torch.long, torch.long, torch.float32, torch.long)))]
+            view = tp_view([m.params for m in engine.params[i]], specs)
+            g = variance_of(cfg, lambda *r: front_tp(view, cfg, *r),
+                            row(engine.params[i, 0].device))
+            w = variance_of(cfg, lambda *r: front(model.params, cfg, *r), row(model.device))
+            got += [g[j] for j, p in enumerate(pos) if p < real]
+            want += [w[j] for j, p in enumerate(pos) if p < real]
+    return tp_audit(cfg, model, got, want)
+
+
+def multi_device_path(cfg, params, params16, tiny_model, seen, held):
+    """Phase 9: every multi-device regime on meshes of the card repeated
+    (and of distinct cards where the machine has them), each held against
+    the single-device run on the card; returns (f32, bf16) launches."""
+    import numpy as np
+    import torch
+    from zerovox_tpu_torch.models import hifigan
+    from zerovox_tpu_torch.models.pipeline import synthesize
+    from zerovox_tpu_torch.models.streaming import chunk_plan
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    from zerovox_tpu_torch.params import init_params, load_params, vocoder_stage_channels
+    from zerovox_tpu_torch.parallel import PipelinedTTS, TimeParallelVocoder, make_mesh
+    from zerovox_tpu_torch.runtime.client import TTSClient
+    from zerovox_tpu_torch.runtime.engine import TTSEngine
+    from zerovox_tpu_torch.runtime.server import TTSServer
+    from zerovox_tpu_torch.runtime.tp_engine import TPServingEngine
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+
+    def mesh(d, m, distinct=False):
+        devs = ([torch.device("cuda", i) for i in range(d * m)] if distinct
+                else [card] * (d * m))
+        return make_mesh(data=d, model=m, devices=devs)
+
+    shapes = [("DP (4,1)", (4, 1), {}), ("TP (2,2) time-sharded", (2, 2), {}),
+              ("TP (1,4) time-sharded", (1, 4), {}),
+              ("TP (2,2) channel-sharded", (2, 2), dict(time_shard_vocoder=False))]
+    meshes = [(n, mesh(*dm), kw) for n, dm, kw in shapes]
+    meshes += [(n + " on distinct cards", mesh(*dm, distinct=True), kw)
+               for n, dm, kw in shapes if dm[0] * dm[1] <= n_cards > 1]
+    f32 = sharded_regimes(cfg, params, meshes, "float32")
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    bf16 = sharded_regimes(cfg16, params16, [("DP (4,1)", mesh(4, 1), {})], "bfloat16")
+
+    # the DP serving engine over its whole scaled ladder, against the one-device engine
+    single = TTSEngine(params, cfg)
+    dp = TTSEngine(params, cfg, mesh=mesh(4, 1))
+    if dp.batch_ladder != tuple(4 * b for b in LADDER):
+        raise RuntimeError(f"DP engine ladder {dp.batch_ladder}")
+    t0 = time.perf_counter()
+    dp.warmup(batch=dp.batch_ladder[-1])
+    log(f"phase 9 TTSEngine(mesh=(4,1)) warm-up over ladder {dp.batch_ladder} x buckets "
+        f"{dp.mel_buckets}: {time.perf_counter() - t0:.2f} s")
+    for rung in dp.batch_ladder:
+        batch = mixed_batch(cfg, rung, 100 + rung)
+        f32 += regime(f"float32 TTSEngine(mesh=(4,1)).synthesize_packed B={rung}",
+                      lambda: dp.synthesize_packed(*batch), lambda: single.synthesize_packed(*batch),
+                      lambda got, want: hold_arrays(zip(got[0], want[0]), STREAM_TOL,
+                                                    f"DP engine B={rung}"))
+    del dp
+
+    # the TP serving engine on (2, 2), with a reload
+    tpe = TPServingEngine(params, cfg, mesh(2, 2))
+    t0 = time.perf_counter()
+    tpe.warmup(batch=tpe.batch_ladder[-1])
+    log(f"phase 9 TPServingEngine((2,2)) warm-up over ladder {tpe.batch_ladder}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for B in (1, 3):
+        batch = mixed_batch(cfg, B, 110 + B)
+        audit = tp_engine_audit(cfg, single.model, tpe, batch)
+        f32 += regime(f"float32 TPServingEngine((2,2)).synthesize B={B}",
+                      lambda: tpe.synthesize(*batch), lambda: single.synthesize(*batch),
+                      lambda got, want: hold_tp(got[0], want[0], audit, f"TP engine B={B}",
+                                                "wav"))
+    other = init_params(cfg, seed=1, device="cuda")
+    tpe.reload_params(other)
+    single.reload_params(other)
+    batch = mixed_batch(cfg, 2, 120)
+    audit = tp_engine_audit(cfg, single.model, tpe, batch)
+    f32 += regime("float32 TPServingEngine((2,2)) after reload_params, B=2",
+                  lambda: tpe.synthesize(*batch), lambda: single.synthesize(*batch),
+                  lambda got, want: hold_tp(got[0], want[0], audit, "TP engine after reload",
+                                            "wav"))
+    single.reload_params(params)
+    del tpe, other
+
+    # the two-stage pipeline, front and back on the one card
+    utts = [tuple(a[i:i + 1] for a in mixed_batch(cfg, 8, 130)) for i in range(8)]
+    pipe = PipelinedTTS(params, cfg, front_device=card, back_device=card, max_in_flight=4)
+    pipe.warmup()
+    f32 += regime("float32 PipelinedTTS (front = back = cuda:0), 8 utterances, max_in_flight 4",
+                  lambda: pipe.run(utts),
+                  lambda: [one_device_synthesize(single.model, cfg, *u) for u in utts],
+                  lambda got, want: hold_arrays([(g[0], w[0].cpu()) for g, w in zip(got, want)],
+                                                STREAM_TOL, "pipeline"))
+    del pipe
+
+    # the time-parallel vocoder over 4, on a full-length request's mel
+    src, pun, style, lens = mixed_batch(cfg, 1, 140)
+    mel = synthesize(params, cfg, src, pun, style, lens).mel
+    tpv = TimeParallelVocoder(params, cfg, devices=[card] * 4, chunk_frames=TPV_CHUNK,
+                              overlap=TPV_OVERLAP)
+    tpv.warmup()
+    windows = sorted({w[1] for w in chunk_plan(cfg.max_seq_len, -(-cfg.max_seq_len // TPV_CHUNK),
+                                               TPV_CHUNK, TPV_OVERLAP)})
+    f32 += regime(f"float32 TimeParallelVocoder over 4 (windows {windows}), 1500 frames",
+                  lambda: tpv.vocode(mel),
+                  lambda: hifigan.vocode(params, cfg, mel, single.vocoder_packed).cpu().numpy(),
+                  lambda got, want: hold_arrays([(got, want)], STREAM_TOL, "time-parallel"))
+    del tpv
+
+    if n_cards > 1:    # the same regimes on distinct cards, where the machine has them
+        cards = [torch.device("cuda", i) for i in range(min(4, n_cards))]
+        tpv = TimeParallelVocoder(params, cfg, devices=cards, chunk_frames=TPV_CHUNK,
+                                  overlap=TPV_OVERLAP)
+        tpv.warmup()
+        f32 += regime(f"float32 TimeParallelVocoder over {len(cards)} distinct cards",
+                      lambda: tpv.vocode(mel),
+                      lambda: hifigan.vocode(params, cfg, mel, single.vocoder_packed).cpu().numpy(),
+                      lambda got, want: hold_arrays([(got, want)], STREAM_TOL, "time-parallel"))
+        pipe = PipelinedTTS(params, cfg, front_device=cards[0], back_device=cards[1],
+                            max_in_flight=4)
+        pipe.warmup()
+        f32 += regime("float32 PipelinedTTS (front cuda:0, back cuda:1), 8 utterances",
+                      lambda: pipe.run(utts),
+                      lambda: [one_device_synthesize(single.model, cfg, *u) for u in utts],
+                      lambda got, want: hold_arrays([(g[0], w[0].cpu()) for g, w in
+                                                     zip(got, want)], STREAM_TOL, "pipeline"))
+        dp = TTSEngine(params, cfg, mesh=mesh(len(cards), 1, distinct=True))
+        dp.warmup(batch=dp.batch_ladder[-1])
+        batch = mixed_batch(cfg, 8 * len(cards), 170)
+        f32 += regime(f"float32 TTSEngine(mesh=({len(cards)},1) distinct cards)."
+                      f"synthesize_packed B={8 * len(cards)}",
+                      lambda: dp.synthesize_packed(*batch),
+                      lambda: single.synthesize_packed(*batch),
+                      lambda got, want: hold_arrays(zip(got[0], want[0]), STREAM_TOL,
+                                                    "DP engine on distinct cards"))
+        del tpv, pipe, dp
+
+    # daemons: (2, 1) with two concurrent /stream sessions on the rotation; (1, 2)
+    src, pun, style, lens = mixed_batch(cfg, 1, 150)          # one full-length utterance
+    request = (src[0], style[0], pun[0])
+    want, _ = single.synthesize(src, pun, style, lens, pcm16=True)
+    for d, m, distinct in ((2, 1, False), (1, 2, False)) + (((2, 1, True),) if n_cards > 1 else ()):
+        t0 = time.perf_counter()
+        ms.mrf_stage.launches = 0
+        server = TTSServer(params, cfg, port=0, mesh=mesh(d, m, distinct))
+        up = time.perf_counter() - t0
+        sessions = []
+        rotate = server.stream.session_device
+        server.stream.session_device = lambda device=None: sessions.append(rotate(device)) \
+            or sessions[-1]
+        server.start()
+        try:
+            client = TTSClient(*server.address, timeout=120)
+            t0 = time.perf_counter()
+            answer, _ = client.synthesize(*request)
+            wall = 1e3 * (time.perf_counter() - t0)
+            streams = in_threads(lambda i: np.concatenate(list(client.stream(*request))), 2)
+            launches = ms.mrf_stage.launches         # the daemon's, its warm-up included
+            if m > 1:          # TP: the daemon against its engine, the engine against one device
+                direct, _ = server.engine.synthesize(src, pun, style, lens, pcm16=True)
+                d_syn = hold(answer, direct[0], PCM_LSB["float32"], f"({d},{m}) daemon")
+                audit = tp_engine_audit(cfg, single.model, server.engine,
+                                        (src, pun, style, lens))
+                log("phase 9 " + hold_tp([server.engine.synthesize(src, pun, style, lens)[0][0]],
+                                         [single.synthesize(src, pun, style, lens)[0][0]], audit,
+                                         f"({d},{m}) TP daemon's engine", "wav"))
+            else:
+                d_syn = hold(answer, want[0], PCM_LSB["float32"], f"({d},{m}) /synthesize")
+            # /stream runs the one-device path on the mesh's first device (TP too)
+            single_answer = want[0] if m > 1 else answer
+            d_str = max(hold(s_[:len(single_answer)], single_answer, PCM_LSB_STREAM["float32"],
+                             f"({d},{m}) /stream") for s_ in streams)
+        finally:
+            server.shutdown()
+        f32 += launches
+        log(f"phase 9 float32 TTSServer(mesh=({d},{m}){' distinct cards' if distinct else ''}) "
+            f"({type(server.engine).__name__}): up in "
+            f"{up:.2f} s (warm-up included), /synthesize {wall:.2f} ms host clock, {d_syn} LSB "
+            f"from the engine; two concurrent /stream sessions on devices "
+            f"{[str(x) for x in sessions]} (rotation over {server.stream.devices}), {d_str} LSB "
+            f"from {'the one-device engine' if m > 1 else '/synthesize'}; {launches} mrf_stage "
+            f"launches (warm-up included)")
+        if launches == 0 or (m == 1 and len(sessions) != 2):
+            raise RuntimeError(f"({d},{m}) daemon: {launches} launches, sessions {sessions}")
+    del single
+
+    # the repair: a TINY checkpoint served on the card takes the plain route for every stage
+    tcfg, tparams_ = load_params(tiny_model, device="cuda")
+    if any(hifigan.stage_routes(tparams_, tcfg)):
+        raise RuntimeError("a TINY stage is routed to the kernel")
+    tsrc, tpun, tstyle, tlens = mixed_batch(tcfg, 2, 160)
+    ms.mrf_stage.launches = 0
+    tiny = TTSServer(tparams_, tcfg, port=0)
+    tiny.start()
+    try:
+        tclient = TTSClient(*tiny.address, timeout=120)
+        answer, _ = tclient.synthesize(tsrc[0], tstyle[0], tpun[0])
+        streamed = np.concatenate(list(tclient.stream(tsrc[0], tstyle[0], tpun[0])))
+        wavs, mel_len = tiny.engine.synthesize(tsrc, tpun, tstyle, tlens)
+    finally:
+        tiny.shutdown()
+    tiny_launches = ms.mrf_stage.launches
+    with plain_vocoder():
+        ref = synthesize(tiny.engine.params, tcfg, tsrc, tpun, tstyle, tlens)
+    detail = hold_arrays([(w, r[:len(w)].cpu()) for w, r in zip(wavs, ref.wav)], PIPELINE_WAV_ATOL,
+                         "TINY engine against the plain pipeline")
+    d_str = hold(streamed[:len(answer)], answer, PCM_LSB_STREAM["float32"], "TINY /stream")
+    log(f"phase 9 TINY checkpoint on the card (stage widths "
+        f"{[c for _, c in vocoder_stage_channels(tcfg)]}, all on the plain route): TTSServer warm-up, /synthesize and /stream ({d_str} LSB "
+        f"apart), engine B=2 mel_len {mel_len.tolist()} against the plain pipeline: {detail}; "
+        f"{tiny_launches} mrf_stage launches")
+    if tiny_launches:
+        raise RuntimeError(f"the TINY server launched the kernel {tiny_launches} times")
+
+    def gaps(g):
+        return ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+    log(f"phase 9 TP against one device, float32: {TP_UTTERANCES['same']} utterance "
+        f"answers with every pitch and energy bucket and frame count as on one device, "
+        f"{TP_UTTERANCES['moved']} with one moved by float order (reported above); the "
+        f"largest prediction gaps under f32 TP: {gaps(TP_GAPS)}; with TF32 products (the "
+        f"probe): {gaps(TF32_GAPS)}; FLIP_DELTA {FLIP_DELTA:.0e}")
+    if not TP_UTTERANCES["same"]:
+        raise RuntimeError("phase 9: a bucket moved under TP in every utterance")
+    if not max(TP_GAPS.values()) < FLIP_DELTA < max(TF32_GAPS.values()):
+        raise RuntimeError("phase 9: FLIP_DELTA does not lie between the f32 TP gaps and the "
+                           "TF32 probe's")
+    hold_launched_shapes(seen, held, "phase 9")
+    log(f"phase 9 (multi-device serving) {time.perf_counter() - t_phase:.1f} s: mrf_stage "
+        f"launches f32 {f32}, bf16 {bf16}")
+    return f32, bf16
+
+
 def run() -> int:
     try:
         import torch
@@ -1687,10 +2337,20 @@ def run() -> int:
     params16 = cast_params(params, torch.bfloat16)
     log(f"production params (seed 0) on the card in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    records, packs, held, shapes = check_stages(cfg, params, gen, pk)
+    records, packs, held, shapes = check_stages(cfg, params, gen, pk, extra=phase9_shapes(cfg))
     records16, _, _, shapes16 = check_stages(cfg, params16, gen, pk)
     records.update(records16)
     shapes |= shapes16
+    if MULTI_DEVICE_ONLY in sys.argv[1:]:
+        seen = record_launch_shapes()
+        with tempfile.TemporaryDirectory() as tmp:
+            tiny_model = os.path.join(tmp, "tiny.gguf")
+            save_params(tiny_model, init_params(TINY_CONFIG, seed=0, device="cuda"), TINY_CONFIG)
+            log(f"phase 9 alone ({MULTI_DEVICE_ONLY}), {torch.cuda.device_count()} card(s)")
+            multi_device_path(cfg, params, params16, tiny_model, seen, shapes)
+        log(f"{MULTI_DEVICE_ONLY}: phases 1-3 and 9 passed in "
+            f"{time.perf_counter() - t_start:.1f} s; no result line (phases 4-8 did not run)")
+        return 0
     time_variants(cfg, params, gen, packs)
     seen = record_launch_shapes()
 
@@ -1722,6 +2382,10 @@ def run() -> int:
             hold_launched_shapes(seen, shapes, f"{precision} phases 4-7")
         log("phase 8: training on the card, float32")
         launches["mrf_stage"] += training_path(cfg, params, tmp, card, seen, shapes)
+        log("phase 9: multi-device serving on meshes of the card repeated")
+        f32, bf16 = multi_device_path(cfg, params, params16, tiny_model, seen, shapes)
+        launches["mrf_stage"] += f32
+        launches["mrf_stage_bf16"] += bf16
 
     replaces = {"mrf_stage": "zerovox_tpu/ops/pallas/folded_mrf.py:446",
                 "mrf_stage_unfolded": "zerovox_tpu/ops/pallas/folded_mrf.py:720"}
@@ -1736,8 +2400,9 @@ def run() -> int:
         "tensor-core bound of the mode: f32 max(3 FLOPs / TF32 rate, bytes / HBM rate), "
         "bf16 max(FLOPs / bf16 rate, bytes / HBM rate); launches are those of the mode's "
         "main path (CLI, engine requests), its streams and its daemon phase (the daemons and "
-        "the engines they are held against), each counted from 0, and for float32 those of "
-        "phase 8's engine on the trained export")
+        "the engines they are held against), each counted from 0, for float32 those of "
+        "phase 8's engine on the trained export, and those of phase 9's regimes (each counted "
+        "from 0 just before its timed run and read just after; the daemons' with their warm-ups)")
     log("e2e: " + "; ".join(f"{p} B=1 wall {w[1]:.2f} ms, B=8 wall {w[8]:.2f} ms"
                             for p, w in walls.items())
         + f"; smoke total {time.perf_counter() - t_start:.1f} s")

@@ -28,7 +28,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 41, mods
+assert len(mods) >= 50, mods
 """
 
 
@@ -77,6 +77,22 @@ def test_entry_points_default_to_cuda():
         make_train_step(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--synthetic", "2", "--tiny", "--batch-size", "2"])
+    from zerovox_tpu_torch import parallel
+    from zerovox_tpu_torch.runtime.tp_engine import TPServingEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.make_mesh(data=1, model=2, devices=["cuda", "cuda"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.make_sharded_synthesize(cfg, parallel.make_mesh(), params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.TimeParallelVocoder(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.PipelinedTTS(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TPServingEngine(params, cfg, parallel.make_mesh(model=2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--model", "unused.gguf", "--serve", "--port", "0", "--mesh", "2,1"])
     # the daemon binds its socket first, then raises and gives the port back
     probe = socket.socket()
     probe.bind(("127.0.0.1", 0))

@@ -573,3 +573,138 @@ def test_launch_counts_survive_concurrent_threads(monkeypatch):
     finally:
         sys.setswitchinterval(old)
     assert ms.mrf_stage.launches == 16000
+
+
+# --------------------------------------------------------------------------
+# the repair: each vocoder stage routed by what the kernel takes
+# --------------------------------------------------------------------------
+
+def _meta_vocoder(cfg, dtype=torch.float32):
+    """The vocoder's tree at cfg's widths as meta tensors (shapes and dtype
+    only, nothing computed or built)."""
+    def t(*shape):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+    n_rb = cfg.num_resblocks
+    stages = tparams.vocoder_stage_channels(cfg)
+    blocks = [{cs: [{"w": t(co, co, cfg.resblock_kernel_size), "b": t(co)}
+                    for _ in cfg.resblock_dilations[j]] for cs in ("convs1", "convs2")}
+              for _, co in stages for j in range(n_rb)]
+    return {"vocoder": {
+        "mean": t(cfg.num_mels), "scale": t(cfg.num_mels),
+        "input_conv_w": t(cfg.hifigan_channels, cfg.num_mels, cfg.hifigan_kernel_size),
+        "input_conv_b": t(cfg.hifigan_channels),
+        "upsamples": [{"w": t(co, ci, k), "b": t(co)}
+                      for (ci, co), k in zip(stages, cfg.upsample_kernel_sizes)],
+        "blocks": blocks,
+        "output_conv_w": t(1, stages[-1][1], cfg.hifigan_kernel_size),
+        "output_conv_b": t(1)}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocoder_stage_routes(dtype):
+    """Every stage of TINY_CONFIG (C = 16, 8, 4) takes the plain route,
+    every production stage (C = 256, 128, 64, 32) the kernel, in both
+    modes; the kernel's own plan refuses the TINY widths."""
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.models import hifigan
+    prod = ZeroVoxConfig()
+    assert hifigan.stage_routes(_meta_vocoder(TINY_CONFIG, dtype), TINY_CONFIG) == [False] * 3
+    assert hifigan.stage_routes(_meta_vocoder(prod, dtype), prod) == [True] * 4
+    for C in (16, 8, 4):
+        with pytest.raises(ValueError):
+            ms.tile_plan(C, DILS, K, elem=dtype.itemsize)
+
+
+@pytest.mark.parametrize("C", [384, 96, 1024, 16, 8, 4])
+def test_kernel_takes_refuses(C):
+    """Widths the kernel's warp grid has no instance for: refused in both
+    modes (warp_grid raises for them), as are an even kernel size, more than
+    8 resblocks or dilations, and an upsample input of a width that is not
+    16-byte groups; production's stages are taken."""
+    with pytest.raises(ValueError):
+        ms.warp_grid(C)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert not ms.kernel_takes(C, PROD_DILS, 3, dtype=dtype)
+        assert ms.kernel_takes(256, PROD_DILS, 3, 512, 10, 5, dtype=dtype)
+    assert not ms.kernel_takes(256, PROD_DILS, 4)
+    assert not ms.kernel_takes(256, ((1,),) * 9, 3)
+    assert not ms.kernel_takes(256, ((1,) * 9,), 3)
+    assert not ms.kernel_takes(256, PROD_DILS, 3, 510, 10, 5)
+    assert not ms.kernel_takes(256, PROD_DILS, 3, dtype=torch.float64)
+
+
+def test_mrf_stage_still_raises_at_an_untaken_geometry(weights):
+    """The route is the vocoder's choice: a tensor that is not on the CPU
+    (meta here, a card there) reaching mrf_stage at TINY's width still goes
+    to the kernel's checks and raises, with no silent plain fallback."""
+    _, blocks = weights
+    meta = [{cs: [{k: v.to("meta") for k, v in c.items()} for c in b[cs]]
+             for cs in ("convs1", "convs2")} for b in blocks]
+    x = torch.zeros(1, 12, 16, device="meta")
+    with torch.no_grad(), pytest.raises(ValueError, match="C in 32/64/128/256/512"):
+        ms.mrf_stage(x, meta, DILS, K)
+    with torch.no_grad(), pytest.raises(ValueError, match="C in 32/64/128/256/512"):
+        ms.mrf_stage_unfolded(x, meta, DILS, K)
+
+
+def _card(calls):
+    """A stand-in for mrf_stage on a card: refuses what _launch would (the
+    tile plan of the stage's geometry), records the stage width of every
+    call it takes, and computes with the plain version."""
+    def stage(x, blocks, dilation_sets, kernel_size, upsample=None, packed=None, **kw):
+        C = blocks[0]["convs1"][0]["w"].shape[0]
+        up = (x.shape[2], upsample["w"].shape[2], upsample["stride"]) if upsample else ()
+        ms.tile_plan(C, dilation_sets[:len(blocks)], kernel_size, *up,
+                     elem=x.dtype.itemsize)
+        calls.append(C)
+        return ms.mrf_stage_ref(x, blocks, dilation_sets, kernel_size, upsample=upsample, **kw)
+    return stage
+
+
+def test_tiny_engine_on_a_card_takes_the_plain_route(rng, monkeypatch):
+    """A TINY engine with the kernel's wrapper replaced by a card's (which
+    raises for a width it does not take): warm-up and requests run every
+    stage through mrf_stage_ref and never reach the kernel, and answer what
+    the unpatched engine answers.  With every stage forced onto the kernel
+    (the port before the repair), the first vocode raises."""
+    from zerovox_tpu_torch.models import hifigan
+    from zerovox_tpu_torch.runtime.engine import TTSEngine
+    params = tparams.init_params(TINY_CONFIG, seed=0, device="cpu")
+    P = TINY_CONFIG.max_n_phonemes
+    src = rng.integers(1, TINY_CONFIG.num_phonemes, size=(2, P))
+    pun = rng.integers(0, TINY_CONFIG.num_puncts, size=(2, P))
+    style = rng.normal(scale=0.1, size=(2, TINY_CONFIG.d_model)).astype(np.float32)
+    want = TTSEngine(params, TINY_CONFIG, device="cpu").synthesize(src, pun, style, trim=False)
+    kernel, plain = [], []
+    monkeypatch.setattr(hifigan, "mrf_stage", _card(kernel))
+    ref = hifigan.mrf_stage_ref
+    monkeypatch.setattr(hifigan, "mrf_stage_ref",
+                        lambda x, b, *a, **kw: plain.append(b[0]["convs1"][0]["w"].shape[0])
+                        or ref(x, b, *a, **kw))
+    engine = TTSEngine(params, TINY_CONFIG, mel_buckets=(16, 32), device="cpu")
+    engine.warmup(batch=2)
+    got = engine.synthesize(src, pun, style, trim=False)
+    assert kernel == [] and set(plain) == {16, 8, 4}
+    assert len(plain) == 3 * (2 * len(engine.mel_buckets) + 1)
+    for a, b in zip(got[0], want[0]):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setattr(hifigan, "stage_routes", lambda p, cfg: [True] * 3)
+    with pytest.raises(ValueError, match="C in 32/64/128/256/512"):
+        engine.synthesize(src, pun, style)
+
+
+def test_production_vocoder_on_a_card_takes_the_kernel(monkeypatch):
+    """At production widths (meta tensors: shapes only) every stage goes to
+    the kernel's wrapper, in both modes, and none to the plain version."""
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.models import hifigan
+    prod = ZeroVoxConfig()
+    for dtype in (torch.float32, torch.bfloat16):
+        kernel = []
+        monkeypatch.setattr(hifigan, "mrf_stage", _card(kernel))
+        monkeypatch.setattr(hifigan, "mrf_stage_ref", None)     # never called
+        mel = torch.empty(2, 16, prod.num_mels, device="meta", dtype=dtype)
+        with torch.no_grad():
+            wav = hifigan.vocode(_meta_vocoder(prod, dtype), prod, mel)
+        assert kernel == [256, 128, 64, 32] and wav.shape == (2, 16 * prod.hop_size)
+        monkeypatch.undo()

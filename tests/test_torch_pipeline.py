@@ -294,7 +294,7 @@ def test_cli_input_file_and_unported_flags(tmp_path, rng, model):
                       "--device", "cpu", "--precision", "bfloat16"]) == 0
     w16 = read_wav(out16)[0]
     assert len(w16) > 0 and np.isfinite(w16).all()
-    for flag in ("--verify", "--mesh=2,1", "--compile-cache=/tmp/x"):
+    for flag in ("--verify", "--compile-cache=/tmp/x"):
         with pytest.raises(SystemExit, match="not yet ported"):
             tcli.main(["--model", ckpt, "--demo", "--device", "cpu", flag])
     with pytest.raises(ValueError, match="max_n_phonemes"):
@@ -312,7 +312,7 @@ def test_wav_roundtrip(tmp_path, rng):
 
 def test_serving_threads_issue_one_at_a_time(rng, model, monkeypatch):
     """The engine and the streaming synthesizer issue every front and every
-    vocoder call on the process's one issuing thread (device.on_issuing_thread): with 4
+    vocoder call on their device's one issuing thread (device.on_issuing_thread): with 4
     threads on each at once, pipeline.front and hifigan.vocode only ever run
     on that thread, never two at a time, and every result is the
     single-threaded one.  A debug capture around an engine call still sees
@@ -367,12 +367,18 @@ def test_serving_threads_issue_one_at_a_time(rng, model, monkeypatch):
         t.join(timeout=120)
         assert not t.is_alive()
     assert not errors and worst[0] == 1, (errors, worst)
-    assert where == {on_issuing_thread(threading.get_ident)} and threading.get_ident() not in where
-    assert on_issuing_thread(on_issuing_thread, threading.get_ident) == on_issuing_thread(threading.get_ident)   # inline from there
+    cpu = torch.device("cpu")
+    issuer = on_issuing_thread(cpu, threading.get_ident)
+    assert where == {issuer} and threading.get_ident() not in where
+    assert on_issuing_thread(cpu, on_issuing_thread, cpu, threading.get_ident) == issuer   # inline from there
+    # one thread per device: another device has its own, reached from this one too
+    other = on_issuing_thread(torch.device("meta"), threading.get_ident)
+    assert other not in (issuer, threading.get_ident())
+    assert on_issuing_thread(cpu, on_issuing_thread, "meta", threading.get_ident) == other
     for i, r in enumerate(results):
         np.testing.assert_array_equal(r, want if i % 2 else want_stream)
     with pytest.raises(ZeroDivisionError):      # the caller gets the exception
-        on_issuing_thread(lambda: 1 / 0)
+        on_issuing_thread(cpu, lambda: 1 / 0)
     (wavs, _), taps = capture_run(engine.synthesize, src, pun, sty, n, trim=False)
     assert {"encoder_output", "mel", "wav"} <= set(taps)
     np.testing.assert_array_equal(taps["wav"].numpy()[0], wavs[0])

@@ -24,6 +24,7 @@ from zerovox_tpu.models import styletts_decoder as j_dec
 import zerovox_tpu_torch.params as tparams
 from zerovox_tpu_torch.config import TINY_CONFIG, ZeroVoxConfig
 from zerovox_tpu_torch.models import fs2_encoder, hifigan, styletts_decoder
+from zerovox_tpu_torch.ops.cuda.mrf_stage import pack_stage
 
 
 def _pair(jcfg, tcfg, seed=0):
@@ -232,5 +233,10 @@ def test_vocode_bf16(rng, tiny16, backend, ulps):
     got = hifigan.vocode(pt, TINY_CONFIG.replace(compute_dtype="bfloat16"), _t16(mel))
     assert got.shape == (2, 40 * TINY_CONFIG.hop_size)
     assert _ulps_of_scale(got, ref) <= ulps
-    packed = hifigan.pack_vocoder(pt, TINY_CONFIG)
-    assert packed[0].w.dtype == torch.bfloat16 and packed[0].b.dtype == torch.float32
+    # TINY's stages take the plain route (their widths are not the kernel's),
+    # so pack_vocoder packs none of them; the layout of a bf16 stage as such
+    assert hifigan.pack_vocoder(pt, TINY_CONFIG) == [None] * len(TINY_CONFIG.upsample_scales)
+    n = TINY_CONFIG.num_resblocks
+    packed = pack_stage(pt["vocoder"]["blocks"][:n], TINY_CONFIG.resblock_dilations,
+                        TINY_CONFIG.resblock_kernel_size, pt["vocoder"]["upsamples"][0]["w"])
+    assert packed.w.dtype == torch.bfloat16 and packed.b.dtype == torch.float32

@@ -6,8 +6,8 @@ The counterpart of tests/test_streaming.py, with its tolerances: chunked
 against full atol 2e-5 / rtol 1e-4 (f32), bit equality between `ahead`
 settings and between device and host PCM16 quantisation; against JAX the
 end-to-end tolerances of docs/ARCHITECTURE.md §10 (wav atol 1e-3 / rtol
-1e-3).  The JAX package's rotation of sessions over several devices has no
-counterpart in the port yet, so its test has none either.
+1e-3).  The rotation of sessions over several devices is held in
+tests/test_torch_engine_mesh.py (the daemon on a mesh).
 """
 
 import os

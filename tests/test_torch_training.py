@@ -566,9 +566,15 @@ def test_serving_entries_never_take_the_differentiable_route(weights, monkeypatc
 
     pt = weights[1]
 
-    def refuse(*a, **kw):
-        raise AssertionError("a serving path took vocode(differentiable=True)")
-    monkeypatch.setattr(hifigan, "mrf_stage_ref", refuse)
+    # every TINY stage takes the plain route on any device (the kernel does
+    # not take its widths), so the refusal is of the differentiable flag itself
+    vocode = hifigan.vocode
+
+    def refuse(*a, differentiable=False, **kw):
+        if differentiable:
+            raise AssertionError("a serving path took vocode(differentiable=True)")
+        return vocode(*a, **kw)
+    monkeypatch.setattr(hifigan, "vocode", refuse)
     rng = np.random.default_rng(0)
     P = CFG.max_n_phonemes
     src = rng.integers(1, CFG.num_phonemes, size=(2, P))

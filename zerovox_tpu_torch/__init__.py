@@ -12,6 +12,10 @@ daemon (the CLI's --serve) over one engine and one synthesizer, with
 DynamicBatcher coalescing concurrent requests; TTSClient talks to it, in
 the JAX package's wire format.  zerovox_tpu_torch.training trains on one
 card (losses, AdamW, fit, checkpoints, GGUF export, its CLI).
+zerovox_tpu_torch.parallel serves over several devices from one process:
+data and tensor parallelism (make_mesh, make_sharded_synthesize), the
+time-parallel vocoder and the two-stage pipeline; TTSEngine(mesh=),
+runtime.tp_engine.TPServingEngine and TTSServer(mesh=) build on it.
 
 Entry points run on the card (device="cuda") unless the caller passes
 device="cpu".

@@ -12,7 +12,7 @@ Usage:
   python -m zerovox_tpu_torch.cli --model model.gguf --input long.json --split-long
   python -m zerovox_tpu_torch.cli --model model.gguf --demo --device cpu
   python -m zerovox_tpu_torch.cli --model model.gguf --serve --port 8765 \\
-      --precision bfloat16 [--batch-window-ms 5] [--allow-reload]
+      --precision bfloat16 [--batch-window-ms 5] [--allow-reload] [--mesh 4,1]
 
 Runs on the card (--device cuda, the default) unless asked for the CPU.
 --precision bfloat16 is the serving dtype; --stream vocodes in chunks and
@@ -20,7 +20,9 @@ writes each to the WAV file as it arrives (the TTFA line on stderr is the
 time to the first chunk on disk); --split-long takes an utterance longer
 than max_n_phonemes, split at punctuation.  --serve runs the daemon of
 runtime/server.py (runtime/client.py talks to it) until SIGTERM or Ctrl-C,
-then drains and exits 0.
+then drains and exits 0; with --mesh DATA,MODEL it serves over DATA x MODEL
+distinct CUDA devices (MODEL=1: pure data parallelism; MODEL>1: tensor
+parallelism), and raises where the machine has fewer.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import time
 import numpy as np
 
 # flags of the JAX package's CLI whose paths later slices of the port bring
-_NOT_PORTED = ("verify", "mesh", "compile_cache")
+_NOT_PORTED = ("verify", "compile_cache")
 
 
 def _load_utterance(path: str, cfg):
@@ -59,7 +61,7 @@ def _demo_utterance(cfg, seed: int = 0):
     return src, pun, style, np.asarray([P], np.int32)
 
 
-def _serve(args, params, cfg, buckets) -> int:
+def _serve(args, params, cfg, buckets, mesh) -> int:
     """Run the daemon until SIGTERM or Ctrl-C, then drain and return 0."""
     import signal
     import threading
@@ -70,7 +72,8 @@ def _serve(args, params, cfg, buckets) -> int:
                        chunk_frames=args.chunk_frames, overlap=args.overlap,
                        batch_window_ms=args.batch_window_ms,
                        allow_reload=args.allow_reload,
-                       max_concurrent=args.max_concurrent, device=args.device)
+                       max_concurrent=args.max_concurrent, device=args.device,
+                       mesh=mesh)
     host, port = server.address
     print(f"serving on http://{host}:{port} "
           "(/healthz /metrics /synthesize /batch /stream"
@@ -135,6 +138,13 @@ def main(argv=None):
                     help="with --serve: enable POST /reload, which hot-swaps "
                          "weights from a new same-geometry GGUF without "
                          "restarting (admin-plane deployments only)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="with --serve: multi-device serving over a mesh of "
+                         "DATA x MODEL CUDA devices.  MODEL=1: pure DP (each "
+                         "device runs the whole pipeline on its batch slice; "
+                         "pairs with --batch-window-ms).  MODEL>1: tensor-"
+                         "parallel (channel-sharded front, time-sharded "
+                         "vocoder: one utterance spread across devices)")
     for flag in _NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), nargs="?", const=True,
                         default=None, help=argparse.SUPPRESS)
@@ -162,7 +172,17 @@ def main(argv=None):
     buckets = tuple(int(b) for b in args.buckets.split(",") if b)
 
     if args.serve:
-        return _serve(args, params, cfg, buckets)
+        mesh = None
+        if args.mesh:
+            from zerovox_tpu_torch.parallel import make_mesh, parse_mesh_spec
+            try:
+                d, m = parse_mesh_spec(args.mesh)
+            except ValueError as e:
+                ap.error(str(e))
+            if args.device == "cpu":
+                ap.error("--mesh spans CUDA devices; it does not run with --device cpu")
+            mesh = make_mesh(data=d, model=m)
+        return _serve(args, params, cfg, buckets, mesh)
 
     if args.split_long:
         if not args.input:

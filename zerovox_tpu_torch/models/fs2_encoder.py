@@ -57,12 +57,15 @@ def encode(params: dict, cfg: ZeroVoxConfig,
            src_seq: torch.Tensor, puncts: torch.Tensor,
            style_embed: torch.Tensor,
            phoneme_mask: Optional[torch.Tensor] = None,
+           fft=fft_block, predictor=variance_predictor,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phonemes -> (features (B, P, d_model), log_duration (B, P)).
 
     src_seq/puncts: (B, P) integer ids, style_embed: (B, d_model).
     phoneme_mask: optional (B, P) bool, applied only when
     cfg.use_attention_mask (the reference attends over padding).
+    fft / predictor: the FFT block and the variance predictor
+    (parallel.tp passes its channel-sharded ones, with a tree of shards).
     """
     enc = params["encoder"]
     src_seq = src_seq.long()
@@ -73,18 +76,18 @@ def encode(params: dict, cfg: ZeroVoxConfig,
 
     attn_mask = phoneme_mask if cfg.use_attention_mask else None
     for layer in enc["layers"]:
-        x = fft_block(x, layer, cfg, mask=attn_mask)
+        x = fft(x, layer, cfg, mask=attn_mask)
     tap("encoder_output", x)
 
     features = x + style_embed[:, None, :].to(x.dtype)
 
-    log_duration = variance_predictor(features, enc["duration_predictor"], cfg)
+    log_duration = predictor(features, enc["duration_predictor"], cfg)
 
-    pitch = tap("pitch", variance_predictor(features, enc["pitch_predictor"], cfg))
+    pitch = tap("pitch", predictor(features, enc["pitch_predictor"], cfg))
     features = features + enc["pitch_emb"][bucketize(pitch, cfg.ve_n_bins)].to(x.dtype)
 
     # energy is predicted on the pitch-updated features
-    energy = tap("energy", variance_predictor(features, enc["energy_predictor"], cfg))
+    energy = tap("energy", predictor(features, enc["energy_predictor"], cfg))
     features = features + enc["energy_emb"][bucketize(energy, cfg.ve_n_bins)].to(x.dtype)
     tap("features", features)
     tap("log_duration", log_duration)

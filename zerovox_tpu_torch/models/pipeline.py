@@ -91,6 +91,7 @@ class LoadedModel(NamedTuple):
     as one reference, so a call in flight never mixes old and new."""
     params: dict
     packed: Optional[List]      # hifigan.pack_vocoder on a card, None on the CPU
+    device: torch.device        # where both lie (and whose issuing thread runs them)
 
 
 def place_params(params: dict, cfg: ZeroVoxConfig, device: torch.device) -> dict:
@@ -105,16 +106,25 @@ def pack_model(placed: dict, cfg: ZeroVoxConfig, device: torch.device) -> Loaded
     """Params that place_params has placed, with the MRF kernel's weight
     layout made once (the CPU path does not read it)."""
     packed = hifigan.pack_vocoder(placed, cfg) if device.type == "cuda" else None
-    return LoadedModel(placed, packed)
+    return LoadedModel(placed, packed, device)
 
 
 def load_model(params, cfg: ZeroVoxConfig, device: torch.device) -> LoadedModel:
     """place_params, then pack_model.  A LoadedModel comes back as it is
     (it was placed, cast and packed by whoever made it): that is how a
-    daemon's streaming synthesizer shares its engine's weights, held once."""
+    daemon's streaming synthesizer shares its engine's weights, held once.
+    A LoadedModel on another device is copied there (replicate_model)."""
     if isinstance(params, LoadedModel):
-        return params
+        return replicate_model(params, cfg, device)
     return pack_model(place_params(params, cfg, device), cfg, device)
+
+
+def replicate_model(model: LoadedModel, cfg: ZeroVoxConfig, device: torch.device) -> LoadedModel:
+    """`model` itself where it lies on `device`, else its weights copied
+    there and packed anew: a replica for another device of a mesh."""
+    if model.device == device:
+        return model
+    return pack_model(place_params(model.params, cfg, device), cfg, device)
 
 
 def compute_dtype(cfg: ZeroVoxConfig) -> torch.dtype:

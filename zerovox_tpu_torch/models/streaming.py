@@ -18,15 +18,20 @@ edge, where the convs' own zero padding applies exactly as in a full run.
 The StyleTTS decoder cannot be chunked (its instance norms reduce over the
 whole time axis); it runs in the prefix.
 
-One device per synthesizer.  The JAX package's rotation of stream sessions
-over several devices (`devices=`, `session_device`, `params_for`) is not
-ported yet; it belongs with multi-card serving.
+With `devices=`, stream sessions rotate over several devices (the daemon
+passes the devices of its data-parallel mesh): each session runs on one
+device, on a replica of the model made there at its first use, so N
+concurrent streams run on N cards instead of queueing on one.  The chunks
+of one session stay on its device (parallel.seq fans one utterance's
+windows out over devices).
 """
 
 from __future__ import annotations
 
+import itertools
+import threading
 from collections import deque
-from typing import Callable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +40,8 @@ from ..config import ZeroVoxConfig
 from ..device import on_issuing_thread, resolve_device, to_host_async, wait_host
 from ..io.wav import float_to_pcm16_device
 from . import hifigan
-from .pipeline import LoadedModel, compute_dtype, front, load_model, request_tensors
+from .pipeline import (LoadedModel, compute_dtype, front, load_model, replicate_model,
+                       request_tensors)
 
 Window = Tuple[int, int, int, int]   # (window_start, window_size, emit_from, emit_frames)
 
@@ -71,7 +77,7 @@ class StreamingSynthesizer:
     def __init__(self, params, cfg: ZeroVoxConfig,
                  chunk_frames: int = 60, overlap: int = 16,
                  pcm16: bool = False, ahead: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", devices: Optional[Sequence] = None):
         """pcm16=True quantises every chunk on the device
         (io.wav.float_to_pcm16_device) and yields int16: half the bytes per
         host fetch, bit-identical to quantising the float chunks on the host.
@@ -88,7 +94,12 @@ class StreamingSynthesizer:
 
         params may be a LoadedModel (TTSEngine.model) on this device and in
         cfg's dtype: the synthesizer then reads those weights and packed
-        weights and keeps no copy of its own."""
+        weights and keeps no copy of its own.
+
+        devices = rotate stream sessions over these devices (session_device);
+        each gets a replica of the model at its first session (params_for).
+        Output is the same on every device: the same program on the same
+        weights."""
         if chunk_frames <= 0 or overlap < 0:
             raise ValueError("chunk_frames must be > 0, overlap >= 0")
         if ahead is not None and ahead < 1:
@@ -100,6 +111,10 @@ class StreamingSynthesizer:
         self.pcm16 = pcm16
         self.ahead = ahead
         self._model = load_model(params, cfg, self.device)
+        self.devices = [resolve_device(d) for d in devices] if devices else None
+        self._replicas: Dict[torch.device, LoadedModel] = {}
+        self._dev_lock = threading.Lock()
+        self._rr = itertools.count()
 
     @property
     def params(self) -> dict:
@@ -109,8 +124,44 @@ class StreamingSynthesizer:
         """Hot-swap the weights (same geometry; a params tree or a
         LoadedModel): cast and packed for the MRF kernel as the constructor
         did, swapped as one reference, so a stream in flight finishes on
-        the weights it started with."""
-        self._model = load_model(params, self.cfg, self.device)
+        the weights it started with.  The replicas on other devices are
+        dropped; sessions running on them finish there."""
+        model = load_model(params, self.cfg, self.device)
+        with self._dev_lock:
+            self._model = model
+            self._replicas = {}
+
+    # ------------------------------------------------------ device rotation
+    def session_device(self, device=None) -> Optional[torch.device]:
+        """The device the next stream session runs on: `device` where given
+        (pinning), else the next of `devices` in rotation, else None (the
+        synthesizer's own device)."""
+        if device is not None:
+            return resolve_device(device)
+        if not self.devices:
+            return None
+        return self.devices[next(self._rr) % len(self.devices)]
+
+    def params_for(self, device) -> LoadedModel:
+        """The model on `device` (None: the synthesizer's own), replicated
+        there at its first use and kept until set_params.  The replica is
+        made outside the lock (it moves and packs every weight), so other
+        sessions are not held up behind it; two sessions racing on a fresh
+        device may both make one, and the first stored wins."""
+        with self._dev_lock:
+            src = self._model
+            if device is None or device == src.device:
+                return src
+            rep = self._replicas.get(device)
+        if rep is not None:
+            return rep
+        rep = replicate_model(src, self.cfg, device)
+        with self._dev_lock:
+            if self._model is not src:
+                # a hot reload swapped the weights meanwhile: this session
+                # finishes on the copy it made, the next replicates anew
+                return rep
+            return self._replicas.setdefault(device, rep)
 
     # ------------------------------------------------------------- programs
     def program(self, window: int, emit_from: int, emit_frames: int
@@ -130,7 +181,7 @@ class StreamingSynthesizer:
         def run(model: LoadedModel, mel_window: torch.Tensor) -> torch.Tensor:
             if mel_window.shape[1] != window:
                 raise ValueError(f"window of {mel_window.shape[1]} frames, want {window}")
-            return on_issuing_thread(launch, model, mel_window)
+            return on_issuing_thread(model.device, launch, model, mel_window)
 
         return run
 
@@ -154,13 +205,13 @@ class StreamingSynthesizer:
         """Request arrays -> device (mel, mel_len, max mel_len), no host
         sync; launched on the process's issuing thread
         (device.on_issuing_thread)."""
-        return on_issuing_thread(self._issue_prefix, model, src_seq, puncts, style_embed,
-                                 num_phonemes)
+        return on_issuing_thread(model.device, self._issue_prefix, model, src_seq, puncts,
+                                 style_embed, num_phonemes)
 
     @torch.inference_mode()
     def _issue_prefix(self, model: LoadedModel, src_seq, puncts, style_embed, num_phonemes):
         cfg = self.cfg
-        src, pun, sty, nph = request_tensors(cfg, self.device, src_seq, puncts, style_embed,
+        src, pun, sty, nph = request_tensors(cfg, model.device, src_seq, puncts, style_embed,
                                              num_phonemes)
         sty = sty.to(compute_dtype(cfg))
         mel, mel_len, _ = front(model.params, cfg, src, pun, sty, nph)
@@ -170,32 +221,35 @@ class StreamingSynthesizer:
         """Run the prefix and every window geometry of the full-buffer plan
         (which covers every shorter plan) once, off the latency path: on a
         card this builds the MRF kernel and lets cuDNN choose its
-        algorithms for each window length."""
+        algorithms for each window length; with `devices`, on each of them
+        (which also makes their replicas)."""
         cfg = self.cfg
         T = cfg.max_seq_len
-        model = self._model
         zeros = np.zeros((batch, cfg.max_n_phonemes), np.int64)
-        mel, _, _ = self._prefix(model, zeros, zeros,
-                                 np.zeros((batch, cfg.d_model), np.float32),
-                                 np.zeros((batch,), np.int64))
-        seen = set()
-        for w in self.chunk_plan(T, -(-T // self.chunk_frames)):
-            if w[1:] not in seen:
-                seen.add(w[1:])
-                self._vocode_window(model, mel, w)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in dict.fromkeys(self.devices or [None]):
+            model = self.params_for(dev)
+            mel, _, _ = self._prefix(model, zeros, zeros,
+                                     np.zeros((batch, cfg.d_model), np.float32),
+                                     np.zeros((batch,), np.int64))
+            seen = set()
+            for w in self.chunk_plan(T, -(-T // self.chunk_frames)):
+                if w[1:] not in seen:
+                    seen.add(w[1:])
+                    self._vocode_window(model, mel, w)
+            if model.device.type == "cuda":
+                torch.cuda.synchronize(model.device)
 
     # ------------------------------------------------------------------ API
-    def stream(self, src_seq, puncts, style_embed, num_phonemes=None
+    def stream(self, src_seq, puncts, style_embed, num_phonemes=None, device=None
                ) -> Iterator[np.ndarray]:
         """Yield waveform chunks (B, chunk_frames * hop) as they are
         computed, float32 or (pcm16) int16 numpy arrays.
 
         The first yield is the time-to-first-audio point.  Chunks past the
         longest mel_len of the batch are not computed (a one-shot run
-        vocodes the padded tail too)."""
-        model = self._model
+        vocodes the padded tail too).  The session runs on
+        session_device(device)."""
+        model = self.params_for(self.session_device(device))
         mel, _, max_len_dev = self._prefix(model, src_seq, puncts, style_embed, num_phonemes)
         T = mel.shape[1]
 

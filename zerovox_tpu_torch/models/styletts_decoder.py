@@ -55,16 +55,20 @@ def adain_res_blk1d(x: torch.Tensor, style: torch.Tensor, p: dict,
 
 
 def decode(params: dict, cfg: ZeroVoxConfig,
-           hidden: torch.Tensor, style_embed: torch.Tensor) -> torch.Tensor:
-    """Encoder hiddens (B, T, d_model) + style (B, d_model) -> mel (B, T, num_mels)."""
+           hidden: torch.Tensor, style_embed: torch.Tensor,
+           res_blk=res_blk1d, adain_blk=adain_res_blk1d) -> torch.Tensor:
+    """Encoder hiddens (B, T, d_model) + style (B, d_model) -> mel (B, T, num_mels).
+
+    res_blk / adain_blk: the two block kinds (parallel.tp passes its
+    channel-sharded ones, with a tree of shards)."""
     dec = params["decoder"]
     eps = cfg.instance_norm_eps
     dt = dec["to_out"]["conv_w"].dtype
     hidden = hidden.to(dt)
     style_embed = style_embed.to(dt)
 
-    x = res_blk1d(hidden, dec["encode0"], cfg)
-    x = res_blk1d(x, dec["encode1"], cfg)
+    x = res_blk(hidden, dec["encode0"], cfg)
+    x = res_blk(x, dec["encode1"], cfg)
 
     a = dec["asr_res"]
     asr_res = instance_norm(conv1d(hidden, a["conv_w"], a["conv_b"]),
@@ -72,9 +76,9 @@ def decode(params: dict, cfg: ZeroVoxConfig,
 
     for name in ("decode0", "decode1", "decode2"):
         x = torch.cat([x, asr_res], dim=-1)
-        x = adain_res_blk1d(x, style_embed, dec[name], cfg)
-    x = adain_res_blk1d(x, style_embed, dec["decode3"], cfg)
-    x = adain_res_blk1d(x, style_embed, dec["decode4"], cfg)
+        x = adain_blk(x, style_embed, dec[name], cfg)
+    x = adain_blk(x, style_embed, dec["decode3"], cfg)
+    x = adain_blk(x, style_embed, dec["decode4"], cfg)
 
     out = dec["to_out"]
     return tap("mel", conv1d(x, out["conv_w"], out["conv_b"]))

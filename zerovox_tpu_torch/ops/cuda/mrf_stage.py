@@ -9,7 +9,11 @@ upsample, its bias and the leaky-relus on either side fused in.
 
 For a CUDA tensor the wrappers launch the kernel or raise; they take the
 plain version (`mrf_stage_ref`, built from F.conv1d / F.conv_transpose1d)
-only for tensors that lie on the CPU.  Each wrapper counts its kernel
+only for tensors that lie on the CPU.  Which stages go to the kernel is the
+caller's choice, made before any launch: `kernel_takes` says, in plain
+Python, whether the kernel takes a stage's geometry (hifigan.vocode sends
+the others to mrf_stage_ref on the card, as the JAX vocoder sends them to
+XLA).  Each wrapper counts its kernel
 launches in a plain integer attribute (`mrf_stage.launches`), added to under
 a lock: a serving daemon launches from many threads.  The kernel
 reads its weights in its own layout (`pack_stage`), which a serving caller
@@ -95,13 +99,17 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def residual_block(x: torch.Tensor, p: dict, dilations, kernel_size: int) -> torch.Tensor:
+def residual_block(x: torch.Tensor, p: dict, dilations, kernel_size: int,
+                   conv=None) -> torch.Tensor:
     """Multi-dilation residual block: per dilation d,
     x += conv2(leaky(conv1_d(leaky(x), dil=d), 0.1)) (both with bias).
 
     With bf16 weights x is the f32 chain state: each conv's operand is
     rounded to bf16 after the leaky and multiplied in f32 (exact products,
-    f32 sums), the bias is added in f32 and the result stays f32."""
+    f32 sums), the bias is added in f32 and the result stays f32.
+    conv: the product, ops.conv1d's signature (parallel.tp passes one that
+    splits the weights over devices); default ops.conv1d."""
+    conv = conv or conv1d
     half_k = (kernel_size - 1) // 2
     dot_bf16 = p["convs1"][0]["w"].dtype == torch.bfloat16
     operand = round_bf16 if dot_bf16 else (lambda t: t)
@@ -109,10 +117,10 @@ def residual_block(x: torch.Tensor, p: dict, dilations, kernel_size: int) -> tor
         c1 = p["convs1"][d_idx]
         c2 = p["convs2"][d_idx]
         xt = operand(leaky_relu(x, 0.1))
-        xt = conv1d(xt, c1["w"].to(x.dtype), c1["b"].to(x.dtype),
-                    padding=half_k * dilation, dilation=dilation)
+        xt = conv(xt, c1["w"].to(x.dtype), c1["b"].to(x.dtype),
+                  padding=half_k * dilation, dilation=dilation)
         xt = operand(leaky_relu(xt, 0.1))
-        xt = conv1d(xt, c2["w"].to(x.dtype), c2["b"].to(x.dtype), padding=half_k)
+        xt = conv(xt, c2["w"].to(x.dtype), c2["b"].to(x.dtype), padding=half_k)
         x = x + xt
     return x
 
@@ -124,8 +132,11 @@ def mrf_stage_ref(x: torch.Tensor,
                   upsample: Optional[dict] = None,
                   in_bias: Optional[torch.Tensor] = None,
                   in_leaky: Optional[float] = None,
-                  out_leaky: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the fused stage (same arguments as mrf_stage).
+                  out_leaky: Optional[float] = None,
+                  conv=None, conv_transpose=None) -> torch.Tensor:
+    """Plain PyTorch version of the fused stage (same arguments as mrf_stage;
+    conv / conv_transpose: the products, ops.conv's signatures, default
+    ops.conv1d / conv_transpose1d).
 
     For bf16 tensors it computes what the kernel's bf16 mode computes (and
     the TPU kernel's dot_bf16), not a bf16 convolution: the chain state is
@@ -143,14 +154,14 @@ def mrf_stage_ref(x: torch.Tensor,
             x = leaky_relu(x, in_leaky)
             if dtype == torch.bfloat16:
                 x = round_bf16(x)
-        x = conv_transpose1d(x, upsample["w"].to(chain), None,
-                             stride=upsample["stride"], padding=upsample["padding"],
-                             output_padding=upsample["output_padding"])
+        x = (conv_transpose or conv_transpose1d)(
+            x, upsample["w"].to(chain), None, stride=upsample["stride"],
+            padding=upsample["padding"], output_padding=upsample["output_padding"])
     if in_bias is not None:
         x = x + in_bias.to(chain)
     acc = None
     for j, blk in enumerate(blocks):
-        r = residual_block(x, blk, dilation_sets[j], kernel_size)
+        r = residual_block(x, blk, dilation_sets[j], kernel_size, conv)
         acc = r if acc is None else acc + r
     out = acc * (1.0 / len(blocks))
     if out_leaky is not None:
@@ -232,6 +243,13 @@ def chunk_channels(nt: int, elem: int):
     return tuple(k * 4 // elem for k in _KC[nt])
 
 
+def _upsample_fits(tile, halo, up_cin, up_k, up_stride, ss) -> bool:
+    """Whether the pre-upsample rows of a tile fit the conv1-output window
+    that stages them (always, without an upsample)."""
+    return not up_cin or ((tile + 2 * halo + up_k - 2) // up_stride + 2) * up_cin \
+        <= (tile + 2 * halo) * ss
+
+
 def _geometry(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc,
               stages, elem):
     nt, mt, warps_m = warp_grid(C)
@@ -258,8 +276,7 @@ def _geometry(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, 
         waves = _cdiv(B * _cdiv(L_out, tile), wave)
         tile = max(1, min(tile, _cdiv(L_out, waves * wave // B)))
         clusters = B * _cdiv(L_out, tile)
-    if up_cin and ((tile + 2 * halo + up_k - 2) // up_stride + 2) * up_cin \
-            > (tile + 2 * halo) * ss:
+    if not _upsample_fits(tile, halo, up_cin, up_k, up_stride, ss):
         raise ValueError(f"mrf_stage kernel: the pre-upsample rows of {up_cin} channels "
                          f"do not fit a window of {tile + 2 * halo} x {C} channels")
     smem = 4 * (ring + 2 * (tile + 2 * halo) * ss) + 16 * stages
@@ -319,6 +336,40 @@ def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
     wave = wave or max(1, _SMS // len(dils))
     return _plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc, stages,
                  elem)
+
+
+def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
+                 up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
+                 dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the kernel takes a stage of this geometry in the mode of
+    `dtype`, at any batch size and length: C channels, one resblock per
+    entry of dilation_sets, and (up_cin > 0) an upsample of up_cin input
+    channels, kernel up_k and stride up_stride.  Plain Python, so the CPU
+    tests reach it; the vocoder runs a stage it does not take through the
+    plain version (mrf_stage_ref), on the card too.  It asks what _launch
+    and tile_plan ask: an odd kernel size, 1-8 resblocks of 1-8 dilations
+    >= 1, a width and chunk the kernel's instances hold, upsample input
+    channels in 16-byte groups, and a tile plan whose pre-upsample rows fit
+    at every tile length a launch can choose (1 up to the longest)."""
+    return _takes(C, tuple(tuple(int(d) for d in ds) for ds in dilation_sets), kernel_size,
+                  up_cin, up_k, up_stride, dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _takes(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, dtype) -> bool:
+    if dtype not in (torch.float32, torch.bfloat16) or kernel_size % 2 != 1 \
+            or not 1 <= len(dilation_sets) <= _MAX_RB \
+            or any(not 1 <= len(d) <= _MAX_D or min(d) < 1 for d in dilation_sets) \
+            or (up_cin and up_cin % (16 // dtype.itemsize)):
+        return False
+    try:
+        plan = tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride,
+                         elem=dtype.itemsize)
+    except ValueError:
+        return False
+    halo = stage_halo(dilation_sets, kernel_size)
+    return all(_upsample_fits(t, halo, up_cin, up_k, up_stride, plan.ss)
+               for t in range(1, plan.tile + 1))
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,15 @@ Batches are padded (first row repeated) to the smallest size of the batch
 ladder and split at its top, as in the JAX package: the set of shapes a
 serving process ever runs stays len(mel_buckets) x len(batch_ladder), and
 the ladder top bounds the memory of one dispatch.
+
+Multi-device serving: pass `mesh=` (a pure-DP parallel.Mesh, model axis 1)
+and every front and vocoder call is split over the mesh's data devices,
+each running the complete local pipeline (the MRF kernel included) on its
+slice of the batch, on its own replica of the model and its own issuing
+thread, with no exchange between devices; the slices are gathered on the
+mesh's first device.  The batch ladder scales by the data size so that
+every call splits evenly.  Tensor-parallel serving is
+runtime.tp_engine.TPServingEngine.
 """
 
 from __future__ import annotations
@@ -21,11 +30,12 @@ import numpy as np
 import torch
 
 from ..config import ZeroVoxConfig
-from ..device import on_issuing_thread, resolve_device, to_host_async, wait_host
+from ..device import (on_issuing_thread, resolve_device, submit_on_issuing_thread,
+                      to_host_async, wait_host)
 from ..io.wav import float_to_pcm16_device
 from ..models import hifigan
 from ..models.pipeline import (LoadedModel, compute_dtype, front, load_model, pack_model,
-                               place_params, request_tensors)
+                               place_params, replicate_model, request_tensors)
 
 
 def _leaves(tree, path=""):
@@ -41,23 +51,41 @@ def _leaves(tree, path=""):
 
 
 class TTSEngine:
-    """High-level synthesis engine over a loaded model on one device."""
+    """High-level synthesis engine over a loaded model on one device, or on
+    the data devices of a pure-DP mesh."""
 
     def __init__(self, params, cfg: ZeroVoxConfig,
                  mel_buckets: Sequence[int] = (256, 512, 1024),
                  precision: str = "float32",
                  batch_ladder: Sequence[int] = (1, 2, 4, 8),
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """precision "bfloat16" is the serving dtype: the weights are cast
         once, here (and again in reload_params), the activations follow
-        cfg.compute_dtype, and the MRF kernel runs its bf16 mode."""
+        cfg.compute_dtype, and the MRF kernel runs its bf16 mode.
+
+        mesh: a pure-DP parallel.Mesh; the engine then runs on its devices
+        (`device` is not read) and its ladder is scaled by the data size."""
         if precision not in ("float32", "bfloat16"):
             raise ValueError(f"unknown precision {precision!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import MODEL_AXIS
+            if mesh.shape.get(MODEL_AXIS, 1) != 1:
+                raise ValueError(
+                    "TTSEngine serves pure-DP meshes (model axis == 1); use "
+                    "runtime.tp_engine.TPServingEngine or "
+                    "parallel.make_sharded_synthesize for TP inference")
+            self._devices = [resolve_device(d) for d in mesh.devices[:, 0]]
+        else:
+            self._devices = [resolve_device(device)]
+        self.device = self._devices[0]
         if precision == "bfloat16":
             cfg = cfg.replace(compute_dtype="bfloat16")
         self.cfg = cfg
-        self._model = load_model(params, cfg, self.device)
+        # the caller's tree, as given (a single-device consumer must not
+        # inherit the mesh's placement)
+        self.host_params = params
+        self._models = self._replicas(load_model(params, cfg, self.device))
         # truncating the mel at `bucket` only perturbs vocoder outputs within
         # the receptive field of the cut: mel_len + margin <= bucket keeps
         # the trimmed waveform equal to the full run's
@@ -68,32 +96,50 @@ class TTSEngine:
             raise ValueError("batch_ladder must be non-empty")
         self.batch_ladder: Tuple[int, ...] = tuple(sorted(set(
             int(b) for b in batch_ladder)))
+        if len(self._devices) > 1:
+            # every call must split evenly over the data devices: each rung
+            # is a whole number of rows per device (a B=1 request pads to
+            # one row per device and runs in one device's B=1 time)
+            self.batch_ladder = tuple(b * len(self._devices) for b in self.batch_ladder)
 
     # -------------------------------------------------------------- weights
+    def _replicas(self, model: LoadedModel) -> Tuple[LoadedModel, ...]:
+        """`model` (on the first data device) and its replica on every other
+        one, in data order; a device named twice holds one."""
+        made = {model.device: model}
+        for dev in self._devices:
+            if dev not in made:
+                made[dev] = replicate_model(model, self.cfg, dev)
+        return tuple(made[dev] for dev in self._devices)
+
     @property
     def model(self) -> LoadedModel:
-        """The weights and packed weights in use, as one reference (what
-        StreamingSynthesizer takes to share them)."""
-        return self._model
+        """The weights and packed weights in use on the engine's (first)
+        device, as one reference (what StreamingSynthesizer takes to share
+        them)."""
+        return self._models[0]
 
     @property
     def params(self) -> dict:
-        return self._model.params
+        return self._models[0].params
 
     @property
     def vocoder_packed(self) -> Optional[list]:
-        return self._model.packed
+        return self._models[0].packed
 
     def reload_params(self, params):
         """Hot-swap the model's weights for others of the same geometry
         (tree structure, shapes and dtypes; anything else raises ValueError
         and needs a new engine).  The new weights are cast as the
-        constructor cast the old ones and packed anew for the MRF kernel;
-        weights and packed weights are swapped as one reference, so a call
-        in flight finishes on the old pair and never mixes the two."""
+        constructor cast the old ones and packed anew for the MRF kernel,
+        on every data device; weights and packed weights of all of them are
+        swapped as one reference, so a call in flight finishes on the old
+        ones and never mixes the two."""
         placed = place_params(params, self.cfg, self.device)
-        self._validate_same_geometry(self._model.params, placed)
-        self._model = pack_model(placed, self.cfg, self.device)
+        self._validate_same_geometry(self._models[0].params, placed)
+        models = self._replicas(pack_model(placed, self.cfg, self.device))
+        self.host_params = params
+        self._models = models
 
     @staticmethod
     def _validate_same_geometry(old_params, new_params):
@@ -112,13 +158,29 @@ class TTSEngine:
                                          for k, bs, bd, as_, ad in bad[:3]))
 
     # ------------------------------------------------------------ programs
+    def _split(self, issue, models: Tuple[LoadedModel, ...], *args):
+        """issue(*args, model) on the issuing thread of each model's device
+        (device.on_issuing_thread), whatever thread calls: on the whole
+        batch with one device, else on each data device's slice of the rows,
+        the outputs gathered on the engine's device.  No host sync."""
+        if len(models) == 1:
+            return on_issuing_thread(models[0].device, issue, *args, models[0])
+        parts = [a.tensor_split(len(models)) for a in args]
+        futures = [submit_on_issuing_thread(m.device, issue,
+                                            *(p[i].to(m.device) for p in parts), m)
+                   for i, m in enumerate(models)]
+        outs = [f.result() for f in futures]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[j].to(self.device) for o in outs])
+                         for j in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs])
+
     def _front(self, src_seq, puncts, style_embed, num_phonemes,
-               model: Optional[LoadedModel] = None):
+               models: Optional[Tuple[LoadedModel, ...]] = None):
         """Encoder + length regulator + decoder at full max_seq_len, on
-        device tensors; no host sync.  Issued on the process's issuing
-        thread (device.on_issuing_thread), whatever thread calls."""
-        return on_issuing_thread(self._issue_front, src_seq, puncts, style_embed,
-                                 num_phonemes, model or self._model)
+        device tensors; no host sync."""
+        return self._split(self._issue_front, models or self._models,
+                           src_seq, puncts, style_embed, num_phonemes)
 
     @torch.inference_mode()
     def _issue_front(self, src_seq, puncts, style_embed, num_phonemes, model: LoadedModel):
@@ -127,23 +189,27 @@ class TTSEngine:
         return mel, mel_len
 
     def _vocode(self, mel_b: torch.Tensor, pcm16: bool,
-                model: Optional[LoadedModel] = None) -> torch.Tensor:
+                models: Optional[Tuple[LoadedModel, ...]] = None) -> torch.Tensor:
         """Vocoder on a bucket-length mel, left on the device: int16 with
         pcm16 (quantised there, so the host fetch moves half the bytes),
-        else float32 (a bf16 waveform is widened for the caller).  Issued on
-        the issuing thread, as _front."""
-        return on_issuing_thread(self._issue_vocode, mel_b, pcm16, model or self._model)
+        else float32 (a bf16 waveform is widened for the caller).  Issued as
+        _front."""
+        issue = self._issue_vocode_pcm16 if pcm16 else self._issue_vocode
+        return self._split(issue, models or self._models, mel_b)
 
     @torch.inference_mode()
-    def _issue_vocode(self, mel_b: torch.Tensor, pcm16: bool,
-                      model: LoadedModel) -> torch.Tensor:
-        wav = hifigan.vocode(model.params, self.cfg, mel_b, model.packed)
-        return float_to_pcm16_device(wav) if pcm16 else wav.to(torch.float32)
+    def _issue_vocode(self, mel_b: torch.Tensor, model: LoadedModel) -> torch.Tensor:
+        return hifigan.vocode(model.params, self.cfg, mel_b, model.packed).to(torch.float32)
+
+    @torch.inference_mode()
+    def _issue_vocode_pcm16(self, mel_b: torch.Tensor, model: LoadedModel) -> torch.Tensor:
+        return float_to_pcm16_device(hifigan.vocode(model.params, self.cfg, mel_b,
+                                                    model.packed))
 
     def _back(self, mel_b: torch.Tensor, pcm16: bool,
-              model: Optional[LoadedModel] = None) -> np.ndarray:
+              models: Optional[Tuple[LoadedModel, ...]] = None) -> np.ndarray:
         """_vocode fetched to the host."""
-        return self._vocode(mel_b, pcm16, model).cpu().numpy()
+        return self._vocode(mel_b, pcm16, models).cpu().numpy()
 
     # ------------------------------------------------------------- geometry
     def pick_bucket(self, mel_len: int) -> int:
@@ -192,8 +258,9 @@ class TTSEngine:
             for b in self.mel_buckets:
                 for v in ((False, True) if pcm16 else (False,)):
                     self._back(mel[:, :b], v)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in dict.fromkeys(self._devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------ API
     def synthesize(self, src_seq, puncts, style_embed, num_phonemes=None,
@@ -216,15 +283,15 @@ class TTSEngine:
         if single_rtt:
             return self.synthesize_async(src_seq, puncts, style_embed,
                                          num_phonemes=num_phonemes, trim=trim, pcm16=pcm16)()
-        model = self._model
-        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, model)
+        models = self._models
+        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, models)
         # trim=False promises the reference's full padded buffer, so it
         # vocodes at the max bucket
         bucket = (self.pick_bucket(int(mel_len_h.max()))
                   if trim else self.mel_buckets[-1])
         outs = []
         for padded, n in self._ladder_chunks(range(mel.shape[0])):
-            outs.append(self._back(self._take(mel, padded)[:, :bucket], pcm16, model)[:n])
+            outs.append(self._back(self._take(mel, padded)[:, :bucket], pcm16, models)[:n])
         return self._trim(np.concatenate(outs, axis=0), mel_len_h, trim), mel_len_h
 
     def synthesize_async(self, src_seq, puncts, style_embed, num_phonemes=None,
@@ -240,14 +307,14 @@ class TTSEngine:
         fetch() waits for each chunk's copies and trims on the host.  A
         caller can launch batch k+1 while batch k is still computing or
         being fetched."""
-        model = self._model
+        models = self._models
         src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
         bucket = self.mel_buckets[-1]
         chunks = []
         for padded, n in self._ladder_chunks(range(src.shape[0])):
             mel, mel_len = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
-                                       model)
-            wav = self._vocode(mel[:, :bucket], pcm16, model)
+                                       models)
+            wav = self._vocode(mel[:, :bucket], pcm16, models)
             chunks.append((to_host_async(wav), to_host_async(mel_len), n))
 
         def fetch() -> Tuple[List[np.ndarray], np.ndarray]:
@@ -268,8 +335,8 @@ class TTSEngine:
         """Bucket-packed batched synthesis: one vocoder dispatch per bucket
         group (ladder-padded), so short utterances in a mixed batch do not
         pay the longest one's compute.  Outputs match synthesize()."""
-        model = self._model
-        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, model)
+        models = self._models
+        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, models)
         B = mel.shape[0]
         hop = self.cfg.hop_size
         wavs: List[Optional[np.ndarray]] = [None] * B
@@ -277,7 +344,7 @@ class TTSEngine:
                   else {self.mel_buckets[-1]: list(range(B))})
         for bucket, idxs in groups.items():
             for padded, n in self._ladder_chunks(idxs):
-                wav_h = self._back(self._take(mel, padded)[:, :bucket], pcm16, model)
+                wav_h = self._back(self._take(mel, padded)[:, :bucket], pcm16, models)
                 for k, i in enumerate(padded[:n]):
                     wavs[i] = wav_h[k, : int(mel_len_h[i]) * hop] if trim else wav_h[k]
         return wavs, mel_len_h
@@ -295,13 +362,13 @@ class TTSEngine:
         return t[torch.as_tensor(padded, device=self.device)]
 
     def _run_front(self, src_seq, puncts, style_embed, num_phonemes,
-                   model: Optional[LoadedModel] = None):
+                   models: Optional[Tuple[LoadedModel, ...]] = None):
         """Front at ladder sizes; returns (device mel (B, T, mels), host mel_len)."""
         src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
         mels, lens = [], []
         for padded, n in self._ladder_chunks(range(src.shape[0])):
             mel_c, len_c = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
-                                       model)
+                                       models)
             mels.append(mel_c[:n])
             lens.append(len_c[:n])
         mel = mels[0] if len(mels) == 1 else torch.cat(mels, dim=0)

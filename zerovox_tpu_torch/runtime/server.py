@@ -4,16 +4,20 @@ The port of zerovox_tpu/runtime/server.py, with the same wire format (either
 package's client talks to either daemon).  Deliberately stdlib-only
 (http.server): a threading HTTP server, one handler thread per connection
 in flight, sharing one `TTSEngine` and one `StreamingSynthesizer` that read
-the same weights (the engine's LoadedModel, held once).  Stream state is
-local to each generator, so concurrent /stream requests interleave freely.
+the same weights (the engine's LoadedModel, held once).  With mesh= it
+serves over several devices: a pure-DP engine with /stream sessions rotated
+over the devices, or, with a model axis > 1, the tensor-parallel engine
+(runtime/tp_engine.py).  Stream state is local to each generator, so
+concurrent /stream requests interleave freely.
 
 A handler thread parses, waits and writes; the launches of its request are
-issued on the process's one issuing thread (device.on_issuing_thread, through the engine
-and the synthesizer), in the order the requests reach it, on the device's
-default CUDA stream.  So concurrent requests run on the card one after the
-other, and a /stream chunk waits behind whatever was queued before it.  The
-reasons for one issuing thread (cuDNN's per-thread plans, the interpreter
-lock) are in the docstring of device.on_issuing_thread.
+issued on the issuing thread of each device it runs on
+(device.on_issuing_thread, through the engine and the synthesizer), in the
+order the requests reach it, on the device's default CUDA stream.  So
+concurrent requests run on one card one after the other, and a /stream
+chunk waits behind whatever was queued on its device before it.  The
+reasons for one issuing thread per device (cuDNN's per-thread plans, the
+interpreter lock) are in the docstring of device.on_issuing_thread.
 
 Endpoints (all JSON bodies use the CLI's utterance schema:
 {"phonemes": [...], "style": [...], "puncts": optional}):
@@ -208,7 +212,14 @@ class TTSServer:
                  max_body_bytes: int = 4 << 20, max_batch: int = 64,
                  batch_window_ms: float = 0.0,
                  allow_reload: bool = False, max_concurrent: int = 64,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """mesh: multi-device serving (`device` is then not read).  Model
+        axis 1: a pure-DP TTSEngine over the data devices (pairs with the
+        batcher, which fills the wider ladder), and /stream sessions rotated
+        over mesh.devices.flat.  Model axis > 1: a TPServingEngine (the
+        front channel-sharded, the vocoder time-sharded), and /stream on the
+        mesh's first device (stream windows are too short to gain from
+        channel sharding)."""
         from ..models.streaming import StreamingSynthesizer
         from .engine import TTSEngine
 
@@ -236,16 +247,26 @@ class TTSServer:
         self.metrics = Metrics()
         self.batcher = None
         try:
-            self.device = resolve_device(device)
-            self.engine = TTSEngine(params, cfg, mel_buckets=mel_buckets,
-                                    precision=precision, device=self.device)
+            n_model = 1
+            if mesh is not None:
+                from ..parallel.mesh import MODEL_AXIS
+                n_model = mesh.shape.get(MODEL_AXIS, 1)
+            if n_model > 1:
+                from .tp_engine import TPServingEngine
+                self.engine = TPServingEngine(params, cfg, mesh, precision=precision)
+            else:
+                self.engine = TTSEngine(params, cfg, mel_buckets=mel_buckets,
+                                        precision=precision, mesh=mesh,
+                                        device=resolve_device(device) if mesh is None else None)
+            self.device = self.engine.device
             # the synthesizer reads the engine's own LoadedModel (weights
             # cast for the precision, packed for the MRF kernel): held once
             self.stream = StreamingSynthesizer(
                 self.engine.model, self.engine.cfg,
                 chunk_frames=chunk_frames, overlap=overlap,
                 pcm16=True,  # chunks arrive device-quantised (half the bytes)
-                device=self.device)
+                device=self.device,
+                devices=list(mesh.devices.flat) if mesh is not None and n_model == 1 else None)
             if warmup:
                 # /synthesize serves the device-quantised int16 variants.
                 # Warm at the ladder TOP so that every front and vocoder
