@@ -92,9 +92,28 @@ Phases (any failure exits non-zero and prints no result line):
      largest f32 TP prediction gap, and the gap with TF32 products;
      then a TINY checkpoint served on the card, every stage on the plain
      route (its widths are not the kernel's);
- 10. print the kernels line, then the card line, then {"ok": true, ...}.
+ 10. training on a mesh (zerovox_tpu_torch.training.make_sharded_train_step,
+     parallel.distributed), production geometry, random weights from seed
+     0: (a) the sharded step on (2, 1), (1, 2) and (2, 2) of the card
+     repeated (on a machine with four cards: (4, 1) and (2, 2) of distinct
+     cards), 4 rows with the STFT loss, each against the one-device step on
+     the same rows: in float64 the loss (rtol 1e-5) and an SGD step's
+     gradient per leaf (tests/test_torch_training.py's rule); in float32
+     the loss within 1e-3 of float64 (and the one device's rows one at a
+     time beside it), two AdamW steps (2 * lr per step), the gradient's
+     distances printed, with wall (median of 3), busy time (torch.profiler)
+     and peak memory beside the one-device step's; (b) the training CLI as
+     two processes (gloo on one card; two processes of two cards each over
+     nccl on four), launched and resumed, both ranks printing the same
+     final loss (on four cards also the port's two-process worker), and
+     the export served by a one-card engine, its launched shapes held; (c)
+     --compile-cache: two fresh processes share a directory, the second
+     builds nothing (the kernel's nvcc, the native library); (d) the native
+     GGUF loader against the numpy one: load_params and /reload times
+     (median of 3), the parameters bitwise equal;
+ 11. print the kernels line, then the card line, then {"ok": true, ...}.
 
-With --multi-device-only it runs phases 1-3 and 9 and prints no result
+With --multi-device-only it runs phases 1-3, 9 and 10 and prints no result
 line: the quick way to drive the distinct-card regimes on a machine with
 several cards.
 """
@@ -2292,6 +2311,372 @@ def multi_device_path(cfg, params, params16, tiny_model, seen, held):
     return f32, bf16
 
 
+# --------------------------------------------------------------------------
+# phase 10: training on a mesh
+# --------------------------------------------------------------------------
+
+MESH_B = 4                      # phase 10 (a)'s global batch
+MESH_ADAM_LR = 1e-4             # its AdamW steps (the CLI's default lr)
+COMPILE_CACHE_PROBE = (
+    "import json, sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "sys.path.insert(0, sys.argv[2])\n"
+    "from zerovox_tpu_torch.utils import enable_compile_cache\n"
+    "from zerovox_tpu_torch.ops.cuda import mrf_stage\n"
+    "from zerovox_tpu_torch.io import native\n"
+    "enable_compile_cache(sys.argv[1])\n"
+    "lib = mrf_stage.library()\n"
+    "assert native.available(), native.build_error\n"
+    "print(json.dumps({'kernel': lib.build_seconds, 'native': native.build_seconds,\n"
+    "                  'process': time.perf_counter() - t0}))\n")
+
+
+def capture_sgd(lr, grads):
+    """SGD whose update also keeps the whole gradient tree it was given (the
+    step's (p - p') / lr before the subtraction rounds it)."""
+    from zerovox_tpu_torch.params import tree_map
+    from zerovox_tpu_torch.training.train import Optimizer
+
+    def update(g, state, params):
+        grads.append(params.layout.gather(g))
+        return tree_map(lambda x: -lr * x, g), state
+    return Optimizer(lambda p: {}, update)
+
+
+def gradient_rule(want, got, cfg):
+    """tests/test_torch_training.py's rule, per leaf: max|d| <= 1e-3 *
+    max|want_leaf| + 1e-6 * max|want|.  (worst max|d| / that bound, leaf,
+    leaves outside)."""
+    dist = {n: ((a.double() - b.double()).abs().max().item(), a.abs().max().item())
+            for (n, a), (_, b) in zip(named_leaves(want, cfg), named_leaves(got, cfg))}
+    gmax = max(m for _, m in dist.values())
+    ratios = sorted((d / (1e-3 * m + 1e-6 * gmax), n) for n, (d, m) in dist.items())
+    return ratios[-1][0], ratios[-1][1], sum(r > 1 for r, _ in ratios)
+
+
+def f64_median(g, g64, cfg):
+    """Median over the leaves (above 1e-6 of the largest) of max|g - g64| /
+    max|g64_leaf|: phase 8 (c)'s reading of a gradient's float32 noise."""
+    import numpy as np
+    dist = grad_distances(g, g64, cfg)
+    gmax = max(m for _, m in dist.values())
+    return float(np.median([d / m for d, m in dist.values() if m > 1e-6 * gmax]))
+
+
+def sgd_gradient(make, batch):
+    """(losses, whole gradient tree, initial state) of one SGD step of the
+    step `make(optimizer)` builds."""
+    grads = []
+    state, step = make(capture_sgd(1.0, grads))
+    _, losses = step(state, batch)
+    return {k: float(v) for k, v in losses.items()}, grads[0], state
+
+
+def variance_buckets(cfg, state, batch):
+    """The pitch and energy buckets of the step's forward on `batch`, row by
+    row as the step splits it (the variance adaptor's taps), on the host."""
+    import torch
+    from zerovox_tpu_torch.ops.misc import bucketize
+    from zerovox_tpu_torch.training.train import TrainBatch, _teacher_forced
+    from zerovox_tpu_torch.utils.debug import capture_run
+    layout = state.params.layout
+    rows = layout.split_batch(TrainBatch(*(torch.as_tensor(x) for x in batch)))
+    out = {"pitch": [], "energy": []}
+    with torch.no_grad():
+        for tree, b in zip(layout.replicas(state.params), rows):
+            _, taps = capture_run(_teacher_forced, layout.view(tree) if layout.tp else tree,
+                                  cfg, b, False, layout.tp)
+            for k in out:
+                out[k].append(bucketize(taps[k], cfg.ve_n_bins).cpu())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def bucket_moves(cfg, one, got, lens):
+    """The pitch and energy buckets (of real phonemes) that differ."""
+    import torch
+    mask = torch.arange(cfg.max_n_phonemes)[None, :] < torch.as_tensor(lens)[:, None]
+    return {k: int(((one[k] != got[k]) & mask).sum()) for k in one}
+
+
+def mesh_step_regime(label, make, batch, cfg, card):
+    """One regime of phase 10 (a): an SGD step that keeps its gradient, its
+    forward's variance buckets, two AdamW steps, then 3 timed AdamW steps
+    (host clock, synchronised; the median), one under torch.profiler (busy
+    ms) and the peak memory."""
+    import statistics
+    import torch
+    from zerovox_tpu_torch.training.train import make_optimizer
+    loss, grads, state = sgd_gradient(make, batch)
+    buckets = variance_buckets(cfg, state, batch)
+    del state
+    state, step = make(make_optimizer(MESH_ADAM_LR))
+    for _ in range(2):
+        state, _ = step(state, batch)
+    adam = state.params.layout.gather(state.params)
+    cards = range(torch.cuda.device_count())
+
+    def synced():                 # a step ends on every card of a mesh of distinct cards
+        step(state, batch)
+        for i in cards:
+            torch.cuda.synchronize(i)
+    synced()
+    base = max(torch.cuda.memory_allocated(i) for i in cards)
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    walls = [timed_run(synced)[1] for _ in range(TIMED_RUNS)]
+    peak = max(torch.cuda.max_memory_allocated(i) for i in cards)
+    busy = busy_ms(synced)
+    wall = statistics.median(walls)
+    log(f"  (a) {label}: loss {loss['total']:.7f}; AdamW step wall median {wall:.1f} ms "
+        f"({['%.1f' % w for w in walls]}), busy {busy:.1f} ms (summed over the cards), peak "
+        f"memory {peak / 2**30:.2f} GiB on the fullest card ({base / 2**30:.2f} GiB held "
+        f"before) [{card}]")
+    del state, step
+    return {"loss": loss, "grads": grads, "buckets": buckets, "adam": adam, "wall": wall,
+            "busy": busy, "peak": peak}
+
+
+def mesh_steps(cfg, params, dev, distinct, card, failures):
+    """Phase 10 (a): make_sharded_train_step on meshes of `dev` repeated (of
+    four distinct cards where `distinct`) against make_train_step on `dev`,
+    4 rows with the STFT loss.  The gates of the CPU tests (loss rtol 1e-5, the SGD
+    step per leaf within tests/test_torch_training.py's rule) hold the step
+    in float64: the same code, where rounding cannot move a loss by 1e-5 or
+    a gradient by 1e-3 of a leaf.  In float32 this loss is not that well
+    conditioned at random weights (a row whose mel is mostly padding: its
+    instance norms divide near-constant channels), so another split of the
+    same rows moves it (printed: the one device's rows one at a time); the
+    float32 step is held at 1e-3 of the float64 loss and at AdamW's 2 * lr
+    per step, and its gradient's distances are printed.  Appends what fails
+    to `failures`."""
+    import numpy as np
+    import torch
+    from zerovox_tpu_torch.parallel import make_mesh, single_device_mesh
+    from zerovox_tpu_torch.params import tree_leaves, tree_map
+    from zerovox_tpu_torch.training import make_sharded_train_step, make_train_step
+    from zerovox_tpu_torch.training.cli import synthetic_dataset
+    from zerovox_tpu_torch.training.train import TrainBatch, sharded_losses
+    batch = synthetic_dataset(cfg, MESH_B, seed=10)
+    lens = np.linspace(cfg.max_n_phonemes, cfg.max_n_phonemes // 2, MESH_B).astype(np.int32)
+    batch = batch._replace(num_phonemes=lens)
+    batch64 = TrainBatch(*(x.astype(np.float64) if x.dtype == np.float32 else x for x in batch))
+    params64 = tree_map(lambda t: t.double(), params)
+    shapes = ((4, 1), (2, 2)) if distinct else ((2, 1), (1, 2), (2, 2))
+    where = "distinct cards" if distinct else f"{dev} repeated"
+    one = mesh_step_regime("one device", lambda opt: make_train_step(cfg, params, opt, dev),
+                           batch, cfg, card)
+    l64, g64, _ = sgd_gradient(lambda opt: make_sharded_train_step(
+        cfg, single_device_mesh(dev), params64, opt), batch64)
+    state, _ = make_sharded_train_step(cfg, make_mesh(MESH_B, 1, devices=[dev] * MESH_B), params)
+    alone = sharded_losses(state.params.layout, state.params, cfg,
+                           TrainBatch(*(torch.as_tensor(x) for x in batch)))
+    del state
+    f64_rel = lambda loss: max(abs(float(loss[k]) - l64[k]) / abs(l64[k])       # noqa: E731
+                               for k in l64)
+    log(f"  (a) one device: float64 loss {l64['total']:.12f}; float32 loss worst term rel to "
+        f"float64 {f64_rel(one['loss']):.2e}, the same rows one at a time (B=1 each, the loss "
+        f"from their sums) {f64_rel(alone):.2e}; float32 gradient's median distance to float64 "
+        f"{f64_median(one['grads'], g64, cfg):.3e} of a leaf (phase 8 (c)'s reading)")
+    if not max(f64_rel(one["loss"]), f64_rel(alone)) <= 1e-3:
+        failures.append(f"(a) one device: float32 loss rel to float64 {f64_rel(one['loss']):.2e},"
+                        f" its rows one at a time {f64_rel(alone):.2e}")
+    for d, m in shapes:
+        devs = None if distinct else [dev] * (d * m)
+        mesh = make_mesh(d, m, devices=devs)
+        label = f"({d},{m}) {where}"
+        m64, h64, _ = sgd_gradient(lambda opt: make_sharded_train_step(
+            cfg, mesh, params64, opt), batch64)
+        rel64 = max(abs(m64[k] - l64[k]) / abs(l64[k]) for k in l64)
+        worst64, leaf64, outside64 = gradient_rule(g64, h64, cfg)
+        del h64
+        r = mesh_step_regime(label, lambda opt: make_sharded_train_step(cfg, mesh, params, opt),
+                             batch, cfg, card)
+        rel = max(abs(r["loss"][k] - one["loss"][k]) / abs(one["loss"][k]) for k in one["loss"])
+        moved = bucket_moves(cfg, one["buckets"], r["buckets"], lens)
+        worst, leaf, outside = gradient_rule(one["grads"], r["grads"], cfg)
+        adam = max((a - b).abs().max().item() for a, b in
+                   zip(tree_leaves(one["adam"]), tree_leaves(r["adam"])))
+        log(f"  (a) {label} against one device, float64: loss worst term rel {rel64:.2e} (gate "
+            f"1e-5), SGD step per leaf worst {worst64:.2e} of the rule 1e-3 max|g_leaf| + 1e-6 "
+            f"max|g| ({leaf64}; {outside64} leaves outside); float32: loss worst term rel "
+            f"{rel:.2e} to one device, {f64_rel(r['loss']):.2e} to float64 (gate 1e-3), variance "
+            f"buckets moved {moved}, SGD step per leaf worst {worst:.3f} of the rule ({leaf}; "
+            f"{outside} leaves outside), "
+            f"median distance to float64 {f64_median(r['grads'], g64, cfg):.3e}, 2 AdamW steps "
+            f"params max|d| {adam:.3e} (gate 2 * lr * 2 = {4 * MESH_ADAM_LR:.0e}); wall "
+            f"x{r['wall'] / one['wall']:.2f}, busy x{r['busy'] / one['busy']:.2f}, peak memory "
+            f"x{r['peak'] / one['peak']:.2f}")
+        if not (rel64 <= 1e-5 and outside64 == 0 and adam <= 4 * MESH_ADAM_LR
+                and f64_rel(r["loss"]) <= 1e-3):
+            failures.append(f"(a) {label}: float64 loss rel {rel64:.2e}, {outside64} leaves "
+                            f"outside the rule (worst {worst64:.2e}, {leaf64}); float32 loss rel "
+                            f"to float64 {f64_rel(r['loss']):.2e}, AdamW max|d| {adam:.3e}")
+        del r
+    del one, g64, params64
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_training_path(cfg, params, model, tmp, card, seen, held):
+    """Phase 10: (a) make_sharded_train_step on meshes against the one-device
+    step, (b) the training CLI as two processes, launched and resumed (and
+    on four cards the port's two-process worker), (c) --compile-cache across two fresh
+    processes, (d) the native loader against the numpy one.  Returns the
+    mrf_stage launches of the engine served from (b)'s export."""
+    import functools
+    import statistics
+    import torch
+    from zerovox_tpu_torch import params as params_mod
+    from zerovox_tpu_torch.io import native
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    from zerovox_tpu_torch.params import load_params, tree_leaves
+    from zerovox_tpu_torch.runtime.client import TTSClient
+    from zerovox_tpu_torch.runtime.engine import TTSEngine
+    from zerovox_tpu_torch.runtime.server import TTSServer
+    from zerovox_tpu_torch.tools.distributed_worker import launch
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    distinct = n_cards >= 4
+    cuda0 = torch.device("cuda", 0)
+    failures = []
+    # (c) starts first: its cold nvcc runs on the host's cores while (a) runs
+    cache_dir = os.path.join(tmp, "compile_cache")
+    probe = [sys.executable, "-c", COMPILE_CACHE_PROBE, cache_dir, str(ROOT)]
+    t_cold = time.perf_counter()
+    cold = subprocess.Popen(probe, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    mesh_steps(cfg, params, cuda0, distinct, card, failures)
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+
+    # (b) the training CLI as two processes on the card(s), launched then resumed
+    ck, out = os.path.join(tmp, "mesh_ck"), os.path.join(tmp, "mesh_trained.gguf")
+    argv = [sys.executable, "-m", "zerovox_tpu_torch.training.cli", "--synthetic", "8",
+            "--batch-size", "8", "--no-stft", "--epochs", "1", "--checkpoint-dir", ck,
+            "--checkpoint-every", "1", "--export", out]
+    if distinct:
+        argv += ["--mesh", "1,2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    if distinct:                  # two processes of two cards each
+        env["LOCAL_WORLD_SIZE"] = "2"
+    backend = "nccl" if distinct else "gloo"
+    t_b = time.perf_counter()
+    for i, want in ((1, 1), (2, 2)):
+        t0 = time.perf_counter()
+        runs = launch(argv, 2, timeout=600, cwd=ROOT, env=env)
+        wall = time.perf_counter() - t0
+        finals = []
+        for rank, (rc, _, err) in enumerate(runs):
+            lines = [ln for ln in err.splitlines()
+                     if ln.startswith(("train:", "fit:", "distributed:"))]
+            for ln in lines:
+                log(f"    cli run {i} rank {rank}: {ln}")
+            final = [ln.split("final train loss")[1].split()[0] for ln in lines
+                     if "final train loss" in ln]
+            if rc != 0 or not final or f"train: {want} total steps" not in err \
+                    or f"backend {backend}" not in err \
+                    or (i == 2) != ("resumed from step 1" in err):
+                raise RuntimeError(f"(b) two-process training CLI run {i} rank {rank}: rc {rc}"
+                                   f"\n{err[-3000:]}")
+            finals.append(final[0])
+        if finals[0] != finals[1]:
+            raise RuntimeError(f"(b) run {i}: the ranks' final losses differ: {finals}")
+        log(f"  (b) two-process training CLI run {i} ({backend}): rc 0 in both, {want} total "
+            f"steps, the same final loss {finals[0]} in both; {wall:.1f} s for the two "
+            f"processes [{card}]")
+    if distinct:   # the port's two-process worker over nccl (gloo: the CPU tests run it)
+        t0 = time.perf_counter()
+        runs = launch([sys.executable, "-m", "zerovox_tpu_torch.tools.distributed_worker",
+                       "--model", "2"], 2, timeout=300, cwd=ROOT, env=env)
+        checks = []
+        for rank, (rc, stdout, err) in enumerate(runs):
+            if rc != 0:
+                raise RuntimeError(f"(b) distributed worker rank {rank}: rc {rc}\n{err[-3000:]}")
+            checks.append(sorted(ln for ln in stdout.splitlines() if ln.startswith("CHECK ")))
+        if checks[0] != checks[1] or len(checks[0]) != 5:
+            raise RuntimeError(f"(b) the worker's checks differ between ranks: {checks}")
+        log(f"  (b) two-process worker ({backend}): {'; '.join(checks[0])} in both ranks "
+            f"({time.perf_counter() - t0:.1f} s)")
+    # the export, served through the kernel by a one-card engine
+    ms.mrf_stage.launches = ms.mrf_stage_unfolded.launches = 0
+    tcfg, tparams_ = load_params(out, device="cuda")
+    if tcfg != cfg:
+        raise RuntimeError("(b) the exported GGUF has another geometry")
+    compare_pipelines(TTSEngine(tparams_, tcfg))
+    served = ms.mrf_stage.launches
+    if not served or ms.mrf_stage_unfolded.launches:
+        raise RuntimeError(f"(b) the engine on the export launched mrf_stage {served} times")
+    hold_launched_shapes(seen, held, "phase 10")
+    log(f"  (b) the export served by a one-card TTSEngine: {served} mrf_stage launches; (b) "
+        f"{time.perf_counter() - t_b:.1f} s")
+    del tparams_
+
+    # (c) --compile-cache: the cold process's build, then a second fresh process
+    stdout, err = cold.communicate(timeout=600)
+    if cold.returncode != 0:
+        raise RuntimeError(f"(c) cold compile-cache process: rc {cold.returncode}\n{err[-3000:]}")
+    t_cold = time.perf_counter() - t_cold
+    c1 = json.loads(stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    warm = subprocess.run(probe, capture_output=True, text=True, timeout=600)
+    t_warm = time.perf_counter() - t0
+    if warm.returncode != 0:
+        raise RuntimeError(f"(c) warm compile-cache process: rc {warm.returncode}\n"
+                           f"{warm.stderr[-3000:]}")
+    c2 = json.loads(warm.stdout.strip().splitlines()[-1])
+    log(f"  (c) --compile-cache {os.path.basename(cache_dir)}: cold process build_seconds "
+        f"kernel {c1['kernel']:.1f} s, native {c1['native']:.2f} s ({c1['process']:.1f} s from "
+        f"its first line to its last, {t_cold:.1f} s until it was read); warm process kernel "
+        f"{c2['kernel']} s, native {c2['native']} s ({c2['process']:.1f} s, {t_warm:.1f} s with "
+        f"its start); {sorted(os.listdir(cache_dir))}")
+    if not (c1["kernel"] > 0 and c1["native"] > 0 and c2["kernel"] == 0 and c2["native"] == 0):
+        failures.append(f"(c) build seconds cold {c1}, warm {c2}")
+
+    # (d) the native loader against the numpy one, on the production GGUF
+    t_d = time.perf_counter()
+    if not native.available():
+        raise RuntimeError(f"(d) the native library is unavailable: {native.build_error}")
+    times, trees = {}, {}
+    for use_native in (True, False, True, False, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, trees[use_native] = load_params(model, device="cuda", use_native=use_native)
+        torch.cuda.synchronize()
+        times.setdefault(use_native, []).append(time.perf_counter() - t0)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(trees[True]),
+                                                 tree_leaves(trees[False])))
+    server = TTSServer(trees[True], cfg, port=0, warmup=False, allow_reload=True)
+    server.start()
+    reloads = {}
+    original = params_mod.load_params
+    try:
+        client = TTSClient(*server.address)
+        for use_native in (True, False, True, False, True, False):
+            params_mod.load_params = functools.partial(original, use_native=use_native)
+            t0 = time.perf_counter()
+            answer = client.reload(model)
+            reloads.setdefault(use_native, []).append(time.perf_counter() - t0)
+            if answer.get("status") != "reloaded":
+                raise RuntimeError(f"(d) /reload: {answer}")
+    finally:
+        params_mod.load_params = original
+        server.shutdown()
+    del trees
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rmed = {k: statistics.median(v) for k, v in reloads.items()}
+    log(f"  (d) load_params of the {os.path.getsize(model) / 1e6:.1f} MB GGUF onto the card, "
+        f"median of 3: native {med[True]:.3f} s, numpy {med[False]:.3f} s (x{med[False] / med[True]:.2f}); "
+        f"/reload native {rmed[True]:.3f} s, numpy {rmed[False]:.3f} s; parameters bitwise "
+        f"equal: {same} [{card}]; (d) {time.perf_counter() - t_d:.1f} s")
+    if not same:
+        failures.append("(d) native and numpy loads differ")
+    if failures:
+        raise RuntimeError("phase 10: " + "; ".join(failures))
+    log(f"phase 10 (training on a mesh) {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return served
+
+
 def run() -> int:
     try:
         import torch
@@ -2348,7 +2733,11 @@ def run() -> int:
             save_params(tiny_model, init_params(TINY_CONFIG, seed=0, device="cuda"), TINY_CONFIG)
             log(f"phase 9 alone ({MULTI_DEVICE_ONLY}), {torch.cuda.device_count()} card(s)")
             multi_device_path(cfg, params, params16, tiny_model, seen, shapes)
-        log(f"{MULTI_DEVICE_ONLY}: phases 1-3 and 9 passed in "
+            model = os.path.join(tmp, "model.gguf")
+            save_params(model, params, cfg)
+            log(f"phase 10 ({MULTI_DEVICE_ONLY}): training on a mesh")
+            mesh_training_path(cfg, params, model, tmp, card, seen, shapes)
+        log(f"{MULTI_DEVICE_ONLY}: phases 1-3, 9 and 10 passed in "
             f"{time.perf_counter() - t_start:.1f} s; no result line (phases 4-8 did not run)")
         return 0
     time_variants(cfg, params, gen, packs)
@@ -2386,6 +2775,9 @@ def run() -> int:
         f32, bf16 = multi_device_path(cfg, params, params16, tiny_model, seen, shapes)
         launches["mrf_stage"] += f32
         launches["mrf_stage_bf16"] += bf16
+        log("phase 10: training on a mesh of the card repeated (distinct cards where there "
+            "are four)")
+        launches["mrf_stage"] += mesh_training_path(cfg, params, model, tmp, card, seen, shapes)
 
     replaces = {"mrf_stage": "zerovox_tpu/ops/pallas/folded_mrf.py:446",
                 "mrf_stage_unfolded": "zerovox_tpu/ops/pallas/folded_mrf.py:720"}
@@ -2401,8 +2793,9 @@ def run() -> int:
         "bf16 max(FLOPs / bf16 rate, bytes / HBM rate); launches are those of the mode's "
         "main path (CLI, engine requests), its streams and its daemon phase (the daemons and "
         "the engines they are held against), each counted from 0, for float32 those of "
-        "phase 8's engine on the trained export, and those of phase 9's regimes (each counted "
-        "from 0 just before its timed run and read just after; the daemons' with their warm-ups)")
+        "phase 8's engine on the trained export, those of phase 9's regimes (each counted "
+        "from 0 just before its timed run and read just after; the daemons' with their warm-ups) "
+        "and those of phase 10's engine on the export of the two-process training run")
     log("e2e: " + "; ".join(f"{p} B=1 wall {w[1]:.2f} ms, B=8 wall {w[8]:.2f} ms"
                             for p, w in walls.items())
         + f"; smoke total {time.perf_counter() - t_start:.1f} s")

@@ -28,7 +28,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 50, mods
+assert len(mods) >= 54, mods
 """
 
 
@@ -93,6 +93,15 @@ def test_entry_points_default_to_cuda():
         TPServingEngine(params, cfg, parallel.make_mesh(model=2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--model", "unused.gguf", "--serve", "--port", "0", "--mesh", "2,1"])
+    from zerovox_tpu_torch.training import make_sharded_train_step
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sharded_train_step(cfg, parallel.make_mesh(), params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parallel.make_pod_mesh(hosts=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):     # before any connection
+        parallel.initialize_distributed("127.0.0.1:1", 2, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--synthetic", "2", "--tiny", "--batch-size", "2", "--mesh", "1,1"])
     # the daemon binds its socket first, then raises and gives the port back
     probe = socket.socket()
     probe.bind(("127.0.0.1", 0))

@@ -294,9 +294,8 @@ def test_cli_input_file_and_unported_flags(tmp_path, rng, model):
                       "--device", "cpu", "--precision", "bfloat16"]) == 0
     w16 = read_wav(out16)[0]
     assert len(w16) > 0 and np.isfinite(w16).all()
-    for flag in ("--verify", "--compile-cache=/tmp/x"):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tcli.main(["--model", ckpt, "--demo", "--device", "cpu", flag])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        tcli.main(["--model", ckpt, "--demo", "--device", "cpu", "--verify"])
     with pytest.raises(ValueError, match="max_n_phonemes"):
         utterance_from_dict({"phonemes": [1] * 17, "style": utt["style"]}, TINY_CONFIG)
 

@@ -22,7 +22,8 @@ than max_n_phonemes, split at punctuation.  --serve runs the daemon of
 runtime/server.py (runtime/client.py talks to it) until SIGTERM or Ctrl-C,
 then drains and exits 0; with --mesh DATA,MODEL it serves over DATA x MODEL
 distinct CUDA devices (MODEL=1: pure data parallelism; MODEL>1: tensor
-parallelism), and raises where the machine has fewer.
+parallelism), and raises where the machine has fewer.  --compile-cache DIR
+keeps the compiled libraries (the MRF kernel, the native loader) in DIR.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import time
 import numpy as np
 
 # flags of the JAX package's CLI whose paths later slices of the port bring
-_NOT_PORTED = ("verify", "compile_cache")
+_NOT_PORTED = ("verify",)
 
 
 def _load_utterance(path: str, cfg):
@@ -145,6 +146,9 @@ def main(argv=None):
                          "pairs with --batch-window-ms).  MODEL>1: tensor-"
                          "parallel (channel-sharded front, time-sharded "
                          "vocoder: one utterance spread across devices)")
+    ap.add_argument("--compile-cache", metavar="DIR",
+                    help="keep the compiled libraries (the MRF kernel's nvcc builds, the "
+                         "native loader) under DIR: a restarted process finds them built")
     for flag in _NOT_PORTED:
         ap.add_argument("--" + flag.replace("_", "-"), nargs="?", const=True,
                         default=None, help=argparse.SUPPRESS)
@@ -154,6 +158,10 @@ def main(argv=None):
         if getattr(args, flag) is not None:
             raise SystemExit(f"--{flag.replace('_', '-')} is not yet ported to "
                              "zerovox_tpu_torch; use python -m zerovox_tpu.cli")
+
+    if args.compile_cache:
+        from zerovox_tpu_torch.utils.compile_cache import enable_compile_cache
+        print(f"compile cache: {enable_compile_cache(args.compile_cache)}", file=sys.stderr)
 
     from zerovox_tpu_torch.io.wav import StreamingWavWriter, write_wav
     from zerovox_tpu_torch.params import load_params

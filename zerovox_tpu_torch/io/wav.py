@@ -37,16 +37,21 @@ def _wav_header(sampling_rate: int, data_bytes: int) -> bytes:
     ])
 
 
-def write_wav(path: str, wav: np.ndarray, sampling_rate: int):
+def write_wav(path: str, wav: np.ndarray, sampling_rate: int, use_native: bool = True):
     """Write a mono waveform as 16-bit PCM WAV.
 
-    Accepts float in [-1, 1] (quantised here) or int16 (written as-is, as the
-    engine's pcm16 option hands it back)."""
+    Accepts float in [-1, 1] (quantised here, by the native writer where
+    use_native and it is available: the same bytes) or int16 (written as-is,
+    as the engine's pcm16 option hands it back)."""
     wav = np.asarray(wav)
     if wav.ndim == 2:
         if wav.shape[0] != 1:
             raise ValueError(f"expected mono waveform, got shape {wav.shape}")
         wav = wav[0]
+    if wav.dtype != np.int16 and use_native:
+        from . import native
+        if native.write_wav_native(path, wav, sampling_rate):
+            return
     pcm = wav if wav.dtype == np.int16 else float_to_pcm16(wav)
     data = pcm.tobytes()
     with open(path, "wb") as f:

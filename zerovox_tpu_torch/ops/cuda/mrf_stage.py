@@ -43,7 +43,9 @@ graph; training takes `hifigan.vocode(..., differentiable=True)`, which runs
 `mrf_stage_ref`.
 
 The kernel is compiled with nvcc, at its first CUDA call (never at import),
-into build/zerovox_tpu_torch/ at the root of the checkout, as one shared
+into the port's build directory (utils.compile_cache.build_dir():
+build/zerovox_tpu_torch/ at the root of the checkout, or --compile-cache's
+DIR; a build of the same source and flags found there is reused), as one shared
 library per mode (the same source, -DZV_MRF_BF16=0/1, both compiled at
 once) with a plain C interface loaded through ctypes.  The build is guarded
 by a lock: concurrent first calls (a server made without a warm-up) wait
@@ -72,7 +74,6 @@ from ..misc import leaky_relu
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "mrf_stage.cu"
-BUILD_DIR = _PKG.parent / "build" / "zerovox_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -426,15 +427,17 @@ def _build_library() -> Library:
     """Build (once per source version) and load the kernel's two libraries,
     one per mode: the same source with -DZV_MRF_BF16=0 and =1, both nvcc
     runs started together."""
+    from ...utils.compile_cache import build_dir, note_loaded
     src = SOURCE.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     for _, tag, _, _ in _MODES:
-        so = BUILD_DIR / f"mrf_stage_{tag}_{digest}.so"
+        so = out_dir / f"mrf_stage_{tag}_{digest}.so"
         if not so.exists():
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             procs[tag] = (so, tmp, subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, f"-DZV_MRF_BF16={int(tag == 'bf16')}", "-o", tmp,
@@ -454,7 +457,8 @@ def _build_library() -> Library:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     stage, clusters, error_string = {}, {}, None
     for dtype, tag, stage_name, clusters_name in _MODES:
-        lib = ctypes.CDLL(str(BUILD_DIR / f"mrf_stage_{tag}_{digest}.so"))
+        lib = ctypes.CDLL(str(out_dir / f"mrf_stage_{tag}_{digest}.so"))
+        note_loaded(out_dir / f"mrf_stage_{tag}_{digest}.so")
         fn = getattr(lib, stage_name)
         fn.argtypes = [p, p, p, p, p, p,       # x w_up in_bias w b y
                        i, i, i, i, i,          # B L_in Cin C L_out

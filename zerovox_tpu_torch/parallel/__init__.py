@@ -1,8 +1,9 @@
-"""Device-mesh parallelism in one process: DP batch splitting and TP channel
-sharding (parallel.tp), the time-parallel vocoder and the two-stage device
-pipeline.  Multi-process training (initialize_distributed, make_pod_mesh)
-is not ported yet."""
+"""Device-mesh parallelism: DP batch splitting and TP channel sharding
+(parallel.tp), the time-parallel vocoder and the two-stage device pipeline
+in one process, and runs of several processes (parallel.distributed:
+initialize_distributed, make_pod_mesh) for training."""
 
+from .distributed import initialize_distributed, make_pod_mesh, pod_device_grid
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, make_mesh, parse_mesh_spec, single_device_mesh
 from .sharding import (batch_specs, param_partition_specs, replicated_specs, shard_batch,
                        shard_params)
@@ -14,4 +15,5 @@ __all__ = ["make_mesh", "single_device_mesh", "parse_mesh_spec", "Mesh",
            "DATA_AXIS", "MODEL_AXIS",
            "param_partition_specs", "replicated_specs", "shard_params",
            "shard_batch", "batch_specs", "make_sharded_synthesize",
-           "PipelinedTTS", "TimeParallelVocoder"]
+           "PipelinedTTS", "TimeParallelVocoder",
+           "initialize_distributed", "make_pod_mesh", "pod_device_grid"]

@@ -34,6 +34,10 @@ MODEL_AXIS = "model"
 
 class Mesh(NamedTuple):
     devices: np.ndarray          # (data, model) object array of torch.device
+    # the data rows this process drives; None: every row.  Only a mesh over
+    # several processes (distributed.make_pod_mesh) sets it, and only the
+    # sharded train step reads it: the serving regimes drive every row.
+    local_rows: Optional[Tuple[int, ...]] = None
 
     @property
     def shape(self) -> Dict[str, int]:

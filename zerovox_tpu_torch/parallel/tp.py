@@ -223,23 +223,37 @@ def adain_res_blk1d_tp(x: torch.Tensor, style: torch.Tensor, p: dict,
     return (h + shortcut) * scalar_as(styletts_decoder._INV_SQRT2, h.dtype)
 
 
-def front_tp(view: dict, cfg: ZeroVoxConfig, src_seq: torch.Tensor, puncts: torch.Tensor,
-             style_embed: torch.Tensor, num_phonemes: Optional[torch.Tensor]):
-    """models.pipeline.front over one data row: the encoder and decoder
-    channel-sharded, the length regulator on the lead.  The inputs lie on
-    the lead; returns (mel, mel_len, log_duration) there."""
+def encode_tp(view: dict, cfg: ZeroVoxConfig, src_seq: torch.Tensor, puncts: torch.Tensor,
+              style_embed: torch.Tensor, num_phonemes: Optional[torch.Tensor]):
+    """fs2_encoder.encode over one data row, channel-sharded: (features,
+    log_duration) on the lead, where the inputs lie."""
     mask = None
     if cfg.use_attention_mask and num_phonemes is not None:
         mask = fs2_encoder.phoneme_mask(num_phonemes, src_seq.shape[-1])
-    features, log_dur = fs2_encoder.encode(view, cfg, src_seq, puncts, style_embed,
-                                           phoneme_mask=mask, fft=fft_block_tp,
-                                           predictor=variance_predictor_tp)
+    return fs2_encoder.encode(view, cfg, src_seq, puncts, style_embed, phoneme_mask=mask,
+                              fft=fft_block_tp, predictor=variance_predictor_tp)
+
+
+def decode_tp(view: dict, cfg: ZeroVoxConfig, hidden: torch.Tensor,
+              style_embed: torch.Tensor) -> torch.Tensor:
+    """styletts_decoder.decode over one data row, channel-sharded: the mel
+    on the lead."""
+    return styletts_decoder.decode(view, cfg, hidden, style_embed, res_blk=res_blk1d_tp,
+                                   adain_blk=adain_res_blk1d_tp)
+
+
+def front_tp(view: dict, cfg: ZeroVoxConfig, src_seq: torch.Tensor, puncts: torch.Tensor,
+             style_embed: torch.Tensor, num_phonemes: Optional[torch.Tensor]):
+    """models.pipeline.front over one data row: encode_tp, the length
+    regulator on the predicted durations (on the lead), decode_tp.  The
+    inputs lie on the lead; returns (mel, mel_len, log_duration) there.
+    Training expands with its target durations instead, between the same
+    two halves."""
+    features, log_dur = encode_tp(view, cfg, src_seq, puncts, style_embed, num_phonemes)
     durations = durations_from_log(log_dur, cfg.max_seq_len)
     hidden, mel_len = length_regulate(features, durations, cfg.max_seq_len,
                                       num_phonemes=num_phonemes)
-    mel = styletts_decoder.decode(view, cfg, hidden, style_embed, res_blk=res_blk1d_tp,
-                                  adain_blk=adain_res_blk1d_tp)
-    return mel, mel_len, log_dur
+    return decode_tp(view, cfg, hidden, style_embed), mel_len, log_dur
 
 
 # --------------------------------------------------------------------------

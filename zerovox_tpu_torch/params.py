@@ -248,16 +248,27 @@ def params_to_arrays(params: dict, cfg: ZeroVoxConfig) -> Dict[str, np.ndarray]:
 
 
 def load_params(path: str, cfg: Optional[ZeroVoxConfig] = None,
-                device="cuda", dtype=torch.float32):
+                device="cuda", dtype=torch.float32, use_native: bool = True):
     """Load a GGUF checkpoint -> (config, params tree on `device`).
 
-    Quantized tensors are dequantized to f32 by the numpy reader."""
+    The metadata is parsed by the Python reader; with use_native the tensor
+    bytes go through the native mmap reader (io.native) where it is
+    available, else (and for quantized tensors, which the numpy reader
+    dequantizes to f32) through the numpy reader."""
     from .io.gguf import GGUFReader
+    from .io import native
     dev = resolve_device(device)
     with GGUFReader(path) as r:
         if cfg is None:
             cfg = ZeroVoxConfig.from_gguf_kv(r.kv)
-        arrays = r.load_all(as_float32=True)
+        arrays = None if use_native and native.available() else r.load_all(as_float32=True)
+    if arrays is None:
+        try:
+            with native.NativeGGUF(path) as ng:
+                arrays = ng.load_all(as_float32=True)
+        except NotImplementedError:
+            with GGUFReader(path) as r:
+                arrays = r.load_all(as_float32=True)
     return cfg, params_from_arrays(arrays, cfg, device=dev, dtype=dtype)
 
 

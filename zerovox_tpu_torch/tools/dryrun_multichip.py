@@ -1,15 +1,18 @@
 """Dry run of the multi-device regimes at TINY geometry on n devices.
 
-The port's counterpart of __graft_entry__.py's dryrun_multichip, without
-the sharded training step and the multi-host layout (not ported yet): one
-sharded inference per regime (pure DP, TP with the time-sharded vocoder,
-the two-stage pipeline, the time-parallel vocoder) and the two serving
-engines (the DP TTSEngine over its scaled ladder, the TP engine with a
-warm-up and a hot reload), each held against the single-device pipeline,
-one OK line per regime.
+The port's counterpart of __graft_entry__.py's dryrun_multichip: one
+sharded training step (make_sharded_train_step on the (data, model) mesh,
+or with --hosts N on the pod layout make_pod_mesh gives N hosts, laid out
+in this one process), held against the one-device step on the same batch;
+one sharded inference per regime (pure DP, TP with the time-sharded
+vocoder, the two-stage pipeline, the time-parallel vocoder) and the two
+serving engines (the DP TTSEngine over its scaled ladder, the TP engine
+with a warm-up and a hot reload), each held against the single-device
+pipeline; one OK line per regime.
 
     python -m zerovox_tpu_torch.tools.dryrun_multichip 4               # the card(s)
     python -m zerovox_tpu_torch.tools.dryrun_multichip 4 --device cpu  # the CPU
+    python -m zerovox_tpu_torch.tools.dryrun_multichip 4 --hosts 2 --device cpu
 
 With fewer distinct cards than n (or on the CPU) the mesh is the one device
 repeated n times (parallel.make_mesh(devices=...)): the same regimes, their
@@ -38,13 +41,18 @@ def mesh_devices(n: int, device: str):
     return [dev] * n
 
 
-def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
+LOSS_RTOL = 1e-5                        # the sharded step's loss against one device's
+
+
+def dryrun_multichip(n_devices: int, device: str = "cuda", n_hosts: int = 1) -> None:
     from zerovox_tpu_torch.config import TINY_CONFIG as cfg
     from zerovox_tpu_torch.models import hifigan
     from zerovox_tpu_torch.models.pipeline import synthesize
     from zerovox_tpu_torch.params import init_params
     from zerovox_tpu_torch.parallel import (PipelinedTTS, TimeParallelVocoder, make_mesh,
-                                            make_sharded_synthesize, shard_batch)
+                                            make_pod_mesh, make_sharded_synthesize, shard_batch)
+    from zerovox_tpu_torch.training import make_sharded_train_step, make_train_step
+    from zerovox_tpu_torch.training.cli import synthetic_dataset
     from zerovox_tpu_torch.runtime.engine import TTSEngine
     from zerovox_tpu_torch.runtime.tp_engine import TPServingEngine
 
@@ -58,9 +66,27 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
              rng.integers(0, cfg.num_puncts + 1, size=(B, cfg.max_n_phonemes)),
              rng.normal(scale=0.1, size=(B, cfg.d_model)).astype(np.float32),
              np.full((B,), cfg.max_n_phonemes))
+    names = []
+
+    if n_hosts > 1:
+        mesh = make_pod_mesh(hosts=n_hosts, model=model, devices=devices)
+    else:
+        mesh = make_mesh(data=data, model=model, devices=devices)
+    res = ((256, 30, 120), (128, 15, 60))
+    tbatch = synthetic_dataset(cfg, B, seed=0)
+    state, step = make_sharded_train_step(cfg, mesh, params, stft_resolutions=res)
+    state, losses = step(state, tbatch)
+    total = float(losses["total"])
+    s1, step1 = make_train_step(cfg, params, device=devices[0], stft_resolutions=res)
+    _, l1 = step1(s1, tbatch)
+    assert np.isfinite(total) and abs(total - float(l1["total"])) <= LOSS_RTOL * abs(total), \
+        f"sharded train step loss {total} against one device's {float(l1['total'])}"
+    print(f"dryrun_multichip train step OK: mesh={mesh.shape} hosts={n_hosts} B={B} "
+          f"loss={total:.6f} (one device {float(l1['total']):.6f})", flush=True)
+    names.append("sharded train step")
+
     ref = synthesize(params, cfg, *batch, device=devices[0])
     ref_wav = ref.wav.float().cpu().numpy()
-    names = []
 
     regimes = [("pure-DP", make_mesh(data=n_devices, model=1, devices=devices))]
     if model > 1:
@@ -119,7 +145,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
 
     distinct = len(set(devices))
     print(f"dryrun_multichip OK: {n_devices} devices ({distinct} distinct: "
-          f"{', '.join(str(d) for d in dict.fromkeys(devices))}) + inference regimes: "
+          f"{', '.join(str(d) for d in dict.fromkeys(devices))}), hosts={n_hosts}: "
           + ", ".join(names), flush=True)
 
 
@@ -129,8 +155,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: distinct cards where there are n, else the first "
                          "repeated) or cpu (the CPU repeated)")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="lay the training step's mesh out as this many hosts' pod "
+                         "(parallel.make_pod_mesh), in this one process")
     args = ap.parse_args(argv)
-    dryrun_multichip(args.n_devices, args.device)
+    dryrun_multichip(args.n_devices, args.device, args.hosts)
     return 0
 
 

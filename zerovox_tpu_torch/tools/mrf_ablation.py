@@ -35,6 +35,7 @@ from ..models.hifigan import pack_vocoder
 from ..models.pipeline import cast_params
 from ..ops.cuda import mrf_stage as ms
 from ..params import init_params
+from ..utils.compile_cache import build_dir
 
 _MMA3 = """          mma_tf32(acc[i][j], al, bh[j][0], bh[j][1]);
           mma_tf32(acc[i][j], ah, bl[j][0], bl[j][1]);
@@ -68,7 +69,7 @@ def build_all(names, dtype):
     kernel and each ablation, nvcc runs in parallel."""
     tag, entry_name = next((m[1], m[2]) for m in ms._MODES if m[0] == dtype)
     src = ms.SOURCE.read_text()
-    out = ms.BUILD_DIR / "ablation"
+    out = build_dir() / "ablation"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:

@@ -8,6 +8,13 @@ write to one writer thread, so a training loop waits for the device copy
 but not for the disk; each write goes to a temporary file in the same
 directory that is then renamed over the final name, so a file of that name
 is always whole.  Keep-last-N retention deletes the older steps' files.
+
+A sharded state (make_sharded_train_step) is saved whole: its pieces are
+gathered into the full parameter tree and the full Adam moments on the
+host, so a checkpoint does not depend on the mesh it was made on, and
+restores onto any mesh (the pieces cut from the whole tensors are the same
+bits).  In a run of several processes one process writes (the training
+CLI's rank 0).
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ class CheckpointManager:
         writer thread, or before returning with wait=True."""
         step = int(state.step) if step is None else int(step)
         host = tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t,
-                        {"params": state.params, "opt_state": state.opt_state,
+                        {"params": _whole(state.params, state.params),
+                         "opt_state": _whole(state.opt_state, state.params),
                          "step": int(state.step)})
         future = self._writer.submit(self._write, host, step)
         with self._lock:
@@ -100,8 +108,19 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         self.wait_until_finished()
         saved = torch.load(self.path(step), map_location="cpu", weights_only=True)
-        params = _into(target.params, saved["params"], "params")
-        opt_state = _into(target.opt_state, saved["opt_state"], "opt_state")
+        layout = getattr(target.params, "layout", None)
+        if layout is None:
+            params = _into(target.params, saved["params"], "params")
+            opt_state = _into(target.opt_state, saved["opt_state"], "opt_state")
+            return TrainState(params, opt_state, int(saved["step"]))
+        # a sharded target: the whole trees checked against its shapes, then cut
+        shapes = layout.template
+        params = layout.scatter(_into(shapes, saved["params"], "params"))
+        opt_state = _into({k: shapes if _param_shaped(v, target.params) else v
+                           for k, v in target.opt_state.items()},
+                          saved["opt_state"], "opt_state")
+        opt_state = {k: dict(layout.scatter(v)) if _param_shaped(target.opt_state[k], target.params)
+                     else v for k, v in opt_state.items()}
         return TrainState(params, opt_state, int(saved["step"]))
 
     def close(self):
@@ -117,9 +136,26 @@ class CheckpointManager:
         self.close()
 
 
+def _param_shaped(node, params) -> bool:
+    """Whether an optimizer-state entry is a tree like the params (a moment)."""
+    return isinstance(node, dict) and node.keys() == params.keys()
+
+
+def _whole(tree, params):
+    """A state's params, or its optimizer state, with a sharded state's
+    pieces gathered into whole tensors (on the host); anything else as it is."""
+    layout = getattr(params, "layout", None)
+    if layout is None:
+        return tree
+    if tree is params:
+        return layout.gather(tree)
+    return {k: layout.gather(v) if _param_shaped(v, params) else v for k, v in tree.items()}
+
+
 def _into(template, saved, where: str):
     """`saved` (a host tree) laid out as `template`: same keys, lengths and
-    tensor shapes, tensors moved to the template's device and dtype."""
+    tensor shapes, tensors moved to the template's device and dtype (kept on
+    the host for a template on the meta device)."""
     if isinstance(template, dict):
         if not isinstance(saved, dict) or set(saved) != set(template):
             raise ValueError(f"checkpoint {where}: its keys do not match the template's "
@@ -134,6 +170,8 @@ def _into(template, saved, where: str):
             got = tuple(saved.shape) if torch.is_tensor(saved) else type(saved).__name__
             raise ValueError(f"checkpoint {where}: {got}, the template's "
                              f"{tuple(template.shape)}")
+        if template.device.type == "meta":
+            return saved.to(template.dtype)
         return saved.to(template.device, template.dtype)
     return type(template)(saved)
 
@@ -141,5 +179,5 @@ def _into(template, saved, where: str):
 def export_weights_gguf(path: str, state: TrainState, cfg):
     """Serving export: the weights alone, as a GGUF in the reference's
     format (params.save_params; the JAX package's export of the same
-    weights is the same file)."""
-    save_params(path, state.params, cfg)
+    weights is the same file).  A sharded state is gathered first."""
+    save_params(path, _whole(state.params, state.params), cfg)

@@ -1,4 +1,4 @@
-"""Training command line: dataset -> fit() -> GGUF export, on one card.
+"""Training command line: dataset -> fit() -> GGUF export, on a mesh of cards.
 
 The port of zerovox_tpu/training/cli.py:
 
@@ -14,9 +14,25 @@ ndata axis:
 package's draws, seed for seed).
 
 It trains on --device (default cuda; without a card that raises, it does
-not fall back to the CPU).  --checkpoint-dir resumes: running the same
-command again continues from the directory's latest step.  Not carried
-over yet: --mesh (the multi-device regimes) and --compile-cache.
+not fall back to the CPU) over every visible card on the data axis, or
+--mesh DATA,MODEL distinct cards (MODEL > 1: channel tensor parallelism;
+not with --device cpu).  --checkpoint-dir resumes: running the same command
+again continues from the directory's latest step.  --compile-cache DIR
+keeps the compiled libraries (the MRF kernel's nvcc builds, the native
+loader) in DIR, so another process finds them built.
+
+Several processes train together when the environment names a run
+(torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK):
+
+  torchrun --nproc-per-node 2 -m zerovox_tpu_torch.training.cli --synthetic 8 \
+      --batch-size 8 --checkpoint-dir ck/
+
+The mesh is then the pod layout over every process's devices
+(parallel.distributed.make_pod_mesh: data across processes, --mesh's MODEL
+within each); the backend is gloo where processes share a card or run on
+the CPU, nccl where each owns distinct cards.  Rank 0 alone writes the
+checkpoints and the export; every process restores and prints the same
+final loss.
 """
 
 from __future__ import annotations
@@ -91,6 +107,8 @@ def main(argv=None):
     ap.add_argument("--no-stft", action="store_true",
                     help="skip the multi-resolution STFT loss (no vocoder gradient; "
                          "much cheaper)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="device mesh split (default: every card on data)")
     ap.add_argument("--accum", type=int, default=1, metavar="K",
                     help="gradient accumulation: each step's batch as K microbatches "
                          "(activation memory of batch/K rows)")
@@ -101,12 +119,17 @@ def main(argv=None):
                     help="optimizer steps between checkpoints")
     ap.add_argument("--export", help="write weights-only GGUF here at the end")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compile-cache", metavar="DIR",
+                    help="keep the compiled libraries (the MRF kernel's nvcc builds, the "
+                         "native loader) under DIR: another process finds them built")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; cpu for the plain "
                          "path without a card)")
     args = ap.parse_args(argv)
     if args.epochs < 1:
         ap.error(f"--epochs must be >= 1 (got {args.epochs})")
+    if args.mesh and args.device == "cpu":
+        ap.error("--mesh spans CUDA devices; it does not run with --device cpu")
     if args.accum < 1:
         raise SystemExit(f"--accum must be >= 1 (got {args.accum})")
     if args.warmup_steps < 0:
@@ -115,14 +138,54 @@ def main(argv=None):
         raise SystemExit(f"--batch-size {args.batch_size} must divide by --accum "
                          f"{args.accum} (each microbatch is batch/accum rows)")
 
+    if args.compile_cache:
+        from ..utils.compile_cache import enable_compile_cache
+        print(f"train: compile cache {enable_compile_cache(args.compile_cache)}",
+              file=sys.stderr)
+
+    from ..parallel import distributed
+
+    # a run of several processes: every process runs this same command with
+    # the environment set (torchrun); before any other device work
+    is_dist = distributed.initialize_distributed(device=args.device)
+    rank = distributed.process_index()
+    if is_dist:
+        print(f"train: distributed process {rank}/{distributed.process_count()}",
+              file=sys.stderr)
+    try:
+        return _train(ap, args, is_dist, rank)
+    finally:
+        distributed.shutdown()
+
+
+def _train(ap, args, is_dist: bool, rank: int) -> int:
     from ..config import TINY_CONFIG, ZeroVoxConfig
-    from ..device import resolve_device
+    from ..parallel import distributed, make_mesh, parse_mesh_spec
     from ..params import init_params, load_params
     from .checkpoint import CheckpointManager, export_weights_gguf
     from .fit import fit, make_eval_fn
-    from .train import make_lr_schedule, make_optimizer, make_train_step
+    from .train import make_lr_schedule, make_optimizer, make_sharded_train_step
 
-    dev = resolve_device(args.device)
+    d, m = None, 1
+    if args.mesh:
+        try:
+            d, m = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+    if is_dist:
+        # the pod layout: data spans the processes, model stays inside one
+        # process's devices; only --mesh's model part is honoured
+        mesh = distributed.make_pod_mesh(hosts=distributed.process_count(), model=m)
+        if args.mesh and mesh.shape["data"] != d:
+            print(f"train: distributed mode derives the data axis from the "
+                  f"global device count; --mesh data={d} ignored "
+                  f"(using {mesh.shape['data']})", file=sys.stderr)
+    elif args.mesh or args.device == "cuda":
+        mesh = make_mesh(data=d, model=m)          # default: every card on the data axis
+    else:                                          # one named device (cpu, cuda:1, ...)
+        mesh = make_mesh(data=1, model=1, devices=[args.device])
+    dev = mesh.devices[mesh.local_rows[0] if mesh.local_rows else 0, 0]
+
     if args.init:
         cfg, params = load_params(args.init, device=dev)
         print(f"train: initialized from {args.init}", file=sys.stderr)
@@ -134,6 +197,16 @@ def main(argv=None):
             else synthetic_dataset(cfg, args.synthetic, seed=args.seed))
     ndata = data.src_seq.shape[0]
 
+    d = mesh.shape["data"]
+    if args.batch_size % d:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide by the "
+                         f"data-axis size {d}")
+    if args.batch_size % (args.accum * d):
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must divide by "
+            f"accum*data = {args.accum}*{d} (each microbatch is "
+            f"batch/accum rows, still sharded over the data axis)")
+
     use_stft = not args.no_stft
     # small geometries need STFT windows that fit their waveform
     stft_res = ((256, 30, 120), (128, 15, 60)) if cfg.wav_len < 16384 else None
@@ -144,10 +217,10 @@ def main(argv=None):
     lr = make_lr_schedule(args.lr, total_steps, schedule=args.lr_schedule,
                           warmup_steps=args.warmup_steps)
     optimizer = make_optimizer(lr, args.weight_decay)
-    state, step = make_train_step(cfg, params, optimizer=optimizer, device=dev,
-                                  use_stft=use_stft, stft_resolutions=stft_res,
-                                  accum_steps=args.accum)
-    eval_fn = (make_eval_fn(cfg, use_stft=use_stft, stft_resolutions=stft_res)
+    state, step = make_sharded_train_step(cfg, mesh, params, optimizer=optimizer,
+                                          use_stft=use_stft, stft_resolutions=stft_res,
+                                          accum_steps=args.accum)
+    eval_fn = (make_eval_fn(cfg, mesh, use_stft=use_stft, stft_resolutions=stft_res)
                if args.val_split > 0 else None)
 
     mgr = None
@@ -155,12 +228,15 @@ def main(argv=None):
         mgr = CheckpointManager(args.checkpoint_dir)
         last = mgr.latest_step()
         if last is not None:
-            state = mgr.restore(state)
+            state = mgr.restore(state)       # every process restores
             print(f"train: resumed from step {last} ({args.checkpoint_dir})", file=sys.stderr)
+        if rank != 0:                         # rank 0 alone writes
+            mgr.close()
+            mgr = None
 
-    print(f"train: device={dev} ndata={ndata} batch={args.batch_size} "
-          f"accum={args.accum} epochs={args.epochs} val_split={args.val_split} "
-          f"stft={use_stft}", file=sys.stderr)
+    print(f"train: mesh={dict(mesh.shape)} devices={_device_names(mesh)} ndata={ndata} "
+          f"batch={args.batch_size} accum={args.accum} epochs={args.epochs} "
+          f"val_split={args.val_split} stft={use_stft}", file=sys.stderr)
     t0 = time.time()
     try:
         state, history = fit(
@@ -173,13 +249,21 @@ def main(argv=None):
                 mgr.save(state, wait=True)   # always leave a resumable state
             finally:
                 mgr.close()
+    distributed.barrier()                     # the checkpoint is whole for every process
     print(f"train: {state.step} total steps, final train loss "
           f"{history[-1]['train_loss']:.6f} ({time.time() - t0:.1f}s)", file=sys.stderr)
 
     if args.export:
-        export_weights_gguf(args.export, state, cfg)
-        print(f"train: exported weights to {args.export}", file=sys.stderr)
+        if rank == 0:
+            export_weights_gguf(args.export, state, cfg)
+            print(f"train: exported weights to {args.export}", file=sys.stderr)
+        distributed.barrier()
     return 0
+
+
+def _device_names(mesh) -> str:
+    names = [str(d) for d in mesh.devices.flat]
+    return ",".join(dict.fromkeys(names))
 
 
 if __name__ == "__main__":

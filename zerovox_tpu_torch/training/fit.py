@@ -24,18 +24,25 @@ import torch
 
 from ..config import ZeroVoxConfig
 from ..params import tree_leaves
-from .train import TrainBatch, TrainState, batch_to, loss_fn
+from .train import TrainBatch, TrainState, batch_to, loss_fn, sharded_losses
 
 
-def make_eval_fn(cfg: ZeroVoxConfig, use_stft: bool = True, stft_resolutions=None
+def make_eval_fn(cfg: ZeroVoxConfig, mesh=None, use_stft: bool = True, stft_resolutions=None
                  ) -> Callable[[Any, TrainBatch], Dict[str, torch.Tensor]]:
     """Loss-only forward, under torch.no_grad: eval(params, batch) -> the
-    loss dict.  The batch's tensors lie where params do (fit puts them
-    there)."""
+    loss dict.  params is a state's params: on a mesh (make_sharded_train_step
+    on `mesh`) the batch is split over its data rows and the loss is the
+    whole batch's; a plain tree takes a batch that lies where it does (fit
+    puts it there)."""
     def eval_losses(params, batch: TrainBatch) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            return loss_fn(params, cfg, batch, use_stft=use_stft,
-                           stft_resolutions=stft_resolutions)[1]
+        layout = getattr(params, "layout", None)
+        if layout is None:
+            with torch.no_grad():
+                return loss_fn(params, cfg, batch, use_stft=use_stft,
+                               stft_resolutions=stft_resolutions)[1]
+        if mesh is not None and layout.mesh.devices.shape != mesh.devices.shape:
+            raise ValueError(f"eval on mesh {mesh.shape}: the state lies on {layout.mesh.shape}")
+        return sharded_losses(layout, params, cfg, batch, use_stft, stft_resolutions)
     return eval_losses
 
 
@@ -70,8 +77,11 @@ def fit(state: TrainState,
     """Train `state` over `data` for `epochs`; returns (state, history).
 
     data: a TrainBatch of arrays with a leading ndata axis; it is moved once
-      to the device the state's params lie on.
-    step_fn: from make_train_step (or any (state, batch) -> (state, losses)).
+      to the device the state's params lie on (a sharded state's: its
+      master row's first device).
+    step_fn: from make_sharded_train_step or make_train_step (or any
+      (state, batch) -> (state, losses)); a sharded step splits each batch
+      over its mesh's data rows.
     val_split: trailing fraction of the (once-shuffled) batches reserved for
       the loss-only pass each epoch.
     eval_fn: from make_eval_fn; required when val_split leaves validation

@@ -67,14 +67,57 @@ def tts_losses(mel_pred, mel_target, mel_mask, log_dur_pred, dur_target, phoneme
                wav_pred=None, wav_target=None, stft_resolutions=None) -> Dict[str, torch.Tensor]:
     """Loss dict {"mel_l1", "duration_mse"[, "stft"], "total"}.  dur_target
     is in frames, compared in log space against the predictor's log(d + 1)
-    parameterisation."""
+    parameterisation.  It is losses_from_sums of the whole batch's sums: the
+    values masked_l1, masked_mse and stft_loss give."""
+    return losses_from_sums(loss_sums(mel_pred, mel_target, mel_mask, log_dur_pred, dur_target,
+                                      phoneme_mask, wav_pred, wav_target, stft_resolutions))
+
+
+# --------------------------------------------------------------------------
+# the losses from sums: a batch split over devices or processes adds its parts'
+# --------------------------------------------------------------------------
+
+def loss_sums(mel_pred, mel_target, mel_mask, log_dur_pred, dur_target, phoneme_mask,
+              wav_pred=None, wav_target=None, stft_resolutions=None) -> torch.Tensor:
+    """The sums tts_losses divides, over this part of a batch, as one vector:
+    [mel |d| sum, mel count, duration squared-error sum, duration count],
+    then per STFT resolution [sum (t - p)^2, sum t^2, sum |log t - log p|,
+    magnitude count], in float32 (float64 for a float64 forward).  Sums over
+    the parts of a batch, added in any order,
+    give losses_from_sums the whole batch's losses: the masked means divide
+    by the whole batch's counts, and the spectral convergence is a norm over
+    the whole batch (it is not a mean of per-row terms)."""
+    if mel_mask.dim() < mel_pred.dim():
+        mel_mask = mel_mask[..., None]
+    m = mel_mask.to(mel_pred.dtype)
+    mel_cnt = m.sum() * (mel_pred.shape[-1] if m.shape[-1] == 1 else 1)
+    p = phoneme_mask.to(log_dur_pred.dtype)
     log_dur_target = torch.log(dur_target.to(torch.float32) + 1.0)
-    out = {
-        "mel_l1": masked_l1(mel_pred, mel_target, mel_mask),
-        "duration_mse": masked_mse(log_dur_pred, log_dur_target, phoneme_mask),
-    }
+    out = [((mel_pred - mel_target).abs() * m).sum(), mel_cnt,
+           ((log_dur_pred - log_dur_target) ** 2 * p).sum(), p.sum()]
     if wav_pred is not None and wav_target is not None:
-        kw = {} if stft_resolutions is None else {"resolutions": stft_resolutions}
-        out["stft"] = stft_loss(wav_pred, wav_target, **kw)
+        for fft_size, hop, win in stft_resolutions or STFT_RESOLUTIONS:
+            mp = stft_magnitude(wav_pred, fft_size, hop, win)
+            mt = stft_magnitude(wav_target, fft_size, hop, win)
+            out += [((mt - mp) ** 2).sum(), (mt ** 2).sum(),
+                    (torch.log(mt) - torch.log(mp)).abs().sum(),
+                    torch.tensor(float(mt.numel()), device=mt.device)]
+    acc = torch.float64 if mel_pred.dtype == torch.float64 else torch.float32
+    return torch.stack([o.to(acc) for o in out])
+
+
+def losses_from_sums(sums: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """tts_losses' dict from loss_sums' vector (summed over the batch's
+    parts): the same divisions, clamps and square roots, made once."""
+    out = {"mel_l1": sums[0] / torch.clamp(sums[1], min=1.0),
+           "duration_mse": sums[2] / torch.clamp(sums[3], min=1.0)}
+    n_res = (sums.shape[0] - 4) // 4
+    if n_res:
+        total = 0.0
+        for r in range(n_res):
+            sq_d, sq_t, abs_log, n = sums[4 + 4 * r:8 + 4 * r]
+            sc = torch.sqrt(sq_d) / torch.clamp(torch.sqrt(sq_t), min=1e-7)
+            total = total + sc + abs_log / n
+        out["stft"] = total / n_res
     out["total"] = sum(out.values())
     return out
