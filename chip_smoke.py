@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the MRF-stage kernel from csrc/ with nvcc, both modes at once
-     (timed, ptxas report);
+  2. build the MRF-stage kernel from csrc/ with nvcc, its three modes at
+     once (f32, bf16, f16-staged; timed, ptxas report);
   3. hold the kernel against its plain PyTorch version (mrf_stage_ref) on
      the four production MRF stages (the options vocode gives them) and
      the mrf_stage_unfolded entry, TF32 off, in float32 and in bfloat16, at
@@ -111,11 +111,39 @@ Phases (any failure exits non-zero and prints no result line):
      builds nothing (the kernel's nvcc, the native library); (d) the native
      GGUF loader against the numpy one: load_params and /reload times
      (median of 3), the parameters bitwise equal;
- 11. print the kernels line, then the card line, then {"ok": true, ...}.
+ 11. checkpoint verification (zerovox_tpu_torch.utils.verify, `cli
+     --verify`), production geometry, random weights from seed 0, a GGUF
+     written by save_params: (a) the kernel's f16-staged mode against
+     mrf_stage_ref under f16_staging on the four production stages at B=1
+     and full length, per element within 2 f16 ulps of its magnitude plus
+     one at max|out|, timed beside the plain version and the bounds; two
+     controls on the same inputs, which leave the activations unrounded
+     (the kernel's f32 mode on the staged packs, and the plain stage with
+     every conv's activation truncated to TF32 as an MMA reads raw f32),
+     must lie SEP_PROD (production stages) and SEP_PROBE times (a probe of
+     one resblock of one dilation per stage, the same options) farther
+     from the staged plain version in rms than the staged kernel; (b)
+     verify_checkpoint on the card against a stand-in reference, the port's
+     own staged stages on the CPU, patched in where the reference classes'
+     worker would run, on two checkpoints: the seed-0 one, whose decoder
+     and vocoder boundaries must PASS and whose encoder must too unless
+     every difference is a pitch or energy bucket moved by the staged sums'
+     order (audited and printed), and the same weights with the pitch and
+     energy predictions moved below bucket 0 (no bucket can move), whose
+     three boundaries must all PASS; every stage of the vocoder must launch
+     the kernel's f16-staged mode (launches counted from 0 before the first
+     run, read after the second); the seed-0 decoder's distance is printed
+     beside the card's under pinned cuDNN algorithms, without cuDNN, and
+     the staged decoder with float64 sums, each against the CPU and the
+     float64 one; (c) `python -m zerovox_tpu_torch.cli --verify` as a subprocess with
+     ZEROVOX_REF an empty directory: exit 2 with the reason (and exit 0
+     where ZEROVOX_REF or the checkout's reference/ holds a tree);
+ 12. print the kernels line, then the card line, then {"ok": true, ...}.
 
 With --multi-device-only it runs phases 1-3, 9 and 10 and prints no result
 line: the quick way to drive the distinct-card regimes on a machine with
-several cards.
+several cards.  With --verify-only it runs phases 1, 2 and 11 and prints no
+result line.
 """
 
 from __future__ import annotations
@@ -423,7 +451,7 @@ def check_stages(cfg, params, gen, pk, extra=()):
                 f"{plan.clusters * n_rb} CTAs x 256 threads, tile {plan.tile} rows "
                 f"(window {plan.tile + 2 * ms.stage_halo(dils, kr)}), chunk {plan.kc} ch, "
                 f"warp tile {plan.mt}x m16 by {plan.nt}x n8, {plan.smem} B shared; wave "
-                f"{ms.wave_clusters(x.device.index or 0, n_rb, plan.nt, plan.mt, dtype)} "
+                f"{ms.wave_clusters(x.device.index or 0, n_rb, plan.nt, plan.mt, ms.kernel_mode(dtype))} "
                 f"clusters")
             if name == "mrf_stage":
                 tot["ms"] += ms_k
@@ -2677,6 +2705,412 @@ def mesh_training_path(cfg, params, model, tmp, card, seen, held):
     return served
 
 
+# --------------------------------------------------------------------------
+# phase 11: checkpoint verification (--verify, the kernel's f16-staged mode)
+# --------------------------------------------------------------------------
+
+# the f16-staged kernel against staged mrf_stage_ref, per element: 2 f16 ulps
+# of its magnitude (the sums run in another order, so a rounding of an
+# operand can fall the other way) plus one ulp at the output's scale
+F16_STAGE_ULPS = 2.0
+F16_ULP = 2.0 ** -10
+# the controls of (a), which leave the activations unrounded, against the
+# staged kernel: rms(control - staged plain) over rms(kernel - staged plain)
+# must reach these.  A production stage's chain of 18 staged convs turns
+# another order of sums into f16 roundings that fall the other way, close
+# to what unrounded activations give; a probe of two convs does not.
+SEP_PROD = 1.5
+SEP_PROBE = 4.0
+# (b)'s second checkpoint: the seed-0 weights with the pitch and energy
+# predictors' output bias lowered by this, so every prediction lies below
+# bucket 0's edge and no order of sums can move a bucket
+SATURATE = 16.0
+# `python3 chip_smoke.py --verify-only`: phases 1-2, then phase 11 alone, and
+# no result line
+VERIFY_ONLY = "--verify-only"
+
+
+def ulp_gate(got, ref):
+    """(max|got - ref|, the largest share of the ulp gate: F16_STAGE_ULPS
+    f16 ulps of each element plus one at max|ref|, rms(got - ref) /
+    rms(ref))."""
+    d = (got - ref).abs()
+    scale = ref.abs().max()
+    worst = (d / (F16_ULP * (F16_STAGE_ULPS * ref.abs() + scale))).max().item()
+    return d.max().item(), worst, (d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+
+
+def unrounded_controls(ms, x, blocks, dils, kr, kw, packed, ref, got, sep, what):
+    """The controls of (a) on one stage call: the kernel's f32 mode on the
+    staged packs (f16 weights, activations as they are: what f32 arithmetic
+    launched with the staged weights computes) and the plain stage with f16
+    weights and every activation truncated to TF32 (what a TF32 MMA reads of
+    an unrounded f32 operand).  Each must lie `sep` times farther from the
+    staged plain version `ref` in rms than the staged kernel `got`; returns
+    the log text."""
+    import torch
+    from zerovox_tpu_torch.ops.conv import (conv1d, conv_transpose1d, f16_staging,
+                                            round_f16)
+
+    def tf32(t):
+        return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+    def conv(x_, w, b=None, **k):
+        return conv1d(tf32(x_), round_f16(w), b, **k)
+
+    def conv_t(x_, w, b=None, **k):
+        return conv_transpose1d(tf32(x_), round_f16(w), b, **k)
+
+    with f16_staging(False):
+        f32_mode = ms._launch(x, blocks, dils, kr, kw.get("upsample"), kw.get("in_bias"),
+                              kw.get("in_leaky"), kw.get("out_leaky"),
+                              packed._replace(staged=False))
+        truncated = ms.mrf_stage_ref(x, blocks, dils, kr, conv=conv, conv_transpose=conv_t,
+                                     **kw)
+    rms = ulp_gate(got, ref)[2]
+    text, bad = f"rms {rms:.3e} of rms(out)", []
+    for label, c in (("f32 mode on the staged packs", f32_mode),
+                     ("activations truncated to TF32", truncated)):
+        _, worst, r = ulp_gate(c, ref)
+        text += (f"; {label}: rms {r:.3e} (x{r / rms:.1f} the kernel's" if rms else
+                 f"; {label}: rms {r:.3e} (the kernel's 0") + f"), {worst:.2f} of the ulp gate"
+        if not r >= sep * rms:
+            bad.append(label)
+    if bad:
+        raise RuntimeError(f"{what}: the staged kernel is not {sep}x closer to the staged "
+                           f"plain version than {', '.join(bad)}: {text}")
+    return text
+
+
+def staged_stages(cfg, params, gen, pk):
+    """(a) The kernel's f16-staged mode against mrf_stage_ref under
+    f16_staging on the four production stages at B=1 and full length, with
+    vocode's options, on weights packed staged; each held per element to
+    F16_STAGE_ULPS f16 ulps plus one at max|out|, timed (CUDA events)
+    beside the plain version and the bounds, and held apart from the
+    unrounded controls (SEP_PROD), as is a probe of one resblock of one
+    dilation with the stage's options (SEP_PROBE).  Returns the kernels-line
+    record (sums over the four stages)."""
+    import torch
+    from zerovox_tpu_torch.models.hifigan import pack_vocoder
+    from zerovox_tpu_torch.ops.conv import f16_staging
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    _, tf32, bw, f16 = pk
+    dils, kr = cfg.resblock_dilations, cfg.resblock_kernel_size
+    n_convs = sum(2 * len(d) for d in dils)
+    rec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, bound_by="operations")
+    tf32_bound = 0.0
+    with torch.no_grad(), f16_staging():
+        packs = pack_vocoder(params, cfg)
+        if not all(p.staged for p in packs):
+            raise RuntimeError("phase 11 (a): pack_vocoder under f16_staging packed unstaged weights")
+        for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, 1, cfg.max_seq_len):
+            got = ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw)
+            ref = ms.mrf_stage_ref(x, blocks, dils, kr, **kw)
+            torch.cuda.synchronize()
+            what = f"phase 11 (a) f16-staged stage {i + 1} B=1 L={x.shape[1]}"
+            if got.shape != ref.shape or got.dtype != torch.float32:
+                raise RuntimeError(f"{what}: {got.dtype} {tuple(got.shape)} vs {tuple(ref.shape)}")
+            err, worst, _ = ulp_gate(got, ref)
+            scale = ref.abs().max().item()
+            if not torch.isfinite(got).all() or not worst <= 1.0:
+                raise RuntimeError(f"{what}: |d| reaches {worst:.2f} of its tolerance "
+                                   f"({F16_STAGE_ULPS} f16 ulps + one at max|out| {scale:.3e})")
+            log(f"{what} against the unrounded controls: "
+                + unrounded_controls(ms, x, blocks, dils, kr, kw, packs[i], ref, got, SEP_PROD,
+                                     what))
+            probe = [dict(convs1=blocks[0]["convs1"][:1], convs2=blocks[0]["convs2"][:1])]
+            probe_dils = [[dils[0][0]]]
+            probe_pack = ms.pack_stage(probe, probe_dils, kr, kw["upsample"]["w"])
+            p_got = ms.mrf_stage(x, probe, probe_dils, kr, packed=probe_pack, **kw)
+            p_ref = ms.mrf_stage_ref(x, probe, probe_dils, kr, **kw)
+            p_what = f"phase 11 (a) probe of stage {i + 1} (one resblock, dilation {dils[0][0]})"
+            _, p_worst, _ = ulp_gate(p_got, p_ref)
+            if not torch.isfinite(p_got).all() or not p_worst <= 1.0:
+                raise RuntimeError(f"{p_what}: |d| reaches {p_worst:.2f} of the ulp gate")
+            log(f"{p_what}: {p_worst:.3f} of the ulp gate, "
+                + unrounded_controls(ms, x, probe, probe_dils, kr, kw, probe_pack, p_ref, p_got,
+                                     SEP_PROBE, p_what))
+            del p_got, p_ref
+            ms_k = cuda_ms(lambda: ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw), reps=5)
+            ms_p = cuda_ms(lambda: ms.mrf_stage_ref(x, blocks, dils, kr, **kw), reps=3)
+            w_numel = sum(c[k].numel() for b in blocks for cs in ("convs1", "convs2")
+                          for c in b[cs] for k in ("w", "b"))
+            w_numel += kw["upsample"]["w"].numel() + kw["in_bias"].numel()
+            flops, nbytes = stage_work(x, C, got.shape[1], K_up, n_convs, kr, w_numel)
+            # the least time: f16 operands on the dense f16 tensor cores (the
+            # bf16 rate), f32 tensors in device memory; the kernel's own
+            # design does one TF32 product per product
+            bound = 1e3 * max(flops / f16, nbytes / bw)
+            tf32_bound += 1e3 * max(flops / tf32, nbytes / bw)
+            if nbytes / bw > flops / f16:
+                rec["bound_by"] = "bytes"
+            plan = ms.stage_plan(x.device, C, dils, kr, 1, got.shape[1], x.shape[2], K_up,
+                                 kw["upsample"]["stride"], torch.float32)
+            log(f"{what}: max|d| {err:.3e} ({worst:.2f} of the ulp gate at max|out| {scale:.3e})"
+                f"  kernel {ms_k:.3f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms"
+                f"  bound f16 tensor cores {bound:.3f} ms, one TF32 product "
+                f"{1e3 * max(flops / tf32, nbytes / bw):.3f} ms; {plan.clusters} clusters of "
+                f"tile {plan.tile}")
+            rec["ms"] += ms_k
+            rec["plain_ms"] += ms_p
+            rec["bound_ms"] += bound
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            del got, ref
+    log(f"phase 11 (a) four f16-staged launches: kernel {rec['ms']:.3f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms, bound f16 tensor cores {rec['bound_ms']:.3f} ms "
+        f"({100 * rec['bound_ms'] / rec['ms']:.0f} %), one TF32 product {tf32_bound:.3f} ms "
+        f"({100 * tf32_bound / rec['ms']:.0f} %)")
+    torch.cuda.empty_cache()
+    return rec
+
+
+class CpuStages:
+    """The stand-in reference of phase 11 (b), with the interface of the
+    reference classes' worker (refharness.stage_proc.RefStages): the port's
+    own stages on the CPU under f16_staging, on the same GGUF."""
+
+    def __init__(self, lib, gguf_path, cfg, *args, **kwargs):
+        from zerovox_tpu_torch.params import load_params
+        self.cfg, self.params = load_params(gguf_path, device="cpu")
+
+    def encode(self, src, puncts, style):
+        """(features, log_duration, hidden, mel_len, taps) on the CPU."""
+        return staged_encode(self.params, self.cfg, "cpu", src, puncts, style)
+
+    def encoder(self, src, puncts, style, num_phonemes):
+        _, _, hidden, total, _ = self.encode(src, puncts, style)
+        return hidden[0].numpy(), int(total[0])
+
+    def decoder(self, hidden, style):
+        import torch
+        from zerovox_tpu_torch.models import styletts_decoder
+        from zerovox_tpu_torch.ops.conv import f16_staging
+        with torch.no_grad(), f16_staging():
+            return styletts_decoder.decode(self.params, self.cfg, torch.tensor(hidden)[None],
+                                           torch.tensor(style)[None])[0].numpy()
+
+    def vocoder(self, mel):
+        import torch
+        from zerovox_tpu_torch.models import hifigan
+        from zerovox_tpu_torch.ops.conv import f16_staging
+        with torch.no_grad(), f16_staging():
+            return hifigan.vocode(self.params, self.cfg, torch.tensor(mel)[None])[0].numpy()
+
+    def free(self):
+        pass
+
+
+def staged_encode(params, cfg, device, src, puncts, style):
+    """The encoder and the length regulator under f16_staging on `device`,
+    as utils/verify.py runs them, with the encoder's taps."""
+    import torch
+    from zerovox_tpu_torch.models import fs2_encoder
+    from zerovox_tpu_torch.ops.conv import f16_staging
+    from zerovox_tpu_torch.ops.length_regulator import durations_from_log, length_regulate
+    from zerovox_tpu_torch.utils.debug import capture_run
+
+    def run():
+        feat, log_dur = fs2_encoder.encode(
+            params, cfg, torch.as_tensor(src, device=device).long()[None],
+            torch.as_tensor(puncts, device=device).long()[None],
+            torch.as_tensor(style, device=device)[None])
+        hidden, total = length_regulate(feat, durations_from_log(log_dur, cfg.max_seq_len),
+                                        cfg.max_seq_len)
+        return feat, log_dur, hidden, total
+    with torch.no_grad(), f16_staging():
+        (feat, log_dur, hidden, total), taps = capture_run(run)
+    host = {k: v.cpu() for k, v in taps.items() if k in ("pitch", "energy")}
+    return feat.cpu(), log_dur.cpu(), hidden.cpu(), total.cpu(), host
+
+
+def encoder_flip_audit(cfg, params, stand_in, boundary, seed=7):
+    """Why the encoder boundary failed, where it did: the card's staged
+    encoder and the CPU's, side by side.  Returns (explained, moved, text):
+    moved, the pitch and energy buckets that differ; explained when both
+    give the same frame count and durations, every
+    phoneme whose features differ by more than the boundary's tolerance has
+    a pitch or energy bucket that differs between the two (a discrete
+    decision that the f16 roundings' order moved: the flips
+    tests/test_ggml_stage_diff_prod.py audits against ggml), and every frame
+    of the other phonemes is within that tolerance."""
+    import numpy as np
+    from zerovox_tpu_torch.ops.length_regulator import durations_from_log
+    from zerovox_tpu_torch.ops.misc import bucketize
+    from zerovox_tpu_torch.utils.verify import probe_utterance
+    src, pun, style = probe_utterance(cfg, seed)
+    n = cfg.ve_n_bins
+    card = staged_encode(params, cfg, params["encoder"]["pitch_emb"].device, src, pun, style)
+    cpu = stand_in.encode(src, pun, style)
+    same_len = int(card[3][0]) == int(cpu[3][0])
+    dur = [durations_from_log(s[1], cfg.max_seq_len)[0].numpy() for s in (card, cpu)]
+    same_dur = np.array_equal(dur[0], dur[1])
+    pitch = [bucketize(s[4]["pitch"], n).reshape(-1) for s in (card, cpu)]
+    energy = [bucketize(s[4]["energy"], n).reshape(-1) for s in (card, cpu)]
+    moved = ((pitch[0] != pitch[1]) | (energy[0] != energy[1])).numpy()
+    bad = ((card[0][0] - cpu[0][0]).abs().amax(-1) > boundary.tol).numpy()
+    gap = (card[4]["pitch"] - cpu[4]["pitch"]).abs().max().item()
+    unexplained = np.flatnonzero(bad & ~moved).tolist()
+    clean = np.ones(cfg.max_seq_len, bool)
+    starts = np.concatenate([[0], np.cumsum(dur[1])[:-1]]).astype(int)
+    for i in np.flatnonzero(moved):
+        clean[starts[i]:starts[i] + int(dur[1][i])] = False
+    h_card, h_cpu = card[2][0].numpy(), cpu[2][0].numpy()
+    clean_err = float(np.abs(h_card[clean] - h_cpu[clean]).max()) if clean.any() else 0.0
+    text = (f"frame counts {int(card[3][0])} / {int(cpu[3][0])}, durations equal {same_dur}; "
+            f"{int((pitch[0] != pitch[1]).sum())} pitch and {int((energy[0] != energy[1]).sum())} "
+            f"energy buckets moved (largest pitch prediction gap {gap:.3e}, "
+            f"{gap * (n - 1):.3f} bucket units), {int(bad.sum())} phonemes' features differ "
+            f"beyond the tolerance, {len(unexplained)} with no moved bucket {unexplained[:8]}; "
+            f"the frames of the other phonemes within {clean_err:.3e} (tol {boundary.tol:.3e})")
+    return (same_len and same_dur and not unexplained and clean_err <= boundary.tol,
+            int(moved.sum()), text)
+
+
+def saturated_params(params):
+    """params with the pitch and energy predictors' output bias lowered by
+    SATURATE: every prediction lies below bucket 0's edge (bucketize clamps
+    it to 0), far beyond any order of sums."""
+    enc = dict(params["encoder"])
+    for k in ("pitch_predictor", "energy_predictor"):
+        enc[k] = dict(enc[k], lin_b=enc[k]["lin_b"] - SATURATE)
+    return dict(params, encoder=enc)
+
+
+def decoder_orders(cfg, params, stand_in, seed=7):
+    """The seed-0 decoder boundary's distance and what explains it: the
+    staged decoder on the stand-in's hidden state, on the card as verify
+    runs it, with cuDNN pinned (deterministic algorithms, no benchmark), with
+    cuDNN off (PyTorch's own im2col and GEMM), on the CPU (the stand-in),
+    and with float64 sums of the same f16 operands on the card; each
+    distance as a share of the boundary's tolerance."""
+    import numpy as np
+    import torch
+    from zerovox_tpu_torch.models import styletts_decoder
+    from zerovox_tpu_torch.ops.conv import f16_staging
+    from zerovox_tpu_torch.params import tree_map
+    from zerovox_tpu_torch.utils.verify import probe_utterance
+    src, pun, style = probe_utterance(cfg, seed)
+    hidden, _ = stand_in.encoder(src, pun, style, cfg.max_n_phonemes)
+    cpu = stand_in.decoder(hidden, style).astype(np.float64)
+    tol = 5e-3 + 1e-3 * float(np.abs(cpu).max())
+
+    dev = params["encoder"]["pitch_emb"].device
+
+    def card(p, dtype):
+        with torch.no_grad(), f16_staging():
+            h = torch.tensor(hidden, device=dev, dtype=dtype)[None]
+            st = torch.tensor(style, device=dev, dtype=dtype)[None]
+            return styletts_decoder.decode(p, cfg, h, st)[0].double().cpu().numpy()
+
+    cudnn = torch.backends.cudnn
+    runs = {"card (as verify runs)": card(params, torch.float32)}
+    saved = cudnn.deterministic, cudnn.benchmark, cudnn.enabled
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        runs["card, cuDNN pinned"] = card(params, torch.float32)
+        cudnn.enabled = False
+        runs["card, no cuDNN"] = card(params, torch.float32)
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.enabled = saved
+    exact = card(tree_map(lambda t: t.double() if t.is_floating_point() else t, params),
+                 torch.float64)
+    runs["CPU (the stand-in)"] = cpu
+    parts = []
+    for name, m in runs.items():
+        if not np.isfinite(m).all():
+            raise RuntimeError(f"phase 11 (b): the staged decoder, {name}, is not finite")
+        parts.append(f"{name}: {np.abs(m - cpu).max() / tol:.3f} of the tolerance from the "
+                     f"CPU, {np.abs(m - exact).max() / tol:.3f} from float64 sums")
+    return f"tolerance {tol:.3e}; " + "; ".join(parts)
+
+
+def verify_path(cfg, params, model, tmp, card):
+    """(b) verify_checkpoint on the card against the CPU stand-in, on the
+    seed-0 checkpoint and on its saturated copy, the launches of their
+    vocoders counted from 0; the seed-0 decoder's distance explained; (c)
+    the CLI's --verify as a subprocess: exit 2 without a reference tree (and
+    0 where ZEROVOX_REF or the checkout's reference/ holds one).  Returns the
+    f16-staged launches of (b)."""
+    import torch
+    import zerovox_tpu_torch.refharness.build as rbuild
+    import zerovox_tpu_torch.refharness.stage_proc as rstage
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    from zerovox_tpu_torch.params import save_params
+    from zerovox_tpu_torch.utils.verify import verify_checkpoint
+
+    t_b = time.perf_counter()
+    saturated = os.path.join(tmp, "saturated.gguf")
+    sat_params = saturated_params(params)
+    save_params(saturated, sat_params, cfg)
+    saved = rbuild.get_stage_harness, rstage.RefStages
+    rbuild.get_stage_harness = lambda *a, **k: (object(), "")
+    rstage.RefStages = CpuStages
+    reports = {}
+    try:
+        ms.mrf_stage.launches = ms.mrf_stage.staged_launches = 0
+        for label, path in (("seed-0", model), ("saturated", saturated)):
+            reports[label] = verify_checkpoint(path, device="cuda", log=lambda m: log("  " + m))
+        launches, staged = ms.mrf_stage.launches, ms.mrf_stage.staged_launches
+    finally:
+        rbuild.get_stage_harness, rstage.RefStages = saved
+    for label, report in reports.items():
+        for b in report.boundaries:
+            log(f"phase 11 (b) {label} {b.name}: max|diff| {b.max_abs:.3e}, tol {b.tol:.3e}, "
+                f"{'OK' if b.ok else 'FAIL'} {b.note}")
+        log(f"phase 11 (b) {label}: verify_checkpoint on the card against the port's staged "
+            f"stages on the CPU: {'PASS' if report.ok else 'FAIL'}")
+    log(f"phase 11 (b) {launches} mrf_stage launches ({staged} f16-staged) in the two runs "
+        f"[{card}]")
+    want = len(reports) * len(cfg.upsample_scales)
+    if launches != want or staged != launches:
+        raise RuntimeError(f"phase 11 (b): {launches} mrf_stage launches, {staged} f16-staged; "
+                           f"want every vocoder stage of both runs ({want}) staged")
+    encoder, *rest = reports["seed-0"].boundaries
+    if len(reports["seed-0"].boundaries) != 3 or not all(b.ok for b in rest):
+        raise RuntimeError("phase 11 (b) seed-0: " + reports["seed-0"].summary())
+    stand_in = CpuStages(None, model, cfg)
+    if not encoder.ok:
+        explained, _, text = encoder_flip_audit(cfg, params, stand_in, encoder)
+        log(f"phase 11 (b) seed-0 the encoder boundary against the CPU: {text}")
+        if not explained:
+            raise RuntimeError("phase 11 (b): the encoder boundary failed beyond moved buckets: "
+                               + text)
+        log("phase 11 (b) seed-0 the encoder boundary FAILs on moved pitch / energy buckets "
+            "only: the staged predictions' float order flips discrete decisions (the JAX tool, "
+            "which this one follows, fails such an input too); decoder and vocoder PASS")
+    log("phase 11 (b) seed-0 decoder boundary: " + decoder_orders(cfg, params, stand_in))
+    sat = reports["saturated"]
+    _, moved, text = encoder_flip_audit(cfg, sat_params, CpuStages(None, saturated, cfg),
+                                        sat.boundaries[0])
+    log(f"phase 11 (b) saturated the encoder against the CPU: {text}")
+    if len(sat.boundaries) != 3 or not sat.ok or moved:
+        raise RuntimeError(f"phase 11 (b) saturated: {moved} buckets moved; " + sat.summary())
+    log(f"phase 11 (b) saturated: all three boundaries PASS on the card; (b) "
+        f"{time.perf_counter() - t_b:.1f} s")
+
+    t_c = time.perf_counter()
+    empty = os.path.join(tmp, "no_reference")
+    os.makedirs(empty, exist_ok=True)
+    cases = [("an empty ZEROVOX_REF", empty, 2)]
+    if (rbuild.ref_root() / "ggml").is_dir():
+        cases.append((f"the reference tree at {rbuild.ref_root()}", str(rbuild.ref_root()), 0))
+    for what, ref_dir, want in cases:
+        out = subprocess.run(
+            [sys.executable, "-m", "zerovox_tpu_torch.cli", "--model", model, "--verify"],
+            capture_output=True, text=True, timeout=900, cwd=ROOT,
+            env={**os.environ, "ZEROVOX_REF": ref_dir})
+        log(f"phase 11 (c) cli --verify with {what}: exit {out.returncode}: "
+            f"{out.stdout.strip().splitlines()[-1] if out.stdout.strip() else out.stderr[-300:]}")
+        if out.returncode != want or (want == 2 and "SKIPPED" not in out.stdout):
+            raise RuntimeError(f"phase 11 (c): cli --verify with {what} exited "
+                               f"{out.returncode}, want {want}: {out.stdout[-500:]}"
+                               f"{out.stderr[-1500:]}")
+    log(f"phase 11 (c) {time.perf_counter() - t_c:.1f} s")
+    torch.cuda.empty_cache()
+    return staged
+
+
 def run() -> int:
     try:
         import torch
@@ -2722,6 +3156,16 @@ def run() -> int:
     params16 = cast_params(params, torch.bfloat16)
     log(f"production params (seed 0) on the card in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if VERIFY_ONLY in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as tmp:
+            model = os.path.join(tmp, "model.gguf")
+            save_params(model, params, cfg)
+            log(f"phase 11 alone ({VERIFY_ONLY})")
+            staged_stages(cfg, params, gen, pk)
+            verify_path(cfg, params, model, tmp, card)
+        log(f"{VERIFY_ONLY}: phases 1-2 and 11 passed in {time.perf_counter() - t_start:.1f} s; "
+            "no result line")
+        return 0
     records, packs, held, shapes = check_stages(cfg, params, gen, pk, extra=phase9_shapes(cfg))
     records16, _, _, shapes16 = check_stages(cfg, params16, gen, pk)
     records.update(records16)
@@ -2778,24 +3222,34 @@ def run() -> int:
         log("phase 10: training on a mesh of the card repeated (distinct cards where there "
             "are four)")
         launches["mrf_stage"] += mesh_training_path(cfg, params, model, tmp, card, seen, shapes)
+        log("phase 11: checkpoint verification (--verify) on the card, the kernel's "
+            "f16-staged mode")
+        t_phase = time.perf_counter()
+        records["mrf_stage_f16_staged"] = staged_stages(cfg, params, gen, pk)
+        launches["mrf_stage_f16_staged"] = verify_path(cfg, params, model, tmp, card)
+        log(f"phase 11 (verification) {time.perf_counter() - t_phase:.1f} s [{card}]")
 
-    replaces = {"mrf_stage": "zerovox_tpu/ops/pallas/folded_mrf.py:446",
-                "mrf_stage_unfolded": "zerovox_tpu/ops/pallas/folded_mrf.py:720"}
+    replaces = {k: "zerovox_tpu/ops/pallas/folded_mrf.py:446"
+                for k in ("mrf_stage", "mrf_stage_bf16", "mrf_stage_f16_staged")}
+    replaces.update({k: "zerovox_tpu/ops/pallas/folded_mrf.py:720"
+                     for k in ("mrf_stage_unfolded", "mrf_stage_unfolded_bf16")})
     kernels = [{
         "name": k, "route": "cuda", "source": "zerovox_tpu_torch/csrc/mrf_stage.cu",
-        "replaces": replaces[k.replace("_bf16", "")], "launches": launches[k],
+        "replaces": replaces[k], "launches": launches[k],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
     } for k, r in records.items()]
     log("kernels line: ms, plain_ms and bound_ms are the sums over the four B=1 "
         "full-length stages (the unfolded entry: its one call); bound_ms is the "
         "tensor-core bound of the mode: f32 max(3 FLOPs / TF32 rate, bytes / HBM rate), "
-        "bf16 max(FLOPs / bf16 rate, bytes / HBM rate); launches are those of the mode's "
+        "bf16 max(FLOPs / bf16 rate, bytes / HBM rate), f16-staged max(FLOPs / f16 rate, "
+        "bytes / HBM rate) with f32 tensors; launches are those of the mode's "
         "main path (CLI, engine requests), its streams and its daemon phase (the daemons and "
         "the engines they are held against), each counted from 0, for float32 those of "
         "phase 8's engine on the trained export, those of phase 9's regimes (each counted "
         "from 0 just before its timed run and read just after; the daemons' with their warm-ups) "
-        "and those of phase 10's engine on the export of the two-process training run")
+        "and those of phase 10's engine on the export of the two-process training run; for "
+        "the f16-staged mode those of phase 11 (b)'s verify_checkpoint on the card")
     log("e2e: " + "; ".join(f"{p} B=1 wall {w[1]:.2f} ms, B=8 wall {w[8]:.2f} ms"
                             for p, w in walls.items())
         + f"; smoke total {time.perf_counter() - t_start:.1f} s")

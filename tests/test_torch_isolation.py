@@ -28,7 +28,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 54, mods
+assert len(mods) >= 59, mods
 """
 
 
@@ -73,6 +73,8 @@ def test_entry_points_default_to_cuda():
         cli.main(["--model", "unused.gguf", "--demo"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--model", "unused.gguf", "--serve", "--port", "0"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):     # before the reference is sought
+        cli.main(["--model", "unused.gguf", "--verify"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_train_step(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -273,7 +273,7 @@ def test_cli_matches_jax_cli(tmp_path, model, extra):
     assert np.abs(np.round(a * 32767) - np.round(b * 32767)).max() <= 1
 
 
-def test_cli_input_file_and_unported_flags(tmp_path, rng, model):
+def test_cli_input_file_and_unported_flags(tmp_path, rng, model, monkeypatch, capsys):
     _, pt = model
     ckpt = str(tmp_path / "m.gguf")
     tparams.save_params(ckpt, pt, TINY_CONFIG)
@@ -294,8 +294,12 @@ def test_cli_input_file_and_unported_flags(tmp_path, rng, model):
                       "--device", "cpu", "--precision", "bfloat16"]) == 0
     w16 = read_wav(out16)[0]
     assert len(w16) > 0 and np.isfinite(w16).all()
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tcli.main(["--model", ckpt, "--demo", "--device", "cpu", "--verify"])
+    # every flag of the JAX CLI is ported: --verify without a reference tree skips (exit 2)
+    (tmp_path / "no_reference").mkdir()
+    monkeypatch.setenv("ZEROVOX_REF", str(tmp_path / "no_reference"))
+    capsys.readouterr()
+    assert tcli.main(["--model", ckpt, "--demo", "--device", "cpu", "--verify"]) == 2
+    assert "SKIPPED" in capsys.readouterr().out
     with pytest.raises(ValueError, match="max_n_phonemes"):
         utterance_from_dict({"phonemes": [1] * 17, "style": utt["style"]}, TINY_CONFIG)
 

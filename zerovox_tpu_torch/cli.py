@@ -13,6 +13,7 @@ Usage:
   python -m zerovox_tpu_torch.cli --model model.gguf --demo --device cpu
   python -m zerovox_tpu_torch.cli --model model.gguf --serve --port 8765 \\
       --precision bfloat16 [--batch-window-ms 5] [--allow-reload] [--mesh 4,1]
+  python -m zerovox_tpu_torch.cli --model model.gguf --verify [--verify-seed 7] [--device cpu]
 
 Runs on the card (--device cuda, the default) unless asked for the CPU.
 --precision bfloat16 is the serving dtype; --stream vocodes in chunks and
@@ -23,7 +24,13 @@ runtime/server.py (runtime/client.py talks to it) until SIGTERM or Ctrl-C,
 then drains and exits 0; with --mesh DATA,MODEL it serves over DATA x MODEL
 distinct CUDA devices (MODEL=1: pure data parallelism; MODEL>1: tensor
 parallelism), and raises where the machine has fewer.  --compile-cache DIR
-keeps the compiled libraries (the MRF kernel, the native loader) in DIR.
+keeps the compiled libraries (the MRF kernel, the native loader, the
+reference harness) in DIR.  --verify diffs the checkpoint against the
+reference's own C++ stage classes (utils/verify.py), built from the tree at
+$ZEROVOX_REF: exit 0 on parity, 1 on a mismatch, 2 when the reference tree
+or its toolchain is unavailable; it runs on the card too, the vocoder's
+stages in the MRF kernel's f16-staged mode (--device cpu: what the JAX
+tool computes).
 """
 
 from __future__ import annotations
@@ -34,9 +41,6 @@ import sys
 import time
 
 import numpy as np
-
-# flags of the JAX package's CLI whose paths later slices of the port bring
-_NOT_PORTED = ("verify",)
 
 
 def _load_utterance(path: str, cfg):
@@ -148,20 +152,29 @@ def main(argv=None):
                          "vocoder: one utterance spread across devices)")
     ap.add_argument("--compile-cache", metavar="DIR",
                     help="keep the compiled libraries (the MRF kernel's nvcc builds, the "
-                         "native loader) under DIR: a restarted process finds them built")
-    for flag in _NOT_PORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), nargs="?", const=True,
-                        default=None, help=argparse.SUPPRESS)
+                         "native loader, the reference harness) under DIR: a restarted "
+                         "process finds them built")
+    ap.add_argument("--verify", action="store_true",
+                    help="compile the reference C++ stage classes and diff "
+                         "all three eval() boundaries on this GGUF, on --device "
+                         "(exit 0 = parity, 1 = mismatch, 2 = reference "
+                         "tree/toolchain unavailable; set ZEROVOX_REF to "
+                         "point at the reference checkout)")
+    ap.add_argument("--verify-seed", type=int, default=7,
+                    help="with --verify: RNG seed for the probe utterance")
     args = ap.parse_args(argv)
-
-    for flag in _NOT_PORTED:
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag.replace('_', '-')} is not yet ported to "
-                             "zerovox_tpu_torch; use python -m zerovox_tpu.cli")
 
     if args.compile_cache:
         from zerovox_tpu_torch.utils.compile_cache import enable_compile_cache
         print(f"compile cache: {enable_compile_cache(args.compile_cache)}", file=sys.stderr)
+
+    if args.verify:
+        from zerovox_tpu_torch.utils.verify import verify_checkpoint
+        report = verify_checkpoint(args.model, seed=args.verify_seed, device=args.device)
+        print(report.summary())
+        if report.skipped_reason:
+            return 2
+        return 0 if report.ok else 1
 
     from zerovox_tpu_torch.io.wav import StreamingWavWriter, write_wav
     from zerovox_tpu_torch.params import load_params

@@ -1,7 +1,9 @@
 // Fused HiFi-GAN multi-receptive-field (MRF) stage for Hopper (sm_90a), in
-// two modes chosen when this file is compiled: f32 accuracy on the tensor
-// cores (3xTF32; the default), and with -DZV_MRF_BF16=1 the bf16 serving
-// mode (bf16 tensors, bf16 MMA operands, f32 accumulation and chain state).
+// three modes chosen when this file is compiled: f32 accuracy on the tensor
+// cores (3xTF32; the default), with -DZV_MRF_BF16=1 the bf16 serving mode
+// (bf16 tensors, bf16 MMA operands, f32 accumulation and chain state), and
+// with -DZV_MRF_F16_STAGED=1 the f16-staged mode of checkpoint verification
+// (f32 tensors, f16 conv operands, f32 accumulation and chain state).
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/folded_mrf.py:154-717
 // (_mrf_kernel behind folded_mrf_stage, and mrf_stage_unfolded at :720-794).
@@ -84,6 +86,22 @@
 //   * the upsample prologue stays on the FMA units: its operands are bf16
 //     values (the staged rows rounded after the f32 leaky, the weights as
 //     loaded) widened to f32, so every product is exact and the sum is f32.
+//
+// The f16-staged mode computes what the reference's ggml graph computes (f16
+// conv weights and an f16 im2col, f32 accumulation) and what the JAX
+// package's f16_staging computes on its XLA route (zerovox_tpu/ops/conv.py:
+// 29-67; the TPU kernel never staged).  It is the f32 mode with every conv
+// operand rounded to f16 after the leaky (cvt.rn: to nearest even, beyond
+// +-65504 to +-inf): the A fragments as they are loaded, the upsample's
+// staged rows always (not only after leaky_in), and the weights, which the
+// host packs as f16 values in the f32 layout.  Every f16 value is a TF32
+// value (TF32 keeps the same 10 explicit mantissa bits, with a wider
+// exponent), so an operand's split has lo = 0 and ONE m16n8k8 TF32 product
+// per k-step is exact: the f32 mode without two thirds of its MMAs, on the
+// f32 mode's layouts, tile plans and instances.  The alternative, one
+// m16n8k16 f16 product per k-step, would halve the MMAs again but needs the
+// bf16 mode's packed pairs of input channels beside f32 activations in
+// device memory, a fourth layout; a correct kernel came first.
 
 // Interface: plain C, loaded with ctypes.  The host wrapper
 // (zerovox_tpu_torch/ops/cuda/mrf_stage.py) chooses the geometry (tile,
@@ -94,11 +112,18 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #ifndef ZV_MRF_BF16
 #define ZV_MRF_BF16 0
+#endif
+#ifndef ZV_MRF_F16_STAGED
+#define ZV_MRF_F16_STAGED 0
+#endif
+#if ZV_MRF_BF16 && ZV_MRF_F16_STAGED
+#error "the f16-staged mode is a float32 mode: build it with ZV_MRF_BF16=0"
 #endif
 
 namespace cg = cooperative_groups;
@@ -287,10 +312,13 @@ __device__ __forceinline__ void store_out4(elem_t* ptr, float4 v) {
 #endif
 }
 
-// an operand of the upsample's products: as it is in f32, a bf16 value in the bf16 mode
+// an operand of a product: as it is in f32, a bf16 value in the bf16 mode, an
+// f16 value in the f16-staged mode
 __device__ __forceinline__ float round_operand(float v) {
 #if ZV_MRF_BF16
   return __bfloat162float(__float2bfloat16_rn(v));
+#elif ZV_MRF_F16_STAGED
+  return __half2float(__float2half_rn(v));
 #else
   return v;
 #endif
@@ -412,6 +440,29 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
 #pragma unroll
         for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, bw[j][0], bw[j][1]);
       }
+#elif ZV_MRF_F16_STAGED
+      // f16 values in f32 words are TF32 values: one exact product, no split
+      uint32_t bh[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = ((j ^ t) << 3);
+        bh[j][0] = w_base[(kk + t) * C + col];
+        bh[j][1] = w_base[(kk + t + 4) * C + col];
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (!act[i]) continue;
+        float a[4] = {a_base[roff[i][0] + kk], a_base[roff[i][1] + kk],
+                      a_base[roff[i][0] + kk + 4], a_base[roff[i][1] + kk + 4]};
+        uint32_t ah[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!RESIDUAL) a[e] = leaky(a[e], 0.1f);
+          ah[e] = __float_as_uint(round_operand(a[e]));
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
+      }
 #else
       uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
@@ -483,7 +534,8 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
 // of a phase, by one cluster.  Needs C % 32 == 0 and Cin % kVec == 0.  In the
 // bf16 mode the staged rows are rounded to bf16 after the leaky (rows that
 // were not leaky'd are bf16 values already) and the weights are bf16, both
-// held as f32: exact products, an f32 sum.
+// held as f32: exact products, an f32 sum.  In the f16-staged mode every
+// staged row is rounded to f16 and the weights are f16 values from the host.
 __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, float* H,
                                   float* P, int W, int t_base, int batch, int rank) {
   const int C = p.C, Cin = p.Cin, s = p.stride, ss = p.ss;
@@ -509,6 +561,9 @@ __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, f
       if (p.has_in_leaky) {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) v[u].v[i] = round_operand(leaky(v[u].v[i], p.in_leaky));
+      } else if (ZV_MRF_F16_STAGED) {   // f32 rows are no f16 values (bf16 rows are bf16)
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) v[u].v[i] = round_operand(v[u].v[i]);
       }
       store_vec(P + (size_t)e * kVec, v[u]);
     }
@@ -739,6 +794,9 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 #if ZV_MRF_BF16
 #define ZV_STAGE_ENTRY zv_mrf_stage_bf16
 #define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_bf16
+#elif ZV_MRF_F16_STAGED
+#define ZV_STAGE_ENTRY zv_mrf_stage_f16_staged
+#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_f16_staged
 #else
 #define ZV_STAGE_ENTRY zv_mrf_stage_f32
 #define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters
@@ -827,7 +885,7 @@ extern "C" int ZV_CLUSTERS_ENTRY(int n_rb, int nt, int mt, int smem_bytes) {
   return n;
 }
 
-#if !ZV_MRF_BF16
+#if !ZV_MRF_BF16 && !ZV_MRF_F16_STAGED
 extern "C" const char* zv_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -12,7 +12,12 @@ ops.cuda.mrf_stage.kernel_takes: a width outside 32-512, say, as every
 stage of TINY_CONFIG) runs the kernel's plain version on every device, as
 the JAX vocoder runs such stages through XLA convs.
 Everything runs in the params' dtype: float32, or bfloat16 after
-cast_params (the MRF stages then take the kernel's bf16 mode).
+cast_params (the MRF stages then take the kernel's bf16 mode).  Under
+ops.conv.f16_staging (`--verify`) every conv of a float32 vocoder takes f16
+operands: the input and output convs and the plain stages through ops.conv,
+the kernel's stages in its f16-staged mode (their packed weights must be
+packed under the staging too; vocode packs them per call when none are
+passed).
 Training differentiates through the vocoder with `differentiable=True`:
 the stages then run the kernel's plain version, on any device (the
 kernel has no backward).

@@ -29,10 +29,23 @@ f32 result is rounded, which is the same rule and needs no bf16 CPU kernels.
 
 float64 (the reference that training's gradient checks hold float32
 against) is computed in float64, as float32 is in float32.
+
+Under `f16_staging()` (the port of zerovox_tpu/ops/conv.py:29-67, the
+simulation of the ggml reference's precision that `--verify` runs) every
+conv1d and conv_transpose1d rounds both operands, the activation and the
+weight, to float16 (to nearest even; beyond +-65504 to +-inf) and computes
+the product in float32: the JAX package's f16 operands with
+preferred_element_type=f32.  With TF32 off the products of f16 values are
+exact in float32.  The bias is added after, in x's dtype, and is not
+rounded; `linear` and `matmul` are never staged (the reference's exporter
+casts only the conv kernels to f16).  The flag is a context variable read
+at call time, not a process global: a staged call on one thread leaves the
+products another thread runs at the same time unstaged.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import Optional
 
 import torch
@@ -40,12 +53,47 @@ import torch.nn.functional as F
 
 _OWN_DTYPE = (torch.float32, torch.float64)     # products computed in the operands' dtype
 
+_F16_STAGING: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "zerovox_f16_staging", default=False)
+
+
+class f16_staging:
+    """Context manager: the convolutions of this thread (and of work it
+    hands to another thread with its context) take f16 operands and
+    accumulate in f32."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+
+    def __enter__(self):
+        self._token = _F16_STAGING.set(self.enabled)
+        return self
+
+    def __exit__(self, *exc):
+        _F16_STAGING.reset(self._token)
+
+
+def staging() -> bool:
+    """Whether f16 staging is on for the calling context."""
+    return _F16_STAGING.get()
+
+
+def round_f16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to float16 (to nearest even; beyond +-65504 to +-inf) and
+    widened back: a float32 tensor of f16 values (float64 for a float64 t,
+    whose staged products are then computed in float64)."""
+    return t.to(torch.float16).to(torch.float64 if t.dtype == torch.float64 else torch.float32)
+
 
 def _product(fn, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     """fn(x, w, bias) by the dtype's rule, with x channels-first (B, C, T)
     and the result too.  float32 / float64: one call, bias inside.  Other dtypes: f32
     accumulation, one rounding to x.dtype, then the bias added in x.dtype
-    (operands widened for a CPU tensor)."""
+    (operands widened for a CPU tensor).  Under f16_staging: f16 operands,
+    an f32 product, the result in x.dtype, then the bias."""
+    if _F16_STAGING.get():
+        y = fn(round_f16(x), round_f16(w), None).to(x.dtype)
+        return y if b is None else y + b[:, None]
     if x.dtype in _OWN_DTYPE:
         return fn(x, w, b)
     if x.device.type == "cpu":

@@ -14,15 +14,16 @@ caller's choice, made before any launch: `kernel_takes` says, in plain
 Python, whether the kernel takes a stage's geometry (hifigan.vocode sends
 the others to mrf_stage_ref on the card, as the JAX vocoder sends them to
 XLA).  Each wrapper counts its kernel
-launches in a plain integer attribute (`mrf_stage.launches`), added to under
-a lock: a serving daemon launches from many threads.  The kernel
+launches in a plain integer attribute (`mrf_stage.launches`; those in the
+f16-staged mode also in `mrf_stage.staged_launches`), added to under a lock:
+a serving daemon launches from many threads.  The kernel
 reads its weights in its own layout (`pack_stage`), which a serving caller
 makes once per model and passes as `packed=`.
 
 The kernel runs each conv on the tensor cores, one resblock per CTA in a
 cluster of one CTA per resblock; `tile_plan` chooses its geometry in plain
-Python, so the CPU tests reach it.  It takes C in 32/64/128/256/512 and two
-modes, chosen by the input's dtype:
+Python, so the CPU tests reach it.  It takes C in 32/64/128/256/512 and three
+modes, chosen by the input's dtype and ops.conv's f16_staging:
 
   float32   f32 accuracy (3xTF32: `split_tf32` mirrors its operand split);
   bfloat16  the serving mode (the TPU kernel's dot_bf16): input, output and
@@ -32,8 +33,18 @@ modes, chosen by the input's dtype:
             f32; the result is rounded once, on the store.  `mrf_stage_ref`
             computes the same for bf16 tensors (`round_bf16` on each conv's
             operand, f32 convs on exactly representable products).
+  f16-staged  float32 under f16_staging (`--verify`'s simulation of the
+            ggml reference): f32 tensors and chain state, every conv's
+            operands (the upsample's too) rounded to f16 after the leaky,
+            weights packed as f16 values in the f32 layout (`pack_stage`
+            rounds them), one TF32 product per k-step, exact on f16 values.
+            `mrf_stage_ref` computes the same through ops.conv's staging.
+            The TPU kernel has no such mode: the JAX vocoder staged only on
+            its XLA route.
 
-A bf16 input with f32 weights (or the reverse) raises.
+A bf16 input with f32 weights (or the reverse) raises, and so does a bf16
+call under f16_staging (no entry point asks for one; the kernel has no such
+mode).
 
 The kernel has no backward (neither has the TPU kernel: the JAX package's
 training takes plain convolutions, zerovox_tpu/training/train.py:101-106).
@@ -46,8 +57,9 @@ The kernel is compiled with nvcc, at its first CUDA call (never at import),
 into the port's build directory (utils.compile_cache.build_dir():
 build/zerovox_tpu_torch/ at the root of the checkout, or --compile-cache's
 DIR; a build of the same source and flags found there is reused), as one shared
-library per mode (the same source, -DZV_MRF_BF16=0/1, both compiled at
-once) with a plain C interface loaded through ctypes.  The build is guarded
+library per mode (the same source with -DZV_MRF_BF16=0 or 1, or
+-DZV_MRF_F16_STAGED=1; the three nvcc runs started together) with a plain C
+interface loaded through ctypes.  The build is guarded
 by a lock: concurrent first calls (a server made without a warm-up) wait
 for the one nvcc run.
 """
@@ -69,7 +81,8 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..conv import conv1d, conv_transpose1d, transpose_out_len, unflip_transpose_weight
+from ..conv import (conv1d, conv_transpose1d, round_f16, staging, transpose_out_len,
+                    unflip_transpose_weight)
 from ..misc import leaky_relu
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -177,10 +190,13 @@ def _check_options(upsample, in_leaky):
 
 def _check_dtypes(dtype, blocks, upsample, plain: bool = False):
     """The stage runs in one dtype, float32 or bfloat16 (the plain version
-    also float64): the input's."""
+    also float64): the input's; bfloat16 not under f16_staging."""
     allowed = (torch.float32, torch.bfloat16) + ((torch.float64,) if plain else ())
     if dtype not in allowed:
         raise TypeError(f"mrf_stage takes float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and staging():
+        raise TypeError("mrf_stage: a bfloat16 stage under f16_staging: no entry point asks "
+                        "for one (--verify stages float32), and the kernel has no such mode")
     ws = [c["w"] for blk in blocks for cs in ("convs1", "convs2") for c in blk[cs]]
     if upsample is not None:
         ws.append(upsample["w"])
@@ -388,16 +404,28 @@ def _nvcc() -> str:
 
 
 class Library(NamedTuple):
-    """The kernel's two builds and what nvcc said of them."""
-    stage: dict            # torch dtype -> the mode's launch entry
-    max_clusters: dict     # torch dtype -> the mode's cluster-occupancy entry
+    """The kernel's three builds and what nvcc said of them."""
+    stage: dict            # mode ("f32", "bf16", "f16_staged") -> the mode's launch entry
+    max_clusters: dict     # mode -> the mode's cluster-occupancy entry
     error_string: object   # cudaGetErrorString
-    build_log: str         # nvcc's output, both modes (ptxas registers and spills)
+    build_log: str         # nvcc's output, every mode (ptxas registers and spills)
     build_seconds: float   # wall time of the compile, 0 when earlier builds were reused
 
 
-_MODES = ((torch.float32, "f32", "zv_mrf_stage_f32", "zv_mrf_max_clusters"),
-          (torch.bfloat16, "bf16", "zv_mrf_stage_bf16", "zv_mrf_max_clusters_bf16"))
+# (mode, nvcc defines, launch entry, cluster-occupancy entry): one library each
+_MODES = (("f32", ("-DZV_MRF_BF16=0",), "zv_mrf_stage_f32", "zv_mrf_max_clusters"),
+          ("bf16", ("-DZV_MRF_BF16=1",), "zv_mrf_stage_bf16", "zv_mrf_max_clusters_bf16"),
+          ("f16_staged", ("-DZV_MRF_F16_STAGED=1",), "zv_mrf_stage_f16_staged",
+           "zv_mrf_max_clusters_f16_staged"))
+
+
+def kernel_mode(dtype: torch.dtype) -> str:
+    """The kernel build a stage of `dtype` runs in the calling context:
+    "bf16" for bfloat16, "f32" for float32, "f16_staged" for float32 under
+    ops.conv's f16_staging."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    return "f16_staged" if staging() else "f32"
 
 
 _build_lock = threading.Lock()
@@ -406,7 +434,7 @@ _count_lock = threading.Lock()
 
 
 def library() -> Library:
-    """The kernel's two libraries, built and loaded by the first call; calls
+    """The kernel's three libraries, built and loaded by the first call; calls
     that arrive while that one builds wait for it and build nothing."""
     global _library
     if _library is None:
@@ -416,17 +444,20 @@ def library() -> Library:
     return _library
 
 
-def _count_launch(wrapper):
-    """wrapper.launches += 1, under a lock (an unlocked += loses counts
-    between threads)."""
+def _count_launch(wrapper, mode: str = "f32"):
+    """wrapper.launches += 1 (and wrapper.staged_launches for a launch in
+    the f16-staged mode), under a lock (an unlocked += loses counts between
+    threads)."""
     with _count_lock:
         wrapper.launches += 1
+        if mode == "f16_staged":
+            wrapper.staged_launches += 1
 
 
 def _build_library() -> Library:
-    """Build (once per source version) and load the kernel's two libraries,
-    one per mode: the same source with -DZV_MRF_BF16=0 and =1, both nvcc
-    runs started together."""
+    """Build (once per source version) and load the kernel's three
+    libraries, one per mode (_MODES' defines on the same source), every nvcc
+    run started together."""
     from ...utils.compile_cache import build_dir, note_loaded
     src = SOURCE.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
@@ -434,14 +465,14 @@ def _build_library() -> Library:
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for _, tag, _, _ in _MODES:
+    for tag, defines, _, _ in _MODES:
         so = out_dir / f"mrf_stage_{tag}_{digest}.so"
         if not so.exists():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             procs[tag] = (so, tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, f"-DZV_MRF_BF16={int(tag == 'bf16')}", "-o", tmp,
-                 str(SOURCE)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(SOURCE)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     log, failed = "", ""
     for tag, (so, tmp, proc) in procs.items():
         out, err = proc.communicate()
@@ -456,7 +487,7 @@ def _build_library() -> Library:
     seconds = time.perf_counter() - t0 if procs else 0.0
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     stage, clusters, error_string = {}, {}, None
-    for dtype, tag, stage_name, clusters_name in _MODES:
+    for tag, _, stage_name, clusters_name in _MODES:
         lib = ctypes.CDLL(str(out_dir / f"mrf_stage_{tag}_{digest}.so"))
         note_loaded(out_dir / f"mrf_stage_{tag}_{digest}.so")
         fn = getattr(lib, stage_name)
@@ -468,12 +499,12 @@ def _build_library() -> Library:
                        i, i, i, i, i, i, i,    # halo tile ss kc stages nt mt
                        i, p]                   # smem stream
         fn.restype = i
-        stage[dtype] = fn
+        stage[tag] = fn
         fn = getattr(lib, clusters_name)
         fn.argtypes = [i, i, i, i]
         fn.restype = i
-        clusters[dtype] = fn
-        if dtype == torch.float32:
+        clusters[tag] = fn
+        if tag == "f32":
             error_string = lib.zv_cuda_error_string
             error_string.argtypes = [i]
             error_string.restype = ctypes.c_char_p
@@ -481,14 +512,13 @@ def _build_library() -> Library:
 
 
 @functools.lru_cache(maxsize=None)
-def wave_clusters(device_index: int, n_rb: int, nt: int, mt: int,
-                  dtype: torch.dtype = torch.float32) -> int:
-    """Clusters of n_rb CTAs of the mode's kernel that the card holds at
-    once (one wave), from cudaOccupancyMaxActiveClusters at full shared
-    memory."""
+def wave_clusters(device_index: int, n_rb: int, nt: int, mt: int, mode: str = "f32") -> int:
+    """Clusters of n_rb CTAs of the mode's kernel (kernel_mode) that the card
+    holds at once (one wave), from cudaOccupancyMaxActiveClusters at full
+    shared memory."""
     lib = library()
     with torch.cuda.device(device_index):
-        n = lib.max_clusters[dtype](n_rb, nt, mt, _SMEM_MAX)
+        n = lib.max_clusters[mode](n_rb, nt, mt, _SMEM_MAX)
     if n <= 0:
         raise RuntimeError(f"mrf_stage kernel: no cluster of {n_rb} CTAs fits the card: "
                            f"{lib.error_string(-n).decode() if n else 'none'}")
@@ -521,13 +551,13 @@ class PackedStage(NamedTuple):
     w: torch.Tensor                  # f32: (n_conv, K, C, C) [k][ci][swizzled co], chain
     #                                  order; bf16: (n_conv, K, C/2, C, 2) [k][ci/2][swizzled
     #                                  co][ci%2], a 32-bit word per pair of input channels
-    b: torch.Tensor                  # (n_conv, C) float32 in both modes
+    b: torch.Tensor                  # (n_conv, C) float32 in every mode
     w_up: Optional[torch.Tensor]     # (K_up, C_pre, C) [k][ci][co] ConvTranspose1d taps
+    staged: bool = False             # w and w_up rounded to f16 values (the f16-staged mode)
 
 
 def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
-               kernel_size: int, upsample_w: Optional[torch.Tensor] = None
-               ) -> PackedStage:
+               kernel_size: int, upsample_w: Optional[torch.Tensor] = None) -> PackedStage:
     """The kernel's weight layout for one stage, made once per model.
 
     blocks' (Cout, Cin, K) convs go to [k][ci][co ^ 8 * (ci % 4)] in chain
@@ -542,11 +572,16 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     32-bit word, [k][ci/2][co ^ 8 * (ci/2 % 4)][ci%2]: a row of C words
     that the kernel addresses, swizzles and streams as it does an f32 row,
     and a word is one register of the bf16 MMA's B fragment.  The biases
-    are widened to float32 (exact): the kernel adds them in f32."""
+    are widened to float32 (exact): the kernel adds them in f32.
+
+    Under f16_staging, float32 weights are packed for the f16-staged mode:
+    the convs' and the upsample's rounded to f16 values (round_f16) in the
+    f32 layout, the biases as they are (PackedStage.staged)."""
     C = blocks[0]["convs1"][0]["w"].shape[0]
     dev = blocks[0]["convs1"][0]["w"].device
     dtype = blocks[0]["convs1"][0]["w"].dtype
     _check_dtypes(dtype, blocks, None if upsample_w is None else dict(w=upsample_w))
+    staged = kernel_mode(dtype) == "f16_staged"
     if dtype == torch.bfloat16 and C % 2:
         raise ValueError(f"bf16 weights pack pairs of input channels: C={C} is odd")
     ws, bs = [], []
@@ -561,6 +596,8 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
                     raise ValueError(f"block {j} {cset}[{di}] lies on {conv['w'].device}, "
                                      f"block 0 on {dev}")
                 w = conv["w"].permute(2, 1, 0)                      # [k][ci][co]
+                if staged:
+                    w = round_f16(w)
                 if dtype == torch.bfloat16:
                     # words of (ci even, ci odd) per co, swizzled as words
                     w = w.reshape(kernel_size, C // 2, 2, C).permute(0, 1, 3, 2).contiguous()
@@ -572,29 +609,38 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
                 bs.append(conv["b"].to(torch.float32))
     w_up = (None if upsample_w is None
             else unflip_transpose_weight(upsample_w).permute(2, 0, 1).contiguous())
-    return PackedStage(torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_up)
+    if staged and w_up is not None:
+        w_up = round_f16(w_up)
+    return PackedStage(torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_up,
+                       staged)
 
 
 def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: int, B: int,
                L_out: int, up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
-               dtype: torch.dtype = torch.float32, **change) -> TilePlan:
-    """The tile plan a launch on `device` uses in the mode of `dtype`:
-    tile_plan with the card's own wave of clusters (`change`: tile_plan's
-    kc / stages)."""
+               dtype: torch.dtype = torch.float32, mode: Optional[str] = None,
+               **change) -> TilePlan:
+    """The tile plan a launch on `device` uses in `mode` (default: the mode
+    of `dtype` in the calling context, kernel_mode): tile_plan with the
+    card's own wave of clusters (`change`: tile_plan's kc / stages).  The
+    f16-staged mode has the f32 mode's geometry."""
     nt, mt, _ = warp_grid(C)
-    wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), nt, mt, dtype)
+    wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), nt, mt,
+                         mode or kernel_mode(dtype))
     return tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
                      elem=dtype.itemsize, **change)
 
 
 def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
             in_leaky, out_leaky, packed: Optional[PackedStage],
-            plan: Optional[TilePlan] = None) -> torch.Tensor:
+            plan: Optional[TilePlan] = None, counter=None) -> torch.Tensor:
     """Check the arguments and launch the kernel once (packing the weights
-    first when the caller did not).  plan: a geometry other than
-    stage_plan's, for measuring variants."""
+    first when the caller did not), in the mode of x's dtype in the calling
+    context (kernel_mode), and count the launch in `counter` (a wrapper).
+    plan: a geometry other than stage_plan's, for measuring variants."""
     dtype = x.dtype
     _check_dtypes(dtype, blocks, upsample)
+    mode = kernel_mode(dtype)
+    staged = mode == "f16_staged"
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("mrf_stage kernel takes a contiguous (B, L, C) tensor")
     if kernel_size % 2 != 1:
@@ -608,6 +654,10 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     if packed is None:
         packed = pack_stage(blocks, dilation_sets, kernel_size,
                             None if upsample is None else upsample["w"])
+    if packed.staged != staged:
+        raise ValueError(f"mrf_stage: weights packed {'with' if packed.staged else 'without'} "
+                         f"f16 staging for a launch {'under' if staged else 'outside'} "
+                         f"f16_staging; pack them under the launch's f16_staging")
     dev = x.device
     B, L_in, Cin = x.shape
     C = blocks[0]["convs1"][0]["w"].shape[0]
@@ -643,7 +693,7 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
         raise ValueError(f"empty stage: B={B}, L_out={L_out}")
     if plan is None:
         plan = stage_plan(dev, C, dilation_sets, kernel_size, B, L_out,
-                          Cin if upsample is not None else 0, K_up, stride, dtype)
+                          Cin if upsample is not None else 0, K_up, stride, dtype, mode)
     ib = None if in_bias is None else _aligned(in_bias.to(dev, torch.float32).contiguous())
     if ib is not None and ib.shape != (C,):
         raise ValueError(f"in_bias has shape {tuple(ib.shape)}, want ({C},)")
@@ -662,7 +712,7 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.stage[dtype](
+        err = lib.stage[mode](
             x.data_ptr(), _ptr(w_up), _ptr(ib), w.data_ptr(), b.data_ptr(),
             y.data_ptr(), B, L_in, Cin, C, L_out, K_up, stride, pad,
             int(in_leaky is not None), float(in_leaky or 0.0),
@@ -673,6 +723,8 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     if err != 0:
         raise RuntimeError(f"mrf_stage kernel launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")
+    if counter is not None:
+        _count_launch(counter, mode)
     return y
 
 
@@ -724,7 +776,10 @@ def mrf_stage(x: torch.Tensor,
     The plain version (CPU tensors) reads `blocks` and `upsample` only.
 
     Returns (1/n) * sum_j resblock_j(input), (B, L_out, C) in x's dtype
-    (float32 or bfloat16; the weights must have the same).
+    (float32 or bfloat16; the weights must have the same).  Under
+    ops.conv.f16_staging a float32 call computes the f16-staged stage (on
+    a card the kernel's f16-staged mode; packed must then be staged too),
+    and a bfloat16 call raises.
     """
     if x.device.type == "cpu":
         return mrf_stage_ref(x, blocks, dilation_sets, kernel_size,
@@ -732,13 +787,12 @@ def mrf_stage(x: torch.Tensor,
                              in_leaky=in_leaky, out_leaky=out_leaky)
     _check_options(upsample, in_leaky)
     refuse_autograd(x, blocks, upsample, in_bias)
-    y = _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
-                in_leaky, out_leaky, packed)
-    _count_launch(mrf_stage)
-    return y
+    return _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
+                   in_leaky, out_leaky, packed, counter=mrf_stage)
 
 
 mrf_stage.launches = 0
+mrf_stage.staged_launches = 0
 
 
 def mrf_stage_unfolded(x: torch.Tensor,
@@ -751,9 +805,8 @@ def mrf_stage_unfolded(x: torch.Tensor,
     if x.device.type == "cpu":
         return mrf_stage_ref(x, blocks, dilation_sets, kernel_size)
     refuse_autograd(x, blocks)
-    y = _launch(x, blocks, dilation_sets, kernel_size, None, None, None, None, packed)
-    _count_launch(mrf_stage_unfolded)
-    return y
+    return _launch(x, blocks, dilation_sets, kernel_size, None, None, None, None, packed,
+                   counter=mrf_stage_unfolded)
 
 
 mrf_stage_unfolded.launches = 0

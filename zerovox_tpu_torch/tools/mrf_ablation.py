@@ -67,7 +67,8 @@ F32_ONLY = ("one product", "no split")
 def build_all(names, dtype):
     """{name: ms.Library whose `dtype` entry is the ablated build} for the
     kernel and each ablation, nvcc runs in parallel."""
-    tag, entry_name = next((m[1], m[2]) for m in ms._MODES if m[0] == dtype)
+    tag = ms.kernel_mode(dtype)
+    defines, entry_name = next((m[1], m[2]) for m in ms._MODES if m[0] == tag)
     src = ms.SOURCE.read_text()
     out = build_dir() / "ablation"
     out.mkdir(parents=True, exist_ok=True)
@@ -81,7 +82,7 @@ def build_all(names, dtype):
         stem = name.replace(" ", "_")
         (out / f"{stem}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [ms._nvcc(), *ms.NVCC_FLAGS, f"-DZV_MRF_BF16={int(tag == 'bf16')}",
+            [ms._nvcc(), *ms.NVCC_FLAGS, *defines,
              "-o", str(out / f"{stem}_{tag}.so"), str(out / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -91,9 +92,9 @@ def build_all(names, dtype):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on ablation {name!r}:\n{log}")
         entry = getattr(ctypes.CDLL(str(out / f"{name.replace(' ', '_')}_{tag}.so")), entry_name)
-        entry.argtypes = proto.stage[dtype].argtypes
-        entry.restype = proto.stage[dtype].restype
-        libs[name] = proto._replace(stage={**proto.stage, dtype: entry})
+        entry.argtypes = proto.stage[tag].argtypes
+        entry.restype = proto.stage[tag].restype
+        libs[name] = proto._replace(stage={**proto.stage, tag: entry})
     return libs
 
 
