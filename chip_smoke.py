@@ -8,8 +8,12 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the MRF-stage kernel from csrc/ with nvcc, its three modes at
-     once (f32, bf16, f16-staged; timed, ptxas report);
-  3. hold the kernel against its plain PyTorch version (mrf_stage_ref) on
+     once (f32 and f16-staged from csrc/mrf_stage.cu, bf16 from
+     csrc/mrf_stage_bf16.cu; timed, ptxas registers, spills and shared
+     memory of every instance);
+  3. run the bf16 source's wgmma descriptor probe (a no-swizzle operand
+     read 0-7 rows into its planes, against the plain product); hold the
+     kernel against its plain PyTorch version (mrf_stage_ref) on
      the four production MRF stages (the options vocode gives them) and
      the mrf_stage_unfolded entry, TF32 off, in float32 and in bfloat16, at
      every shape a serving process launches: each batch size of the
@@ -23,8 +27,9 @@ Phases (any failure exits non-zero and prints no result line):
      every launch with CUDA events next to the plain version and its bounds (f32: f32 FMA and
      3xTF32 tensor cores; bf16: dense bf16 tensor cores); print each
      launch's cluster geometry; time variants of the f32 geometry (longest
-     tile, half and twice the weight chunk, rings of 2 and 4) against the
-     plan, in turns;
+     tile, half and twice the weight chunk, rings of 2 and 4) and of the
+     bf16 geometry (longest tile, shorter windows, a ring of 3, the other
+     chunk size) against the plan, in turns;
   4. drive the main path at the production config (ZeroVoxConfig()
      defaults, random weights from seed 0), once in float32 and once in
      bfloat16: save a GGUF with the port's save_params, run the CLI on it,
@@ -143,7 +148,8 @@ Phases (any failure exits non-zero and prints no result line):
 With --multi-device-only it runs phases 1-3, 9 and 10 and prints no result
 line: the quick way to drive the distinct-card regimes on a machine with
 several cards.  With --verify-only it runs phases 1, 2 and 11 and prints no
-result line.
+result line.  With --kernel-only it runs phases 1-3 (the variants included)
+and prints no result line: the quick check of a change to a kernel.
 """
 
 from __future__ import annotations
@@ -199,6 +205,13 @@ LATENCY_REQUESTS = 30
 # (on a machine with several cards, its distinct-card regimes), and no
 # result line
 MULTI_DEVICE_ONLY = "--multi-device-only"
+KERNEL_ONLY = "--kernel-only"
+# the sources of the kernels line's entries
+SOURCES = {"mrf_stage": "zerovox_tpu_torch/csrc/mrf_stage.cu",
+           "mrf_stage_unfolded": "zerovox_tpu_torch/csrc/mrf_stage.cu",
+           "mrf_stage_f16_staged": "zerovox_tpu_torch/csrc/mrf_stage.cu",
+           "mrf_stage_bf16": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu",
+           "mrf_stage_unfolded_bf16": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu"}
 
 
 def log(msg: str):
@@ -350,6 +363,48 @@ def check_one(ms, name, i, x, blocks, kw, cfg, packed):
     return got, err, tol_at_max
 
 
+def describe_plan(ms, plan, n_rb):
+    """One line of a launch's geometry, in the plan's own terms."""
+    if isinstance(plan, ms.Bf16Plan):
+        return (f"{plan.clusters} clusters of ({n_rb},1,1) = {plan.clusters * n_rb} CTAs x 256 "
+                f"threads (2 warpgroups), tile {plan.tile} rows "
+                f"(window {plan.window}, {plan.mt} M-tiles of 64 per warpgroup), chunk "
+                f"{plan.kb} ch x ring {plan.stages}, operand planes of {plan.plane_rows} rows "
+                f"(pre-upsample {plan.np_rows}), {plan.smem} B shared")
+    return (f"{plan.clusters} clusters of ({n_rb},1,1) = {plan.clusters * n_rb} CTAs x 256 "
+            f"threads, tile {plan.tile} rows, chunk {plan.kc} ch, ring {plan.stages}, warp "
+            f"tile {plan.mt}x m16 by {plan.nt}x n8, {plan.smem} B shared")
+
+
+def wgmma_probe_check():
+    """The bf16 source's descriptor probe: A read through a no-swizzle
+    descriptor whose start is 0-7 rows into its planes (the dilated taps
+    shift by 1, 3 and 5), against the plain product of the same bf16
+    values (exact products, sums of 16 in another order: 1e-5 of the
+    result's scale), with the stage kernel's assignment of LBO and SBO
+    (library().lbo_is_k) and with the other, which must be wrong: the probe
+    tells the two apart."""
+    import torch
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    ours = ms.library().lbo_is_k
+    errs = {1: [], 0: []}
+    for shift in range(8):
+        for lbo_k in (1, 0):
+            got, want = ms.wgmma_probe("cuda", shift, lbo_k)
+            torch.cuda.synchronize()
+            errs[lbo_k].append(((got - want).abs().max() / want.abs().max()).item())
+    for lbo_k, what in ((1, "LBO across k, SBO across 8-row groups"),
+                        (0, "LBO across 8-row groups, SBO across k")):
+        log(f"wgmma probe, {what}{' (the stage kernel)' if lbo_k == ours else ''}: A shifted "
+            f"0-7 rows, max|d| / max|ref| " + ", ".join(f"{e:.1e}" for e in errs[lbo_k]))
+    if not max(errs[ours]) <= 1e-5:
+        raise RuntimeError(f"wgmma probe: the stage kernel's shifted no-swizzle descriptor "
+                           f"reads wrong rows: {errs[ours]}")
+    if not min(errs[1 - ours]) > 1e-2:
+        raise RuntimeError(f"wgmma probe: the other field assignment agrees too "
+                           f"({errs[1 - ours]}): the probe does not tell them apart")
+
+
 def launch_plan(ms, cfg, x, C, K_up, kw, L_out, **change):
     """The geometry mrf_stage launches this call with (`change`: another
     chunk or ring depth, for a variant)."""
@@ -447,11 +502,8 @@ def check_stages(cfg, params, gen, pk, extra=()):
                 f"kernel {ms_k:.3f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms  "
                 f"bound " + ", ".join(f"{k} {v:.3f} ms" for k, v in bounds.items())
                 + f" ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
-            log(f"    launch: {plan.clusters} clusters of ({n_rb},1,1) = "
-                f"{plan.clusters * n_rb} CTAs x 256 threads, tile {plan.tile} rows "
-                f"(window {plan.tile + 2 * ms.stage_halo(dils, kr)}), chunk {plan.kc} ch, "
-                f"warp tile {plan.mt}x m16 by {plan.nt}x n8, {plan.smem} B shared; wave "
-                f"{ms.wave_clusters(x.device.index or 0, n_rb, plan.nt, plan.mt, ms.kernel_mode(dtype))} "
+            log(f"    launch: {describe_plan(ms, plan, n_rb)}; wave "
+                f"{ms.wave_clusters(x.device.index or 0, n_rb, C, ms.kernel_mode(dtype), getattr(plan, 'mt', 0))} "
                 f"clusters")
             if name == "mrf_stage":
                 tot["ms"] += ms_k
@@ -507,9 +559,7 @@ def time_variants(cfg, params, gen, packs):
                     continue
                 if pl != plan:
                     variants[label] = pl
-            def run(pl):
-                return ms._launch(x, blocks, dils, kr, up, kw["in_bias"], kw["in_leaky"],
-                                  kw["out_leaky"], packs[i], plan=pl)
+            run = variant_runner(ms, x, blocks, dils, kr, kw, packs[i])
             base = run(plan)
             for vname, pl in variants.items():
                 err = (run(pl) - base).abs().max().item()
@@ -521,6 +571,71 @@ def time_variants(cfg, params, gen, packs):
             log(f"variants {shape} stage {i + 1}: " + ", ".join(
                 f"{k} (tile {variants[k].tile}, chunk {variants[k].kc}, ring "
                 f"{variants[k].stages}, warp {variants[k].mt}x{variants[k].nt}) "
+                f"{' / '.join('%.3f' % t for t in v)} ms"
+                for k, v in times.items()))
+    torch.cuda.synchronize()
+
+
+def variant_runner(ms, x, blocks, dils, kr, kw, packed):
+    """A launch of one stage call at a given plan."""
+    def run(pl):
+        return ms._launch(x, blocks, dils, kr, kw["upsample"], kw["in_bias"], kw["in_leaky"],
+                          kw["out_leaky"], packed, plan=pl)
+    return run
+
+
+def time_variants_bf16(cfg, params16, gen, packs):
+    """A/B of the bf16 geometry inside this call, on the B=1 full-length and
+    bucket-256 stages and the 96-frame stream window: the plan mrf_stage
+    uses, the longest tile (no wave fill), windows of 3/4 and 1/2 of the
+    longest (each with the ring it leaves room for, and its own wave fill),
+    a ring of 3 chunks and the instance's other chunk size (with its own
+    longest window); each variant is held against the
+    plan's output at the bf16 stage gate (another tile moves the sums'
+    order) and timed in turns (plan, variants, variants reversed, plan),
+    median of 5."""
+    import torch
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    kr, dils = cfg.resblock_kernel_size, cfg.resblock_dilations
+    for shape, L0 in (("B=1 full", cfg.max_seq_len), ("B=1 bucket 256", 256),
+                      ("B=1 window 96", 96)):
+        for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params16, gen, 1, L0):
+            up = kw["upsample"]
+            L_out = ms.transpose_out_len(x.shape[1], up["stride"], K_up, up["padding"],
+                                         up["output_padding"])
+            plan = launch_plan(ms, cfg, x, C, K_up, kw, L_out)
+            longest = ms.bf16_plan(C, dils, kr, x.shape[2], K_up, up["stride"])
+            variants = {"plan": plan,
+                        "longest tile": longest._replace(clusters=-(-L_out // longest.tile))}
+            for label, change in ((f"window {3 * longest.window // 4}",
+                                   dict(window=3 * longest.window // 4)),
+                                  (f"window {longest.window // 2}",
+                                   dict(window=longest.window // 2)),
+                                  ("ring 3", dict(stages=3)),
+                                  *((f"chunk {k}", dict(kb=k)) for k in ms._BF16_KB[C]
+                                    if k != plan.kb)):
+                try:
+                    pl = launch_plan(ms, cfg, x, C, K_up, kw, L_out, **change)
+                except ValueError:                  # no tile fits
+                    continue
+                if pl != plan:
+                    variants[label] = pl
+            run = variant_runner(ms, x, blocks, dils, kr, kw, packs[i])
+            base = run(plan).float()
+            for vname, pl in variants.items():
+                got = run(pl).float()
+                tol = BF16_ULP * (BF16_STAGE_ULPS * base.abs() + base.abs().max())
+                worst = ((got - base).abs() / tol).max().item()
+                if not worst <= 1.0:
+                    raise RuntimeError(f"bf16 variant {vname} of stage {i + 1} disagrees: "
+                                       f"{worst:.2f} of the gate")
+            times = {k: [] for k in variants}
+            for vname in list(variants) + list(variants)[::-1]:
+                times[vname].append(cuda_ms(lambda: run(variants[vname]), reps=5))
+            log(f"bf16 variants {shape} stage {i + 1}: " + ", ".join(
+                f"{k} (tile {variants[k].tile}, window {variants[k].window}, chunk "
+                f"{variants[k].kb}, ring {variants[k].stages}, {variants[k].mt} M-tiles, "
+                f"{variants[k].clusters} clusters) "
                 f"{' / '.join('%.3f' % t for t in v)} ms"
                 for k, v in times.items()))
     torch.cuda.synchronize()
@@ -3144,10 +3259,12 @@ def run() -> int:
 
     t0 = time.perf_counter()
     lib = ms.library()
-    log(f"built {ms.SOURCE.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {lib.build_seconds:.1f} s)")
+    log(f"built {ms.SOURCE.relative_to(ROOT)} (f32, f16-staged) and "
+        f"{ms.SOURCE_BF16.relative_to(ROOT)} (bf16) in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {lib.build_seconds:.1f} s, three runs at once)")
     for line in lib.build_log.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill", "rror")):
+        if any(k in line for k in ("[", "entry function", "registers", "spill", "rror",
+                                   "smem", "arning", "Potential Performance Loss")):
             log(f"  ptxas: {line.strip()}")
 
     cfg = ZeroVoxConfig()
@@ -3166,10 +3283,17 @@ def run() -> int:
         log(f"{VERIFY_ONLY}: phases 1-2 and 11 passed in {time.perf_counter() - t_start:.1f} s; "
             "no result line")
         return 0
+    wgmma_probe_check()
     records, packs, held, shapes = check_stages(cfg, params, gen, pk, extra=phase9_shapes(cfg))
-    records16, _, _, shapes16 = check_stages(cfg, params16, gen, pk)
+    records16, packs16, _, shapes16 = check_stages(cfg, params16, gen, pk)
     records.update(records16)
     shapes |= shapes16
+    if KERNEL_ONLY in sys.argv[1:]:
+        time_variants(cfg, params, gen, packs)
+        time_variants_bf16(cfg, params16, gen, packs16)
+        log(f"{KERNEL_ONLY}: phases 1-3 passed in {time.perf_counter() - t_start:.1f} s; "
+            "no result line")
+        return 0
     if MULTI_DEVICE_ONLY in sys.argv[1:]:
         seen = record_launch_shapes()
         with tempfile.TemporaryDirectory() as tmp:
@@ -3185,6 +3309,7 @@ def run() -> int:
             f"{time.perf_counter() - t_start:.1f} s; no result line (phases 4-8 did not run)")
         return 0
     time_variants(cfg, params, gen, packs)
+    time_variants_bf16(cfg, params16, gen, packs16)
     seen = record_launch_shapes()
 
     launches = {}
@@ -3234,7 +3359,7 @@ def run() -> int:
     replaces.update({k: "zerovox_tpu/ops/pallas/folded_mrf.py:720"
                      for k in ("mrf_stage_unfolded", "mrf_stage_unfolded_bf16")})
     kernels = [{
-        "name": k, "route": "cuda", "source": "zerovox_tpu_torch/csrc/mrf_stage.cu",
+        "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": replaces[k], "launches": launches[k],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,

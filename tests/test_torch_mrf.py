@@ -438,66 +438,15 @@ def test_stage_dtype_mismatch_raises(rng, weights, weights_bf16):
         ms.pack_stage(bt16, DILS, K, up["w"])
 
 
-def test_pack_stage_layout_bf16(rng):
-    """bf16 weights: conv q at w[q][k][ci // 2][co ^ 8 * (ci // 2 % 4)][ci % 2], a
-    32-bit word per pair of input channels whose low half is the even
-    channel (one register of the bf16 MMA's B fragment); biases widened to
-    f32; the upsample taps stay [k][ci][co] in bf16."""
-    C = 64
-    blk = {cs: [{"w": _bf16(rng.normal(size=(C, C, K))), "b": _bf16(rng.normal(size=(C,)))}]
-           for cs in ("convs1", "convs2")}
-    up = _bf16(rng.normal(size=(C, 2 * C, 10)))
-    pk = ms.pack_stage([blk], [(1,)], K, up)
-    assert pk.w.shape == (2, K, C // 2, C, 2) and pk.w.dtype == torch.bfloat16
-    assert pk.w.is_contiguous() and pk.b.dtype == torch.float32
-    assert pk.w_up.dtype == torch.bfloat16 and pk.w_up.shape == (10, 2 * C, C)
-    for q, cs in enumerate(("convs1", "convs2")):
-        w = blk[cs][0]["w"]
-        torch.testing.assert_close(pk.b[q], blk[cs][0]["b"].float(), rtol=0, atol=0)
-        for ci in (0, 1, 2, 3, 6, 7, 9, 62, 63):
-            for co in (0, 5, 8, 31, 40, 63):
-                assert pk.w[q, 2, ci // 2, co ^ 8 * (ci // 2 % 4), ci % 2] == w[co, ci, 2]
-    # as the kernel reads it: little-endian words, the even channel in the low half
-    words = pk.w.view(torch.int32)[..., 0]
-    lo = (words[0, 1, 3, 40 ^ 8 * 3] & 0xFFFF).item()
-    assert lo == blk["convs1"][0]["w"][40, 6, 1].view(torch.int16).item() & 0xFFFF
-    for k in range(10):
-        torch.testing.assert_close(pk.w_up[k], up[:, :, 9 - k].T, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("C,cin,s,k,L_out", STAGES)
-def test_tile_plan_bf16_production(C, cin, s, k, L_out):
-    """2-byte weights: chunks hold twice the channels of an f32 chunk of
-    their bytes, the f32 windows take a stride of C + 8, everything fits
-    232448 bytes, and at the serving shape (B=1, bucket 256) the grid still
-    fills its last wave of 44 clusters to within one."""
-    nt, mt, warps_m = ms.warp_grid(C)
-    longest = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, elem=2)
-    assert longest.ss == C + 8 and longest.kc in ms.chunk_channels(nt, 2)
-    assert ms.chunk_channels(nt, 2) == tuple(2 * c for c in ms.chunk_channels(nt, 4))
-    window = longest.tile + 24
-    assert longest.smem == 4 * (longest.stages * longest.kc * C // 2 + 2 * window * longest.ss) \
-        + 16 * longest.stages <= 232448
-    assert warps_m * mt * 16 >= window - 2 and C % longest.kc == 0
-    assert longest.kc * C // 2 <= max(8192, 16 * C)
-    assert ((window + k - 2) // s + 2) * cin <= window * longest.ss
-    plan = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L_out, elem=2)
-    waves = -(-plan.clusters // 44)
-    assert plan.tile <= longest.tile and waves * 44 - plan.clusters <= 1
-    assert plan.clusters * plan.tile >= L_out > (plan.clusters - 1) * plan.tile
-    f32 = ms.tile_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L_out)
-    assert -(-f32.clusters // 44) == waves            # no more waves than the f32 plan
-
-
-@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("elem", [4])
 @pytest.mark.parametrize("frames", [96, 80, 44, 17, 1])
 def test_tile_plan_streaming_windows(elem, frames):
     """Streaming windows (96: an interior chunk of 64 + 2 x 16; 80: the
     first chunk; 44: the tail 1500 % 64 + 16; down to one frame) give every
-    stage a valid plan of one wave of 39 clusters (two at stage 4 of the
-    longest window, whose bf16 tile is the shorter): tiles of at least one
+    stage a valid f32 plan of one wave of 39 clusters: tiles of at least one
     row that cover L_out, pre-upsample rows that fit the staging window,
-    shared memory within the limit."""
+    shared memory within the limit.  (The bf16 plan's windows:
+    test_torch_mrf_bf16.py.)"""
     L = frames
     for C, cin, s, k, _ in STAGES:
         L *= s
@@ -509,16 +458,6 @@ def test_tile_plan_streaming_windows(elem, frames):
         assert plan.smem <= 232448
         assert plan.smem == 4 * (plan.stages * plan.kc * C * elem // 4 + 2 * window * plan.ss) \
             + 16 * plan.stages
-
-
-def test_tile_plan_bf16_rejects():
-    with pytest.raises(ValueError):                       # an element size with no kernel mode
-        ms.tile_plan(256, PROD_DILS, elem=3)
-    with pytest.raises(ValueError):                       # 16 channels: half a word row set
-        ms.tile_plan(256, PROD_DILS, kc=16, elem=2)
-    with pytest.raises(ValueError):                       # chunk not dividing C
-        ms.tile_plan(64, PROD_DILS, kc=128, elem=2)
-    assert ms.tile_plan(256, PROD_DILS, kc=32, elem=2).kc == 32
 
 
 def test_library_builds_once_under_concurrent_first_calls(monkeypatch):

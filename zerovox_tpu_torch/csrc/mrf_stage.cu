@@ -1,9 +1,9 @@
 // Fused HiFi-GAN multi-receptive-field (MRF) stage for Hopper (sm_90a), in
-// three modes chosen when this file is compiled: f32 accuracy on the tensor
-// cores (3xTF32; the default), with -DZV_MRF_BF16=1 the bf16 serving mode
-// (bf16 tensors, bf16 MMA operands, f32 accumulation and chain state), and
-// with -DZV_MRF_F16_STAGED=1 the f16-staged mode of checkpoint verification
-// (f32 tensors, f16 conv operands, f32 accumulation and chain state).
+// two modes chosen when this file is compiled: f32 accuracy on the tensor
+// cores (3xTF32; the default), and with -DZV_MRF_F16_STAGED=1 the f16-staged
+// mode of checkpoint verification (f32 tensors, f16 conv operands, f32
+// accumulation and chain state).  The bf16 serving mode has a source and a
+// design of its own, csrc/mrf_stage_bf16.cu.
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/folded_mrf.py:154-717
 // (_mrf_kernel behind folded_mrf_stage, and mrf_stage_unfolded at :720-794).
@@ -23,9 +23,13 @@
 // in two (v = hi + lo, hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi)) and
 // three products hi*hi + hi*lo + lo*hi accumulated in f32: about 22
 // significant bits per product, f32 parity at three MMAs per product, so the
-// least time is 3 * FLOPs / the TF32 rate.  mma.sync is used, not wgmma: the
-// dilated tap shift of 1/3/5 rows is not expressible in a wgmma shared-memory
-// descriptor (8-row core matrices).  On the H100 the chain of MMAs (issue
+// least time is 3 * FLOPs / the TF32 rate.  mma.sync is used, not wgmma:
+// the A operand is split in registers at every k-step, and a dilated tap
+// shift of 1/3/5 rows does not fit the swizzled shared-memory layouts (their
+// pattern follows the address bits).  It does fit wgmma's no-swizzle layout,
+// with operands kept as planes of 8 channels: a shift of s rows is a
+// descriptor start s*16 bytes further on (csrc/mrf_stage_bf16.cu, checked on
+// the card by its zv_wgmma_probe).  On the H100 the chain of MMAs (issue
 // and latency with two warps per scheduler: the 255-register warp tile
 // leaves one CTA per SM) takes about two thirds of a stage; the rest is the
 // per-cluster work around it (staging, upsample, epilogues, the weight
@@ -64,29 +68,6 @@
 //     shared-memory counter, the last one refills it, so no CTA-wide barrier
 //     is taken per chunk, only one per conv (the activation dependency).
 //
-// The bf16 mode (the TPU kernel's dot_bf16: zerovox_tpu/ops/pallas/
-// folded_mrf.py:334-349, :369-391, :434-443) is the same flow with one
-// mma.sync m16n8k16 bf16 product per k-step of 16 input channels.  What
-// bounds it: the same FLOPs at the dense bf16 rate, a sixth of the 3xTF32
-// floor, so the work around the chain weighs more.  What it keeps and what
-// it changes:
-//   * the windows in shared memory stay f32 (h, the residual and the
-//     resblock sum are the chain state); an A fragment is two adjacent f32
-//     channels per register, leaky'd in f32 and rounded once to a bf16 pair
-//     (cvt.rn, round to nearest even) as it is loaded, so the row stride is
-//     C + 8 floats (the 8-byte loads of four rows then hit distinct banks);
-//   * the weights are bf16 as loaded, packed by the host as 32-bit words of
-//     two consecutive input channels ([k][ci/2][co][ci%2]), so a B fragment
-//     register is one word and a word row is addressed, swizzled and
-//     streamed exactly as an f32 weight row is: KC counts 32-bit word rows
-//     per chunk in both modes (2 KC input channels here);
-//   * the input is read as 16-byte groups of 8 bf16 and widened, the output
-//     is scaled and leaky'd in f32 and rounded once on the store; biases
-//     reach the kernel widened to f32 (exact), and are added in f32;
-//   * the upsample prologue stays on the FMA units: its operands are bf16
-//     values (the staged rows rounded after the f32 leaky, the weights as
-//     loaded) widened to f32, so every product is exact and the sum is f32.
-//
 // The f16-staged mode computes what the reference's ggml graph computes (f16
 // conv weights and an f16 im2col, f32 accumulation) and what the JAX
 // package's f16_staging computes on its XLA route (zerovox_tpu/ops/conv.py:
@@ -98,10 +79,9 @@
 // value (TF32 keeps the same 10 explicit mantissa bits, with a wider
 // exponent), so an operand's split has lo = 0 and ONE m16n8k8 TF32 product
 // per k-step is exact: the f32 mode without two thirds of its MMAs, on the
-// f32 mode's layouts, tile plans and instances.  The alternative, one
-// m16n8k16 f16 product per k-step, would halve the MMAs again but needs the
-// bf16 mode's packed pairs of input channels beside f32 activations in
-// device memory, a fourth layout; a correct kernel came first.
+// f32 mode's layouts, tile plans and instances.  The alternative, f16
+// products on csrc/mrf_stage_bf16.cu's wgmma design (exact in f32 as these
+// TF32 products are), is the next kernel design in ROADMAP.md's queue.
 
 // Interface: plain C, loaded with ctypes.  The host wrapper
 // (zerovox_tpu_torch/ops/cuda/mrf_stage.py) chooses the geometry (tile,
@@ -111,32 +91,19 @@
 // uncomputed or overrun shared memory.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef ZV_MRF_BF16
-#define ZV_MRF_BF16 0
-#endif
 #ifndef ZV_MRF_F16_STAGED
 #define ZV_MRF_F16_STAGED 0
-#endif
-#if ZV_MRF_BF16 && ZV_MRF_F16_STAGED
-#error "the f16-staged mode is a float32 mode: build it with ZV_MRF_BF16=0"
 #endif
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-#if ZV_MRF_BF16
-typedef __nv_bfloat16 elem_t;   // activations and weights in device memory
-constexpr int kCPW = 2;         // input channels per 32-bit word of a weight row
-#else
-typedef float elem_t;
-constexpr int kCPW = 1;
-#endif
+typedef float elem_t;           // activations and weights in device memory
 constexpr int kVec = 16 / (int)sizeof(elem_t);   // channels per 16-byte global load
 
 constexpr int kThreads = 256;   // threads per CTA: 8 warps
@@ -152,7 +119,7 @@ struct Params {
   const elem_t* x;       // (B, L_in, Cin) stage input (pre-upsample when w_up)
   const elem_t* w_up;    // (K_up, Cin, C) ConvTranspose1d weight, or nullptr
   const float* in_bias;  // (C,) or nullptr
-  const uint32_t* w;     // (n_conv, kr, C / kCPW, C) words [k][ci / kCPW][co], chain order
+  const uint32_t* w;     // (n_conv, kr, C, C) words [k][ci][co], chain order
   const float* b;        // (n_conv, C)
   elem_t* y;             // (B, L_out, C)
   int L_in, Cin, C, L_out;
@@ -165,7 +132,7 @@ struct Params {
   int dils[kMaxRB][kMaxD];  // 0 = no conv pair at this slot
   int halo, tile;
   int ss;                   // window row stride (floats, C + 4: conflict-free A loads)
-  int kc;                   // 32-bit word rows per weight chunk (the instance's KC)
+  int kc;                   // input channels per weight chunk (the instance's KC)
   int stages;               // weight ring depth
   float inv_n;
 };
@@ -245,25 +212,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-#if ZV_MRF_BF16
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// {lo, hi} rounded to nearest even, lo in the low half: one MMA operand register
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
-#endif
-
 // kVec consecutive channels of a row, widened to f32: one 16-byte load
 struct Vec { float v[kVec]; };
 
@@ -276,14 +224,8 @@ __device__ __forceinline__ Vec zero_vec() {
 
 __device__ __forceinline__ Vec load_vec(const elem_t* ptr) {
   Vec r;
-#if ZV_MRF_BF16
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(ptr));
-  r.v[0] = bf16_lo(u.x); r.v[1] = bf16_hi(u.x); r.v[2] = bf16_lo(u.y); r.v[3] = bf16_hi(u.y);
-  r.v[4] = bf16_lo(u.z); r.v[5] = bf16_hi(u.z); r.v[6] = bf16_lo(u.w); r.v[7] = bf16_hi(u.w);
-#else
   const float4 u = __ldg(reinterpret_cast<const float4*>(ptr));
   r.v[0] = u.x; r.v[1] = u.y; r.v[2] = u.z; r.v[3] = u.w;
-#endif
   return r;
 }
 
@@ -293,31 +235,19 @@ __device__ __forceinline__ void store_vec(float* dst, const Vec& r) {   // share
     *reinterpret_cast<float4*>(dst + i) = make_float4(r.v[i], r.v[i + 1], r.v[i + 2], r.v[i + 3]);
 }
 
-// four consecutive output channels of one upsample weight row, widened to f32
+// four consecutive output channels of one upsample weight row
 __device__ __forceinline__ float4 load_w4(const elem_t* ptr) {
-#if ZV_MRF_BF16
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(ptr));
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
-#else
   return __ldg(reinterpret_cast<const float4*>(ptr));
-#endif
 }
 
-// four consecutive channels of an output row: rounded once, here, in the bf16 mode
+// four consecutive channels of an output row
 __device__ __forceinline__ void store_out4(elem_t* ptr, float4 v) {
-#if ZV_MRF_BF16
-  *reinterpret_cast<uint2*>(ptr) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
-#else
   *reinterpret_cast<float4*>(ptr) = v;
-#endif
 }
 
-// an operand of a product: as it is in f32, a bf16 value in the bf16 mode, an
-// f16 value in the f16-staged mode
+// an operand of a product: as it is in f32, an f16 value in the f16-staged mode
 __device__ __forceinline__ float round_operand(float v) {
-#if ZV_MRF_BF16
-  return __bfloat162float(__float2bfloat16_rn(v));
-#elif ZV_MRF_F16_STAGED
+#if ZV_MRF_F16_STAGED
   return __half2float(__float2half_rn(v));
 #else
   return v;
@@ -326,19 +256,19 @@ __device__ __forceinline__ float round_operand(float v) {
 
 struct Stream {
   int conv_base;   // first conv of this CTA's resblock in the packed chain
-  int nb;          // chunks per tap (C / kCPW / kc)
+  int nb;          // chunks per tap (C / kc)
   int cpc;         // chunks per conv (kr * nb)
   int n_chunks;    // chunks of this CTA's resblock
 };
 
-// One bulk copy brings chunk n (conv, tap, kc word rows: kc * kCPW input
-// channels, contiguous in the packed weights) into ring stage n % stages.
+// One bulk copy brings chunk n (conv, tap, kc input channels, contiguous in
+// the packed weights) into ring stage n % stages.
 __device__ void issue_chunk(const Params& p, const Smem& sm, const Stream& st, int n) {
   const int C = p.C, s = n % p.stages;
   const int rem = n % st.cpc;
   const int tap = rem / st.nb, row0 = (rem % st.nb) * p.kc;
   const uint32_t* src = p.w +
-      ((size_t)(st.conv_base + n / st.cpc) * p.kr + tap) * (C / kCPW) * C + (size_t)row0 * C;
+      ((size_t)(st.conv_base + n / st.cpc) * p.kr + tap) * C * C + (size_t)row0 * C;
   mbar_expect_tx(sm.full + s, (uint32_t)(p.kc * C * 4));
   bulk_copy(sm.ring + (size_t)s * p.kc * C, src, (uint32_t)(p.kc * C * 4), sm.full + s);
 }
@@ -402,45 +332,16 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
   for (int c = 0; c < st.cpc; ++c, ++q) {
     const int s = q % p.stages;
     mbar_wait(sm.full + s, (q / p.stages) & 1);
-    const int tap = c / st.nb, ci0 = (c % st.nb) * KC * kCPW;
-    // a lane's first channel of a k-step: t of 8 (TF32), the pair 2t, 2t + 1 of 16 (bf16)
-    const float* a_base = src + (tap - half) * d * ss + ci0 + kCPW * t;
+    const int tap = c / st.nb, ci0 = (c % st.nb) * KC;
+    // a lane's first channel of a k-step: t of 8
+    const float* a_base = src + (tap - half) * d * ss + ci0 + t;
     // word (row, co) of a chunk sits at row * C + (co ^ 8 * (row % 4)) (pack_stage's
     // swizzle), so the B fragments' rows kk + t and kk + t + 4 hit distinct banks
     const uint32_t* w_base = sm.ring + (size_t)s * KC * C + n0 + g;
     // KC is a compile-time chunk: the k-steps of a chunk unroll into one block
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 8) {
-#if ZV_MRF_BF16
-      // one k-step: 8 word rows = 16 input channels, one product
-      uint32_t bw[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = ((j ^ t) << 3);
-        bw[j][0] = w_base[(kk + t) * C + col];
-        bw[j][1] = w_base[(kk + t + 4) * C + col];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (!act[i]) continue;
-        const float* a0 = a_base + roff[i][0] + 2 * kk;
-        const float* a1 = a_base + roff[i][1] + 2 * kk;
-        float2 v[4] = {*reinterpret_cast<const float2*>(a0), *reinterpret_cast<const float2*>(a1),
-                       *reinterpret_cast<const float2*>(a0 + 8),
-                       *reinterpret_cast<const float2*>(a1 + 8)};
-        uint32_t a[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (!RESIDUAL) {
-            v[e].x = leaky(v[e].x, 0.1f);
-            v[e].y = leaky(v[e].y, 0.1f);
-          }
-          a[e] = pack_bf16x2(v[e].x, v[e].y);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, bw[j][0], bw[j][1]);
-      }
-#elif ZV_MRF_F16_STAGED
+#if ZV_MRF_F16_STAGED
       // f16 values in f32 words are TF32 values: one exact product, no split
       uint32_t bh[NT][2];
 #pragma unroll
@@ -531,11 +432,9 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
 // of P per row) and are summed by two xor shuffles, in which both lanes of a
 // pair add the same two values, so the sum is deterministic.  CTA `rank`
 // takes every n_rb-th warp item, so each weight is read once per row group
-// of a phase, by one cluster.  Needs C % 32 == 0 and Cin % kVec == 0.  In the
-// bf16 mode the staged rows are rounded to bf16 after the leaky (rows that
-// were not leaky'd are bf16 values already) and the weights are bf16, both
-// held as f32: exact products, an f32 sum.  In the f16-staged mode every
-// staged row is rounded to f16 and the weights are f16 values from the host.
+// of a phase, by one cluster.  Needs C % 32 == 0 and Cin % kVec == 0.  In
+// the f16-staged mode every staged row is rounded to f16 and the weights are f16 values
+// from the host.
 __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, float* H,
                                   float* P, int W, int t_base, int batch, int rank) {
   const int C = p.C, Cin = p.Cin, s = p.stride, ss = p.ss;
@@ -561,7 +460,7 @@ __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, f
       if (p.has_in_leaky) {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) v[u].v[i] = round_operand(leaky(v[u].v[i], p.in_leaky));
-      } else if (ZV_MRF_F16_STAGED) {   // f32 rows are no f16 values (bf16 rows are bf16)
+      } else if (ZV_MRF_F16_STAGED) {   // f32 rows are no f16 values
 #pragma unroll
         for (int i = 0; i < kVec; ++i) v[u].v[i] = round_operand(v[u].v[i]);
       }
@@ -665,7 +564,7 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_stage_kernel(const Params p) 
   }
   Stream st;
   st.conv_base = conv_base;
-  st.nb = C / kCPW / p.kc;
+  st.nb = C / p.kc;
   st.cpc = p.kr * st.nb;
   st.n_chunks = 2 * n_d * st.cpc;
 
@@ -760,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_stage_kernel(const Params p) 
 }
 
 // The kernel instances: (NT n8 column tiles, MT m16 row tiles) per warp and
-// the weight chunk's 32-bit word rows KC (ops/cuda/mrf_stage.py's _MT and _KC).
+// the weight chunk's input channels KC (ops/cuda/mrf_stage.py's _MT and _KC).
 typedef void (*KernelFn)(const Params);
 
 KernelFn pick_kernel(int nt, int mt, int kc) {
@@ -791,10 +690,7 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 }  // namespace
 
 // One entry per mode; a library built from this file holds one of them.
-#if ZV_MRF_BF16
-#define ZV_STAGE_ENTRY zv_mrf_stage_bf16
-#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_bf16
-#elif ZV_MRF_F16_STAGED
+#if ZV_MRF_F16_STAGED
 #define ZV_STAGE_ENTRY zv_mrf_stage_f16_staged
 #define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_f16_staged
 #else
@@ -802,8 +698,7 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 #define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters
 #endif
 
-// kc counts 32-bit word rows of a weight chunk (f32: input channels; bf16:
-// pairs of them); in_bias and b are f32 in both modes.
+// kc counts the input channels of a weight chunk; in_bias and b are f32.
 extern "C" int ZV_STAGE_ENTRY(
     const elem_t* x, const elem_t* w_up, const float* in_bias, const uint32_t* w,
     const float* b, elem_t* y, int B, int L_in, int Cin, int C, int L_out,
@@ -815,7 +710,7 @@ extern "C" int ZV_STAGE_ENTRY(
   if (kernel == nullptr || n_rb < 1 || n_rb > kMaxRB || n_dmax < 1 || n_dmax > kMaxD ||
       tile < 1 || kr < 1 || kr % 2 != 1 || halo < 0 || C < 8 || C % (nt * 8) != 0 ||
       kWarps % (C / (nt * 8)) != 0 || C % 32 != 0 || ss < C || ss % 4 != 0 ||
-      (C / kCPW) % kc != 0 || stages < 2 || stages > kMaxStages ||
+      C % kc != 0 || stages < 2 || stages > kMaxStages ||
       kc * C * 4 >= (1 << 20) || B < 1 || L_out < 1)
     return (int)cudaErrorInvalidValue;
   // The geometry the host chose must hold the chain: the halo covers each
@@ -885,7 +780,7 @@ extern "C" int ZV_CLUSTERS_ENTRY(int n_rb, int nt, int mt, int smem_bytes) {
   return n;
 }
 
-#if !ZV_MRF_BF16 && !ZV_MRF_F16_STAGED
+#if !ZV_MRF_F16_STAGED
 extern "C" const char* zv_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

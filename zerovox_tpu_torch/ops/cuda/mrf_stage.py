@@ -5,7 +5,9 @@
 multi-receptive-field stage, optionally with the preceding ConvTranspose1d
 upsample, its bias and the leaky-relus on either side fused in.
 `mrf_stage_unfolded` is the same kernel with every option off, the port of
-`mrf_stage_unfolded`.  The kernel source is zerovox_tpu_torch/csrc/mrf_stage.cu.
+`mrf_stage_unfolded`.  The kernel sources are zerovox_tpu_torch/csrc/
+mrf_stage.cu (the float32 and f16-staged modes) and csrc/mrf_stage_bf16.cu
+(the bfloat16 serving mode).
 
 For a CUDA tensor the wrappers launch the kernel or raise; they take the
 plain version (`mrf_stage_ref`, built from F.conv1d / F.conv_transpose1d)
@@ -22,15 +24,19 @@ makes once per model and passes as `packed=`.
 
 The kernel runs each conv on the tensor cores, one resblock per CTA in a
 cluster of one CTA per resblock; `tile_plan` chooses its geometry in plain
-Python, so the CPU tests reach it.  It takes C in 32/64/128/256/512 and three
-modes, chosen by the input's dtype and ops.conv's f16_staging:
+Python, so the CPU tests reach it.  It takes three modes, chosen by the
+input's dtype and ops.conv's f16_staging:
 
-  float32   f32 accuracy (3xTF32: `split_tf32` mirrors its operand split);
-  bfloat16  the serving mode (the TPU kernel's dot_bf16): input, output and
-            weights are bf16 in device memory, every conv's operands are
-            rounded to bf16 (after the leaky) for one bf16 MMA, and the
-            accumulators, the biases, the residual and the resblock sum are
-            f32; the result is rounded once, on the store.  `mrf_stage_ref`
+  float32   f32 accuracy (3xTF32 mma.sync: `split_tf32` mirrors its operand
+            split); C in 32/64/128/256/512.
+  bfloat16  the serving mode (the TPU kernel's dot_bf16), its own source and
+            design (wgmma on operand planes, weight chunks bulk-copied
+            into a ring, the upsample on the tensor cores; `bf16_plan`): input,
+            output and weights are bf16 in device memory, every conv's
+            operands are rounded to bf16 (after the leaky) once per conv, and
+            the accumulators, the biases, the residual and the resblock sum
+            are f32; the result is rounded once, on the store.  C in
+            32/64/128/256, an upsample of k = t * s.  `mrf_stage_ref`
             computes the same for bf16 tensors (`round_bf16` on each conv's
             operand, f32 convs on exactly representable products).
   f16-staged  float32 under f16_staging (`--verify`'s simulation of the
@@ -57,11 +63,12 @@ The kernel is compiled with nvcc, at its first CUDA call (never at import),
 into the port's build directory (utils.compile_cache.build_dir():
 build/zerovox_tpu_torch/ at the root of the checkout, or --compile-cache's
 DIR; a build of the same source and flags found there is reused), as one shared
-library per mode (the same source with -DZV_MRF_BF16=0 or 1, or
--DZV_MRF_F16_STAGED=1; the three nvcc runs started together) with a plain C
+library per mode (csrc/mrf_stage.cu as it is and with -DZV_MRF_F16_STAGED=1,
+csrc/mrf_stage_bf16.cu; the three nvcc runs started together) with a plain C
 interface loaded through ctypes.  The build is guarded
 by a lock: concurrent first calls (a server made without a warm-up) wait
-for the one nvcc run.
+for the one nvcc run.  A mode whose library does not build or launch raises:
+nothing falls back to another mode or to the plain version.
 """
 
 from __future__ import annotations
@@ -86,7 +93,8 @@ from ..conv import (conv1d, conv_transpose1d, round_f16, staging, transpose_out_
 from ..misc import leaky_relu
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "mrf_stage.cu"
+SOURCE = _PKG / "csrc" / "mrf_stage.cu"            # the float32 and f16-staged modes
+SOURCE_BF16 = _PKG / "csrc" / "mrf_stage_bf16.cu"  # the bfloat16 mode
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,8 +107,16 @@ _MAX_D = 8                # dilations per resblock
 _SMEM_MAX = 232448        # dynamic shared memory one CTA may use (bytes)
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _MT = {8: 3, 4: 6}        # kernel instances: n8 column tiles per warp -> m16 row tiles
-_KC = {8: (16, 32, 64), 4: (16, 32)}   # ... and their weight chunks (rows of 32-bit words:
-#                                        input channels in f32, pairs of them in bf16)
+_KC = {8: (16, 32, 64), 4: (16, 32)}   # ... and their weight chunks (input channels)
+# Limits shared with csrc/mrf_stage_bf16.cu: its instances (C -> the input
+# channels a weight chunk may hold) and its ring of weight chunks
+_BF16_KB = {256: (16, 64), 128: (32, 128), 64: (64,), 32: (32,)}
+# ... and their 64-row M-tiles per warpgroup: 256 / C (128 accumulators a
+# thread, one CTA an SM), at C=32 128 / C (64, two CTAs an SM: 16 warps hide
+# the epilogues' latency)
+_BF16_MT = {256: 1, 128: 2, 64: 4, 32: 4}
+_BF16_STAGES = 16
+_SMEM_2 = 115712          # dynamic shared memory each of two CTAs of an SM may use (bytes)
 
 
 # --------------------------------------------------------------------------
@@ -230,9 +246,10 @@ def split_tf32(v: torch.Tensor):
 
 
 class TilePlan(NamedTuple):
+    """Launch geometry of the float32 and f16-staged modes (csrc/mrf_stage.cu)."""
     tile: int        # output rows per cluster (its CTAs run one resblock each)
     clusters: int    # clusters per launch (B x time tiles); 0 with no L_out
-    ss: int          # window row stride (floats: C + 4, C + 8 with 2-byte weights)
+    ss: int          # window row stride (floats: C + 4)
     kc: int          # input channels per weight chunk (one tap)
     stages: int      # weight ring depth
     nt: int          # n8 column tiles per warp
@@ -254,12 +271,6 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def chunk_channels(nt: int, elem: int):
-    """The input channels a weight chunk of a kernel instance may hold:
-    `elem`-byte weights fill the instance's rows of 32-bit words."""
-    return tuple(k * 4 // elem for k in _KC[nt])
-
-
 def _upsample_fits(tile, halo, up_cin, up_k, up_stride, ss) -> bool:
     """Whether the pre-upsample rows of a tile fit the conv1-output window
     that stages them (always, without an upsample)."""
@@ -268,18 +279,16 @@ def _upsample_fits(tile, halo, up_cin, up_k, up_stride, ss) -> bool:
 
 
 def _geometry(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc,
-              stages, elem):
+              stages):
     nt, mt, warps_m = warp_grid(C)
-    if kc not in chunk_channels(nt, elem) or C % kc or not 2 <= stages <= 8:
+    if kc not in _KC[nt] or C % kc or not 2 <= stages <= 8:
         raise ValueError(f"mrf_stage kernel: chunks of {kc} channels (one of "
-                         f"{chunk_channels(nt, elem)}, dividing C={C}) in a ring of 2-8, "
+                         f"{_KC[nt]}, dividing C={C}) in a ring of 2-8, "
                          f"got a ring of {stages}")
     halo = stage_halo(dilation_sets, kernel_size)
     half = (kernel_size - 1) // 2
-    # the windows are f32 in both modes; the bf16 mode reads them in pairs of
-    # channels, whose four rows per load need a stride of 8 mod 32 banks
-    ss = C + (4 if elem == 4 else 8)
-    ring = stages * kc * C * elem // 4            # 32-bit words
+    ss = C + 4
+    ring = stages * kc * C                        # 32-bit words
     window = min(warps_m * mt * 16 + 2 * half * min(d[0] for d in dilation_sets),
                  ((_SMEM_MAX - 16 * stages) // 4 - ring) // (2 * ss))
     tile = window - 2 * halo
@@ -302,20 +311,18 @@ def _geometry(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, 
 
 @functools.lru_cache(maxsize=256)
 def _plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc,
-          stages, elem):
-    if elem not in (2, 4):
-        raise ValueError(f"mrf_stage kernel: 2-byte (bf16) or 4-byte (f32) weights, got {elem}")
+          stages):
     args = (C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave)
     stages = stages or _STAGES
     if kc:
-        return _geometry(*args, kc, stages, elem)
+        return _geometry(*args, kc, stages)
     nt = warp_grid(C)[0]
-    chunks = chunk_channels(nt, elem)
+    chunks = _KC[nt]
     plans = []
     for k in chunks:
-        if k * elem // 4 <= max(_CHUNK_FLOATS // C, _KC[nt][0]) and C % k == 0:
+        if k <= max(_CHUNK_FLOATS // C, _KC[nt][0]) and C % k == 0:
             with contextlib.suppress(ValueError):
-                plans.append(_geometry(*args, k, stages, elem))
+                plans.append(_geometry(*args, k, stages))
     if not plans:
         raise ValueError(f"mrf_stage kernel: no weight chunk of {chunks} channels fits C={C}")
     # the largest chunk whose tile is within a tenth of the longest any chunk
@@ -329,14 +336,15 @@ def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
               up_cin: int = 0, up_k: int = 0, up_stride: int = 1, B: int = 1,
               L_out: Optional[int] = None, wave: Optional[int] = None,
               kc: Optional[int] = None, stages: Optional[int] = None,
-              elem: int = 4) -> TilePlan:
-    """Launch geometry for a stage of C channels (csrc/mrf_stage.cu).
+              elem: int = 4):
+    """Launch geometry for a stage of C channels with `elem`-byte tensors: 4
+    (float32, csrc/mrf_stage.cu) gives a TilePlan; 2 (bfloat16) gives
+    bf16_plan's Bf16Plan (kc does not apply there).
 
     A cluster of len(dilation_sets) CTAs takes one time tile, a CTA per
     resblock.  Shared memory holds the weight ring (`stages` chunks of
-    kc x C weights of `elem` bytes: 4 for the f32 mode, 2 for bf16) and two
-    f32 windows of tile + 2*halo rows of C + 4 floats (C + 8 with 2-byte
-    weights); the warps' row tiles must cover the first conv's rows, and the
+    kc x C f32 weights) and two f32 windows of tile + 2*halo rows of C + 4
+    floats; the warps' row tiles must cover the first conv's rows, and the
     pre-upsample rows must fit the conv1-output window, which stages them.
     Without L_out the tile is the longest that fits.  With B and L_out it is
     the shortest tile that needs no more waves than the longest (a wave:
@@ -344,15 +352,131 @@ def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
     tile leaves the card short of one wave, the tile shrinks until the grid
     fills it, and where it needs several, until the last wave is full; the
     extra halo rows cost less than the idle SMs.  The chunk (kc input
-    channels, at most 8192 32-bit words: a bf16 chunk holds twice the
-    channels of an f32 chunk of its bytes) is the largest of the kernel instance's
+    channels, at most 8192 floats) is the largest of the kernel instance's
     whose tile is within a tenth of the longest tile any of them gives.  kc
     and stages replace the chunk and the ring depth (3), to measure
     variants.  Raises ValueError for a stage the kernel cannot hold."""
+    if elem == 2:
+        return bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out,
+                         wave, stages=stages)
+    if elem != 4:
+        raise ValueError(f"mrf_stage kernel: 2-byte (bf16) or 4-byte (f32) tensors, got {elem}")
     dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
     wave = wave or max(1, _SMS // len(dils))
-    return _plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc, stages,
-                 elem)
+    return _plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc, stages)
+
+
+class Bf16Plan(NamedTuple):
+    """Launch geometry of the bfloat16 mode (csrc/mrf_stage_bf16.cu)."""
+    tile: int          # output rows per cluster (its CTAs run one resblock each)
+    clusters: int      # clusters per launch (B x time tiles); 0 with no L_out
+    window: int        # rows a CTA holds: tile + 2 * halo
+    margin: int        # operand plane rows before window row 0: the largest tap shift
+    plane_rows: int    # rows of an operand plane: the window's 64-row M-tiles + 2 margins
+    np_rows: int       # rows of a pre-upsample plane (0 without an upsample)
+    kb: int            # input channels per weight chunk (the instance's)
+    stages: int        # weight ring slots
+    mt: int            # 64-row M-tiles per consumer warpgroup (its accumulators)
+    buf: int           # bytes of the operand buffer (operand or pre-upsample planes)
+    smem: int          # dynamic shared memory per CTA (bytes)
+
+
+def _bf16_geometry(C, dils, kernel_size, up_cin, up_k, up_stride, window, stages, kb):
+    """The plan of one window with chunks of kb input channels."""
+    mt = _BF16_MT[C]
+    if kb not in _BF16_KB[C] or (up_cin and up_cin % kb) or window > 128 * mt:
+        raise ValueError(f"mrf_stage kernel (bf16): chunks of {kb} channels (one of "
+                         f"{_BF16_KB[C]} at C={C}, dividing the upsample's {up_cin}) for "
+                         f"{window} rows (at most {128 * mt})")
+    halo = stage_halo(dils, kernel_size)
+    margin = (kernel_size - 1) // 2 * max(max(d) for d in dils)
+    smem_max = _SMEM_MAX if mt * C > 128 else _SMEM_2
+    chunk = kb * C * 2
+    plane_rows = 64 * _cdiv(window, 64) + 2 * margin
+    np_rows = (up_k // up_stride + 1 + 64 * _cdiv(_cdiv(window, up_stride), 64)) if up_cin else 0
+    buf = max(plane_rows * C * 2, np_rows * up_cin * 2)
+    fixed = buf + 4 * window * C + 4 * C            # + the epilogue's bias
+    fit = min(_BF16_STAGES, (smem_max - fixed) // (chunk + 16))
+    stages = stages or fit
+    if not 2 <= stages <= fit:
+        raise ValueError(f"mrf_stage kernel: a window of {window} rows at C={C} leaves room "
+                         f"for a ring of {fit} chunks, not {stages} (2-{_BF16_STAGES})")
+    return Bf16Plan(window - 2 * halo, 0, window, margin, plane_rows, np_rows, kb, stages, mt,
+                    buf, stages * (chunk + 16) + fixed)
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, window, stages,
+               kb):
+    if C not in _BF16_KB:
+        raise ValueError(f"mrf_stage kernel takes C in 32/64/128/256 in bfloat16, got C={C}")
+    if kernel_size % 2 != 1:
+        raise ValueError(f"resblock kernel size must be odd, got {kernel_size}")
+    if up_cin and (up_cin % min(_BF16_KB[C]) or up_k < up_stride or up_k % up_stride):
+        raise ValueError(f"mrf_stage kernel (bf16): an upsample of {up_cin} input channels "
+                         f"(a multiple of {min(_BF16_KB[C])}) and a kernel of a multiple of its "
+                         f"stride, got k={up_k}, s={up_stride}")
+    halo = stage_halo(dils, kernel_size)
+    mt = _BF16_MT[C]
+    longest = None
+    # the largest chunk of the instances that leaves a window (the weight
+    # stream from L2 moves larger copies faster, PERF.md), at its longest
+    for k in [kb] if kb else sorted((k for k in _BF16_KB[C] if not up_cin or up_cin % k == 0),
+                                    reverse=True):
+        for w in range(min(window or 128 * mt, 128 * mt), 2 * halo, -1):
+            with contextlib.suppress(ValueError):
+                longest = _bf16_geometry(C, dils, kernel_size, up_cin, up_k, up_stride, w,
+                                         stages, k)
+                break
+        if longest is not None:
+            break
+    if longest is None:
+        raise ValueError(f"mrf_stage kernel (bf16): C={C} with halo {halo} leaves no room for "
+                         f"a time tile")
+    if L_out is None:
+        return longest
+    # the waves the longest tile needs, then the shortest tile that needs no more
+    waves = _cdiv(B * _cdiv(L_out, longest.tile), wave)
+    tile = max(1, min(longest.tile, _cdiv(L_out, max(1, waves * wave // B))))
+    plan = _bf16_geometry(C, dils, kernel_size, up_cin, up_k, up_stride, tile + 2 * halo,
+                          stages, longest.kb)
+    return plan._replace(clusters=B * _cdiv(L_out, tile))
+
+
+def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
+              up_cin: int = 0, up_k: int = 0, up_stride: int = 1, B: int = 1,
+              L_out: Optional[int] = None, wave: Optional[int] = None,
+              window: Optional[int] = None, stages: Optional[int] = None,
+              kb: Optional[int] = None) -> Bf16Plan:
+    """Launch geometry of the bfloat16 kernel (csrc/mrf_stage_bf16.cu) for a
+    stage of C channels (32/64/128/256).
+
+    A cluster of len(dilation_sets) CTAs takes one time tile, a CTA per
+    resblock.  Its two warpgroups hold every 64-row M-tile of the window
+    (tile + 2*halo rows) in registers, mt tiles each (_BF16_MT), so a window
+    has at most 128 * mt rows: 32768 / C with 128 f32 accumulators a thread
+    and one CTA an SM, or at C=32 512 rows with 64 accumulators and two CTAs
+    an SM, each with half the shared memory.  Shared memory holds the f32 h
+    window (window x C), one operand buffer (C/8 planes of plane_rows rows of
+    16 bytes, margins of the largest tap shift on both sides; or, before the
+    chain, the pre-upsample rows as up_cin/8 planes of np_rows rows) and the
+    weight ring, which takes what is left, 2 to 16 chunks of kb x C bf16.
+    The chunk is the largest the instances have for C (64 input channels at
+    C=256, 128 at C=128: 32 KB copies) and the window the longest that
+    leaves it two slots: the weight stream from L2 bounds the wide stages,
+    and larger copies move it faster than a longer window saves.
+    Without L_out the window is the longest that fits.  With B and L_out the
+    tile is the shortest that needs no more waves of `wave` clusters than the
+    longest (as tile_plan).  window, stages and kb replace the longest
+    window, the ring depth and the chunk, to measure variants.
+    Raises ValueError for a stage the
+    kernel cannot hold: another width, an even kernel size, an upsample of a
+    width not in whole chunks or a kernel that is not a multiple of its
+    stride."""
+    dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    wave = wave or max(1, _SMS // len(dils))
+    return _bf16_plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, window,
+                      stages, kb)
 
 
 def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
@@ -365,9 +489,11 @@ def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: in
     tests reach it; the vocoder runs a stage it does not take through the
     plain version (mrf_stage_ref), on the card too.  It asks what _launch
     and tile_plan ask: an odd kernel size, 1-8 resblocks of 1-8 dilations
-    >= 1, a width and chunk the kernel's instances hold, upsample input
-    channels in 16-byte groups, and a tile plan whose pre-upsample rows fit
-    at every tile length a launch can choose (1 up to the longest)."""
+    >= 1, a width and chunk the mode's instances hold, upsample input
+    channels in 16-byte groups (bf16: in whole weight chunks, and an upsample
+    kernel that is a multiple of its stride), and a tile plan whose
+    pre-upsample rows fit at every tile length a launch can choose (1 up to
+    the longest)."""
     return _takes(C, tuple(tuple(int(d) for d in ds) for ds in dilation_sets), kernel_size,
                   up_cin, up_k, up_stride, dtype)
 
@@ -384,6 +510,8 @@ def _takes(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, dtype) -> boo
                          elem=dtype.itemsize)
     except ValueError:
         return False
+    if dtype == torch.bfloat16:
+        return True            # a shorter window needs less of every buffer
     halo = stage_halo(dilation_sets, kernel_size)
     return all(_upsample_fits(t, halo, up_cin, up_k, up_stride, plan.ss)
                for t in range(1, plan.tile + 1))
@@ -410,12 +538,14 @@ class Library(NamedTuple):
     error_string: object   # cudaGetErrorString
     build_log: str         # nvcc's output, every mode (ptxas registers and spills)
     build_seconds: float   # wall time of the compile, 0 when earlier builds were reused
+    probe: object = None   # the bf16 library's zv_wgmma_probe (wgmma_probe)
+    lbo_is_k: int = 1      # its descriptors' assignment of LBO (1: across k, 0: across rows)
 
 
-# (mode, nvcc defines, launch entry, cluster-occupancy entry): one library each
-_MODES = (("f32", ("-DZV_MRF_BF16=0",), "zv_mrf_stage_f32", "zv_mrf_max_clusters"),
-          ("bf16", ("-DZV_MRF_BF16=1",), "zv_mrf_stage_bf16", "zv_mrf_max_clusters_bf16"),
-          ("f16_staged", ("-DZV_MRF_F16_STAGED=1",), "zv_mrf_stage_f16_staged",
+# (mode, source, nvcc defines, launch entry, cluster-occupancy entry): one library each
+_MODES = (("f32", SOURCE, (), "zv_mrf_stage_f32", "zv_mrf_max_clusters"),
+          ("bf16", SOURCE_BF16, (), "zv_mrf_stage_bf16", "zv_mrf_max_clusters_bf16"),
+          ("f16_staged", SOURCE, ("-DZV_MRF_F16_STAGED=1",), "zv_mrf_stage_f16_staged",
            "zv_mrf_max_clusters_f16_staged"))
 
 
@@ -454,31 +584,38 @@ def _count_launch(wrapper, mode: str = "f32"):
             wrapper.staged_launches += 1
 
 
+def _so_name(tag: str, source: Path, defines) -> str:
+    """The library file of a mode: named by a digest of its source, flags and
+    defines, so a changed source builds anew and an unchanged one is reused."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join((*NVCC_FLAGS, *defines)).encode()
+                            ).hexdigest()[:12]
+    return f"mrf_stage_{tag}_{digest}.so"
+
+
 def _build_library() -> Library:
     """Build (once per source version) and load the kernel's three
-    libraries, one per mode (_MODES' defines on the same source), every nvcc
-    run started together."""
+    libraries, one per mode (_MODES: csrc/mrf_stage.cu with and without
+    ZV_MRF_F16_STAGED, csrc/mrf_stage_bf16.cu), every nvcc run started
+    together.  A failed build raises."""
     from ...utils.compile_cache import build_dir, note_loaded
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for tag, defines, _, _ in _MODES:
-        so = out_dir / f"mrf_stage_{tag}_{digest}.so"
+    for tag, source, defines, _, _ in _MODES:
+        so = out_dir / _so_name(tag, source, defines)
         if not so.exists():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
-            procs[tag] = (so, tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(SOURCE)],
+            procs[tag] = (so, tmp, source, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, str(source)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     log, failed = "", ""
-    for tag, (so, tmp, proc) in procs.items():
+    for tag, (so, tmp, source, proc) in procs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed += f"nvcc failed on {SOURCE} ({tag} mode):\n{err}\n"
+            failed += f"nvcc failed on {source} ({tag} mode):\n{err}\n"
             continue
         os.replace(tmp, so)
         log += f"[{tag}]\n{out}{err}"
@@ -486,43 +623,89 @@ def _build_library() -> Library:
         raise RuntimeError(failed)
     seconds = time.perf_counter() - t0 if procs else 0.0
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    stage, clusters, error_string = {}, {}, None
-    for tag, _, stage_name, clusters_name in _MODES:
-        lib = ctypes.CDLL(str(out_dir / f"mrf_stage_{tag}_{digest}.so"))
-        note_loaded(out_dir / f"mrf_stage_{tag}_{digest}.so")
+    stage, clusters, error_string, probe, lbo_is_k = {}, {}, None, None, 1
+    for tag, source, defines, stage_name, clusters_name in _MODES:
+        so = out_dir / _so_name(tag, source, defines)
+        lib = ctypes.CDLL(str(so))
+        note_loaded(so)
         fn = getattr(lib, stage_name)
-        fn.argtypes = [p, p, p, p, p, p,       # x w_up in_bias w b y
-                       i, i, i, i, i,          # B L_in Cin C L_out
-                       i, i, i,                # K_up stride pad
-                       i, f, i, f,             # in/out leaky
-                       i, i, i, p,             # n_rb n_dmax kr dils
-                       i, i, i, i, i, i, i,    # halo tile ss kc stages nt mt
-                       i, p]                   # smem stream
+        if tag == "bf16":
+            fn.argtypes = [p, p, p, p, p, p,    # x w_up in_bias w b y
+                           i, i, i, i, i,       # B L_in Cin C L_out
+                           i, i, i,             # K_up stride pad
+                           i, f, i, f,          # in/out leaky
+                           i, i, i, p,          # n_rb n_dmax kr dils
+                           i, i, i, i, i, i,    # halo tile window margin plane_rows np_rows
+                           i, i, i, i,          # buf kb mt stages
+                           i, p]                # smem stream
+            cl_args = [i, i, i, i]              # n_rb C mt smem
+            probe = lib.zv_wgmma_probe
+            probe.argtypes = [p, p, p, i, i, i, p]
+            probe.restype = i
+            lib.zv_wgmma_lbo_is_k.restype = i
+            lbo_is_k = lib.zv_wgmma_lbo_is_k()
+        else:
+            fn.argtypes = [p, p, p, p, p, p,       # x w_up in_bias w b y
+                           i, i, i, i, i,          # B L_in Cin C L_out
+                           i, i, i,                # K_up stride pad
+                           i, f, i, f,             # in/out leaky
+                           i, i, i, p,             # n_rb n_dmax kr dils
+                           i, i, i, i, i, i, i,    # halo tile ss kc stages nt mt
+                           i, p]                   # smem stream
+            cl_args = [i, i, i, i]                 # n_rb nt mt smem
         fn.restype = i
         stage[tag] = fn
         fn = getattr(lib, clusters_name)
-        fn.argtypes = [i, i, i, i]
+        fn.argtypes = cl_args
         fn.restype = i
         clusters[tag] = fn
         if tag == "f32":
             error_string = lib.zv_cuda_error_string
             error_string.argtypes = [i]
             error_string.restype = ctypes.c_char_p
-    return Library(stage, clusters, error_string, log, seconds)
+    return Library(stage, clusters, error_string, log, seconds, probe, lbo_is_k)
 
 
 @functools.lru_cache(maxsize=None)
-def wave_clusters(device_index: int, n_rb: int, nt: int, mt: int, mode: str = "f32") -> int:
-    """Clusters of n_rb CTAs of the mode's kernel (kernel_mode) that the card
-    holds at once (one wave), from cudaOccupancyMaxActiveClusters at full
-    shared memory."""
+def wave_clusters(device_index: int, n_rb: int, C: int, mode: str = "f32",
+                  mt: int = 0) -> int:
+    """Clusters of n_rb CTAs of the mode's kernel (kernel_mode) for C
+    channels that the card holds at once (one wave), from
+    cudaOccupancyMaxActiveClusters at the shared memory a CTA may use (the
+    bf16 mode: of the instance with mt M-tiles per warpgroup)."""
     lib = library()
     with torch.cuda.device(device_index):
-        n = lib.max_clusters[mode](n_rb, nt, mt, _SMEM_MAX)
+        if mode == "bf16":
+            n = lib.max_clusters[mode](n_rb, C, mt,
+                                       _SMEM_MAX if mt * C > 128 else _SMEM_2)
+        else:
+            nt, mt, _ = warp_grid(C)
+            n = lib.max_clusters[mode](n_rb, nt, mt, _SMEM_MAX)
     if n <= 0:
         raise RuntimeError(f"mrf_stage kernel: no cluster of {n_rb} CTAs fits the card: "
                            f"{lib.error_string(-n).decode() if n else 'none'}")
     return n
+
+
+def wgmma_probe(device, shift: int, lbo_k: int, rows: int = 72, seed: int = 0):
+    """Run the bf16 library's descriptor probe on the card: one warpgroup
+    computes A[shift : shift + 64] @ B^T (A: rows x 16, B: 32 x 16, random
+    bf16 values from `seed`) with A read through a no-swizzle descriptor
+    whose start is `shift` rows into a plane, LBO holding the offset between
+    the k halves (lbo_k = 1) or between 8-row groups (0; SBO the other; the
+    stage kernel's choice is library().lbo_is_k).  Returns the card's
+    (64, 32) float32 result and the plain product of the same values."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(rows, 16, generator=g).to(torch.bfloat16).to(device)
+    b = torch.randn(32, 16, generator=g).to(torch.bfloat16).to(device)
+    d = torch.empty(64, 32, device=device)
+    lib = library()
+    with torch.cuda.device(device):
+        err = lib.probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), rows, shift, lbo_k,
+                        torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wgmma probe launch failed: {lib.error_string(err).decode()} ({err})")
+    return d, a[shift:shift + 64].float() @ b.float().T
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -549,11 +732,26 @@ def swizzle_rows(w: torch.Tensor) -> torch.Tensor:
 class PackedStage(NamedTuple):
     """A stage's weights in the kernel's layout (pack_stage)."""
     w: torch.Tensor                  # f32: (n_conv, K, C, C) [k][ci][swizzled co], chain
-    #                                  order; bf16: (n_conv, K, C/2, C, 2) [k][ci/2][swizzled
-    #                                  co][ci%2], a 32-bit word per pair of input channels
+    #                                  order; bf16: (n_conv, K, C/8, C, 8) [k][ci/8][co][ci%8],
+    #                                  planes of 8 input channels
     b: torch.Tensor                  # (n_conv, C) float32 in every mode
-    w_up: Optional[torch.Tensor]     # (K_up, C_pre, C) [k][ci][co] ConvTranspose1d taps
+    w_up: Optional[torch.Tensor]     # ConvTranspose1d taps: f32 (K_up, C_pre, C) [k][ci][co];
+    #                                  bf16 (K_up, C_pre/8, C, 8) [k][ci/8][co][ci%8]
     staged: bool = False             # w and w_up rounded to f16 values (the f16-staged mode)
+
+
+def to_planes(w: torch.Tensor) -> torch.Tensor:
+    """w[..., ci, co] as planes of 8 input channels, [..., ci // 8, co, ci % 8]:
+    the bf16 kernel's shared-memory layout of a weight chunk (a plane: C rows
+    of 16 bytes, one core matrix of a wgmma B operand per 8 rows)."""
+    *lead, cin, cout = w.shape
+    return w.reshape(*lead, cin // 8, 8, cout).transpose(-1, -2).contiguous()
+
+
+def from_planes(w: torch.Tensor) -> torch.Tensor:
+    """The inverse of to_planes: [..., ci // 8, co, ci % 8] -> [..., ci, co]."""
+    *lead, g, cout, eight = w.shape
+    return w.transpose(-1, -2).reshape(*lead, g * eight, cout)
 
 
 def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
@@ -568,11 +766,12 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     other C keep co in place).  The flipped (C, C_pre, K) export upsample
     kernel goes to PyTorch's unflipped taps as [k][ci][co].
 
-    bf16 weights (an even C) pack two consecutive input channels into one
-    32-bit word, [k][ci/2][co ^ 8 * (ci/2 % 4)][ci%2]: a row of C words
-    that the kernel addresses, swizzles and streams as it does an f32 row,
-    and a word is one register of the bf16 MMA's B fragment.  The biases
-    are widened to float32 (exact): the kernel adds them in f32.
+    bf16 weights (C and the upsample's input channels multiples of 8) go to
+    planes of 8 input channels (to_planes): conv taps [k][ci/8][co][ci%8],
+    upsample taps [k][ci/8][co][ci%8], so a chunk of the bf16 kernel's
+    weight stream (one tap, consecutive input channels) is one contiguous
+    copy already in the layout its wgmma descriptors read.  The biases are
+    widened to float32 (exact): the kernel adds them in f32.
 
     Under f16_staging, float32 weights are packed for the f16-staged mode:
     the convs' and the upsample's rounded to f16 values (round_f16) in the
@@ -582,8 +781,10 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     dtype = blocks[0]["convs1"][0]["w"].dtype
     _check_dtypes(dtype, blocks, None if upsample_w is None else dict(w=upsample_w))
     staged = kernel_mode(dtype) == "f16_staged"
-    if dtype == torch.bfloat16 and C % 2:
-        raise ValueError(f"bf16 weights pack pairs of input channels: C={C} is odd")
+    if dtype == torch.bfloat16 and (C % 8 or (upsample_w is not None
+                                              and upsample_w.shape[1] % 8)):
+        raise ValueError(f"bf16 weights pack planes of 8 input channels: C={C}"
+                         + ("" if upsample_w is None else f", upsample {upsample_w.shape[1]}"))
     ws, bs = [], []
     for j, blk in enumerate(blocks):
         for di in range(len(dilation_sets[j])):
@@ -598,19 +799,15 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
                 w = conv["w"].permute(2, 1, 0)                      # [k][ci][co]
                 if staged:
                     w = round_f16(w)
-                if dtype == torch.bfloat16:
-                    # words of (ci even, ci odd) per co, swizzled as words
-                    w = w.reshape(kernel_size, C // 2, 2, C).permute(0, 1, 3, 2).contiguous()
-                    w = swizzle_rows(w.view(torch.int32)[..., 0])
-                    w = w.contiguous().view(kernel_size, C // 2, C, 1).view(torch.bfloat16)
-                else:
-                    w = swizzle_rows(w)
+                w = to_planes(w) if dtype == torch.bfloat16 else swizzle_rows(w)
                 ws.append(w)
                 bs.append(conv["b"].to(torch.float32))
     w_up = (None if upsample_w is None
             else unflip_transpose_weight(upsample_w).permute(2, 0, 1).contiguous())
     if staged and w_up is not None:
         w_up = round_f16(w_up)
+    if dtype == torch.bfloat16 and w_up is not None:
+        w_up = to_planes(w_up)
     return PackedStage(torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_up,
                        staged)
 
@@ -619,15 +816,24 @@ def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: int, B:
                L_out: int, up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
                dtype: torch.dtype = torch.float32, mode: Optional[str] = None,
                **change) -> TilePlan:
-    """The tile plan a launch on `device` uses in `mode` (default: the mode
-    of `dtype` in the calling context, kernel_mode): tile_plan with the
-    card's own wave of clusters (`change`: tile_plan's kc / stages).  The
-    f16-staged mode has the f32 mode's geometry."""
-    nt, mt, _ = warp_grid(C)
-    wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), nt, mt,
-                         mode or kernel_mode(dtype))
+    """The plan a launch on `device` uses in `mode` (default: the mode of
+    `dtype` in the calling context, kernel_mode): tile_plan (bfloat16:
+    bf16_plan) with the card's own wave of clusters (`change`: tile_plan's
+    kc / stages, bf16_plan's window / stages).  The f16-staged mode has the
+    f32 mode's geometry."""
+    mode = mode or kernel_mode(dtype)
+    # a geometry the mode does not take raises here, before the card is asked
+    mt = 0
+    if mode == "bf16":
+        mt = bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, **change).mt
+    else:
+        warp_grid(C)
+    wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), C, mode, mt)
+    if mode == "bf16":
+        return bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
+                         **change)
     return tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
-                     elem=dtype.itemsize, **change)
+                     **change)
 
 
 def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
@@ -664,7 +870,7 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     n_conv = sum(2 * len(ds) for ds in dilation_sets)
     halo = stage_halo(dilation_sets, kernel_size)
     w_shape = ((n_conv, kernel_size, C, C) if dtype == torch.float32
-               else (n_conv, kernel_size, C // 2, C, 2))
+               else (n_conv, kernel_size, C // 8, C, 8))
     if tuple(packed.w.shape) != w_shape or tuple(packed.b.shape) != (n_conv, C):
         raise ValueError(f"packed weights {tuple(packed.w.shape)} / {tuple(packed.b.shape)} "
                          f"do not match {n_conv} convs of {C} channels")
@@ -673,7 +879,9 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     if upsample is not None:
         if packed.w_up is None:
             raise ValueError("upsample= needs packed weights with w_up")
-        K_up, cin_up, c_up = packed.w_up.shape
+        K_up, cin_up, c_up = (packed.w_up.shape if dtype == torch.float32 else
+                              (packed.w_up.shape[0], 8 * packed.w_up.shape[1],
+                               packed.w_up.shape[2]))
         if c_up != C or cin_up != Cin:
             raise ValueError(f"upsample weight maps {cin_up} -> {c_up} channels, "
                              f"the stage {Cin} -> {C}")
@@ -710,6 +918,11 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
         *[ds[i] if i < len(ds) else 0 for ds in dilation_sets for i in range(n_dmax)])
     y = torch.empty(B, L_out, C, device=dev, dtype=dtype)
     lib = library()
+    if mode == "bf16":
+        geometry = (halo, plan.tile, plan.window, plan.margin, plan.plane_rows, plan.np_rows,
+                    plan.buf, plan.kb, plan.mt, plan.stages)
+    else:
+        geometry = (halo, plan.tile, plan.ss, plan.kc, plan.stages, plan.nt, plan.mt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.stage[mode](
@@ -717,9 +930,7 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
             y.data_ptr(), B, L_in, Cin, C, L_out, K_up, stride, pad,
             int(in_leaky is not None), float(in_leaky or 0.0),
             int(out_leaky is not None), float(out_leaky or 0.0),
-            len(blocks), n_dmax, kernel_size, dils,
-            halo, plan.tile, plan.ss, plan.kc * dtype.itemsize // 4, plan.stages, plan.nt,
-            plan.mt, plan.smem, stream)
+            len(blocks), n_dmax, kernel_size, dils, *geometry, plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage kernel launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")

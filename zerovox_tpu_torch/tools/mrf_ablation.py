@@ -4,18 +4,29 @@ with one part of the work taken out, on the production stages.
     python -m zerovox_tpu_torch.tools.mrf_ablation [--shape full|bucket256]
                                                    [--dtype float32|bfloat16]
 
-Each ablation is a text substitution in csrc/mrf_stage.cu, built with the
+Each ablation is a text substitution in the mode's source (float32:
+csrc/mrf_stage.cu; bfloat16: csrc/mrf_stage_bf16.cu), built with the
 kernel's own nvcc flags into build/zerovox_tpu_torch/ablation/ (all builds
 at once).  An ablated kernel computes a wrong result: only its time means
-something.  The difference to the kernel's time is what that part costs:
+something.  The difference to the kernel's time is what that part costs.
+float32 (3xTF32 mma.sync):
   one product     hi*hi only, not hi*hi + hi*lo + lo*hi (1/3 of the MMAs)
   no split        operands fed to the MMA unsplit, one product
   no weight copy  the weight ring's chunks are never copied (the stream's cost)
   no upsample     the fused ConvTranspose1d prologue skips its arithmetic
   no chain        the convs' k-steps (fragment loads, splits, MMAs) are skipped:
                   what remains is the work around the chain
-The first two are about the f32 mode's 3xTF32 products and are left out
-with --dtype bfloat16 (one product, nothing to split).
+bfloat16 (wgmma, bulk-copied weight chunks, the upsample on the tensor cores):
+  no chain        the convs' wgmmas are skipped (their chunks still stream,
+                  the epilogues still run): the work around the chain
+  no upsample     the upsample's wgmmas are skipped (its chunks still stream)
+  no epilogue     the convs' epilogues (bias, residual, leaky, rounding,
+                  the operand planes) are skipped
+  no overlap      each chunk is released once its products are done and the
+                  next is copied only then: no copy runs beside the products
+  no weight copy  no chunk is copied (each slot's barrier completes at once)
+  own h only      the upsample's rows go to this CTA's h window only, not to the
+                  cluster's others through distributed shared memory
 Every variant runs in turns (kernel, ablations, ablations reversed,
 kernel), median of 5 CUDA-event timings each, on one card.  Needs a card.
 """
@@ -54,30 +65,62 @@ _NO_UPSAMPLE = "for (int k = k0; k < 0; k += s) {"
 _CHAIN = "for (int kk = 0; kk < KC; kk += 8) {"
 _NO_CHAIN = "for (int kk = 0; kk < 0; kk += 8) {"
 
+# the bf16 source's sites
+_B_CHAIN = "  gemm<C, KB, MT>(p, sm, st, rank, lag, acc, (p.window + 63) / 64,"
+_B_NO_CHAIN = "  gemm<C, KB, MT, false>(p, sm, st, rank, lag, acc, (p.window + 63) / 64,"
+_B_UP = "    gemm<C, KB, MT>(p, sm, st, rank, lag, acc, max(1, (n_ph + 63) / 64),"
+_B_NO_UP = "    gemm<C, KB, MT, false>(p, sm, st, rank, lag, acc, max(1, (n_ph + 63) / 64),"
+_B_EPI = "    if (!act[i]) continue;                           // the same for the warpgroup"
+_B_NO_EPI = "    if (act[i] || !act[i]) continue;"
+_B_LAG = "  const int lag = p.stages;                           // chunks the ring runs ahead"
+_B_NO_LAG = "  const int lag = 1;"
+_B_RELEASE = """    wg_wait<1>();
+    if (c > 0) release<C, KB, MT>(p, sm, st, rank, q - 1, lag);"""
+_B_RELEASE_NOW = """    wg_wait<0>();
+    release<C, KB, MT>(p, sm, st, rank, q, lag);"""
+_B_LAST = "  if (n_chunks > 0) release<C, KB, MT>(p, sm, st, rank, q - 1, lag);"
+_B_NO_LAST = "  // every chunk released in the loop"
+_B_COPY = """  mbar_expect_tx(sm.full + s, (uint32_t)G::CHUNK);
+  bulk_copy(dst, chunk_src<C, KB, MT>(p, st, rb, n), (uint32_t)G::CHUNK, sm.full + s);"""
+_B_NO_COPY = """  (void)dst;
+  mbar_expect_tx(sm.full + s, 0u);"""
+_B_REMOTE = "            if (rr < p.n_rb) st_cluster_f2(hs[rr] + off, v);"
+_B_LOCAL = "            if (rr == rank) st_cluster_f2(hs[rr] + off, v);"
+
 ABLATIONS = {
-    "one product": [(_MMA3, _MMA1)],
-    "no split": [(_MMA3, _MMA1), (_SPLIT, _NO_SPLIT)],
-    "no weight copy": [(_COPY, _NO_COPY)],
-    "no upsample": [(_UPSAMPLE, _NO_UPSAMPLE)],
-    "no chain": [(_CHAIN, _NO_CHAIN)],
+    "float32": {
+        "one product": [(_MMA3, _MMA1)],
+        "no split": [(_MMA3, _MMA1), (_SPLIT, _NO_SPLIT)],
+        "no weight copy": [(_COPY, _NO_COPY)],
+        "no upsample": [(_UPSAMPLE, _NO_UPSAMPLE)],
+        "no chain": [(_CHAIN, _NO_CHAIN)],
+    },
+    "bfloat16": {
+        "no chain": [(_B_CHAIN, _B_NO_CHAIN)],
+        "no upsample": [(_B_UP, _B_NO_UP)],
+        "no epilogue": [(_B_EPI, _B_NO_EPI)],
+        "no overlap": [(_B_LAG, _B_NO_LAG), (_B_RELEASE, _B_RELEASE_NOW), (_B_LAST, _B_NO_LAST)],
+        "no weight copy": [(_B_COPY, _B_NO_COPY)],
+        "own h only": [(_B_REMOTE, _B_LOCAL)],
+    },
 }
-F32_ONLY = ("one product", "no split")
 
 
 def build_all(names, dtype):
     """{name: ms.Library whose `dtype` entry is the ablated build} for the
     kernel and each ablation, nvcc runs in parallel."""
     tag = ms.kernel_mode(dtype)
-    defines, entry_name = next((m[1], m[2]) for m in ms._MODES if m[0] == tag)
-    src = ms.SOURCE.read_text()
+    source, defines, entry_name = next((m[1], m[2], m[3]) for m in ms._MODES if m[0] == tag)
+    ablations = ABLATIONS[str(dtype).split(".")[-1]]
+    src = source.read_text()
     out = build_dir() / "ablation"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         text = src
-        for old, new in ABLATIONS.get(name, []):
+        for old, new in ablations.get(name, []):
             if old not in text:
-                raise RuntimeError(f"ablation {name!r}: pattern not in {ms.SOURCE}")
+                raise RuntimeError(f"ablation {name!r}: pattern not in {source}")
             text = text.replace(old, new)
         stem = name.replace(" ", "_")
         (out / f"{stem}.cu").write_text(text)
@@ -121,8 +164,7 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     dtype = getattr(torch, args.dtype)
-    names = ["kernel", *(n for n in ABLATIONS
-                         if dtype == torch.float32 or n not in F32_ONLY)]
+    names = ["kernel", *ABLATIONS[args.dtype]]
     libs = build_all(names, dtype)
     cfg = ZeroVoxConfig()
     params = cast_params(init_params(cfg, seed=0, device="cuda"), dtype)
@@ -143,6 +185,11 @@ def main(argv=None) -> int:
                       in_bias=up["b"], in_leaky=0.1 if i == 0 else None,
                       out_leaky=0.01 if i == len(cfg.upsample_scales) - 1 else 0.1)
             times = {n: [] for n in names}
+            for name in names:              # a fault names its variant before the run dies
+                print(f"  stage {i + 1}: {name}", flush=True)
+                ms.library = lambda lib=libs[name]: lib
+                ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw)
+                torch.cuda.synchronize()
             for name in names + names[::-1]:
                 ms.library = lambda lib=libs[name]: lib
                 times[name].append(cuda_ms(
