@@ -8,11 +8,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero and prints no result line):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the MRF-stage kernel from csrc/ with nvcc, its three modes at
-     once (f32 and f16-staged from csrc/mrf_stage.cu, bf16 from
+     once (f32 from csrc/mrf_stage.cu, bf16 and f16-staged from
      csrc/mrf_stage_bf16.cu; timed, ptxas registers, spills and shared
-     memory of every instance);
-  3. run the bf16 source's wgmma descriptor probe (a no-swizzle operand
-     read 0-7 rows into its planes, against the plain product); hold the
+     memory of every instance, and per wgmma mode its largest register
+     count, its spills and whether ptxas serialized its wgmmas);
+  3. run the wgmma source's descriptor probe in bf16 and in f16 (each
+     mode's library: a no-swizzle operand read 0-7 rows into its planes,
+     against the plain product); hold the
      kernel against its plain PyTorch version (mrf_stage_ref) on
      the four production MRF stages (the options vocode gives them) and
      the mrf_stage_unfolded entry, TF32 off, in float32 and in bfloat16, at
@@ -123,8 +125,9 @@ Phases (any failure exits non-zero and prints no result line):
      and full length, per element within 2 f16 ulps of its magnitude plus
      one at max|out|, timed beside the plain version and the bounds; two
      controls on the same inputs, which leave the activations unrounded
-     (the kernel's f32 mode on the staged packs, and the plain stage with
-     every conv's activation truncated to TF32 as an MMA reads raw f32),
+     (the kernel's f32 mode on f16-rounded weights packed outside the
+     staging, and the plain stage with every conv's activation truncated
+     to TF32 as an MMA reads raw f32),
      must lie SEP_PROD (production stages) and SEP_PROBE times (a probe of
      one resblock of one dilation per stage, the same options) farther
      from the staged plain version in rms than the staged kernel; (b)
@@ -147,8 +150,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 With --multi-device-only it runs phases 1-3, 9 and 10 and prints no result
 line: the quick way to drive the distinct-card regimes on a machine with
-several cards.  With --verify-only it runs phases 1, 2 and 11 and prints no
-result line.  With --kernel-only it runs phases 1-3 (the variants included)
+several cards.  With --verify-only it runs phases 1, 2, phase 3's f16 probe
+and phase 11 and prints no result line.  With --kernel-only it runs phases 1-3 (the variants included)
 and prints no result line: the quick check of a change to a kernel.
 """
 
@@ -209,7 +212,7 @@ KERNEL_ONLY = "--kernel-only"
 # the sources of the kernels line's entries
 SOURCES = {"mrf_stage": "zerovox_tpu_torch/csrc/mrf_stage.cu",
            "mrf_stage_unfolded": "zerovox_tpu_torch/csrc/mrf_stage.cu",
-           "mrf_stage_f16_staged": "zerovox_tpu_torch/csrc/mrf_stage.cu",
+           "mrf_stage_f16_staged": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu",
            "mrf_stage_bf16": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu",
            "mrf_stage_unfolded_bf16": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu"}
 
@@ -376,10 +379,11 @@ def describe_plan(ms, plan, n_rb):
             f"tile {plan.mt}x m16 by {plan.nt}x n8, {plan.smem} B shared")
 
 
-def wgmma_probe_check():
-    """The bf16 source's descriptor probe: A read through a no-swizzle
+def wgmma_probe_check(modes=("bf16", "f16_staged")):
+    """The wgmma source's descriptor probe, per mode's library (bf16, and
+    the f16-staged build's f16 wgmma): A read through a no-swizzle
     descriptor whose start is 0-7 rows into its planes (the dilated taps
-    shift by 1, 3 and 5), against the plain product of the same bf16
+    shift by 1, 3 and 5), against the plain product of the same operand
     values (exact products, sums of 16 in another order: 1e-5 of the
     result's scale), with the stage kernel's assignment of LBO and SBO
     (library().lbo_is_k) and with the other, which must be wrong: the probe
@@ -387,22 +391,44 @@ def wgmma_probe_check():
     import torch
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
     ours = ms.library().lbo_is_k
-    errs = {1: [], 0: []}
-    for shift in range(8):
-        for lbo_k in (1, 0):
-            got, want = ms.wgmma_probe("cuda", shift, lbo_k)
-            torch.cuda.synchronize()
-            errs[lbo_k].append(((got - want).abs().max() / want.abs().max()).item())
-    for lbo_k, what in ((1, "LBO across k, SBO across 8-row groups"),
-                        (0, "LBO across 8-row groups, SBO across k")):
-        log(f"wgmma probe, {what}{' (the stage kernel)' if lbo_k == ours else ''}: A shifted "
-            f"0-7 rows, max|d| / max|ref| " + ", ".join(f"{e:.1e}" for e in errs[lbo_k]))
-    if not max(errs[ours]) <= 1e-5:
-        raise RuntimeError(f"wgmma probe: the stage kernel's shifted no-swizzle descriptor "
-                           f"reads wrong rows: {errs[ours]}")
-    if not min(errs[1 - ours]) > 1e-2:
-        raise RuntimeError(f"wgmma probe: the other field assignment agrees too "
-                           f"({errs[1 - ours]}): the probe does not tell them apart")
+    for mode in modes:
+        op = "f16" if mode == "f16_staged" else "bf16"
+        errs = {1: [], 0: []}
+        for shift in range(8):
+            for lbo_k in (1, 0):
+                got, want = ms.wgmma_probe("cuda", shift, lbo_k, mode=mode)
+                torch.cuda.synchronize()
+                errs[lbo_k].append(((got - want).abs().max() / want.abs().max()).item())
+        for lbo_k, what in ((1, "LBO across k, SBO across 8-row groups"),
+                            (0, "LBO across 8-row groups, SBO across k")):
+            log(f"wgmma probe ({op}), {what}{' (the stage kernel)' if lbo_k == ours else ''}: "
+                f"A shifted 0-7 rows, max|d| / max|ref| "
+                + ", ".join(f"{e:.1e}" for e in errs[lbo_k]))
+        if not max(errs[ours]) <= 1e-5:
+            raise RuntimeError(f"wgmma probe ({op}): the stage kernel's shifted no-swizzle "
+                               f"descriptor reads wrong rows: {errs[ours]}")
+        if not min(errs[1 - ours]) > 1e-2:
+            raise RuntimeError(f"wgmma probe ({op}): the other field assignment agrees too "
+                               f"({errs[1 - ours]}): the probe does not tell them apart")
+
+
+def ptxas_summary(build_log: str):
+    """Per wgmma mode, from the ptxas report of its build (empty where the
+    libraries were reused): its instances' largest register count, their
+    spill stores and loads, and whether ptxas serialized the wgmmas (C7520,
+    "Potential Performance Loss"), which a wgmma issued under a branch that
+    depends on the thread causes."""
+    import re
+    sections = re.split(r"^\[(\w+)\]$", build_log, flags=re.M)
+    for tag, text in zip(sections[1::2], sections[2::2]):
+        if tag not in ("bf16", "f16_staged"):
+            continue
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(a) + int(b) for a, b in
+                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+        log(f"  ptxas [{tag}]: {len(regs)} functions, registers up to "
+            f"{max(regs, default=0)}, spill bytes {sum(spills)}, wgmma serialized: "
+            f"{'YES' if 'Potential Performance Loss' in text else 'no'}")
 
 
 def launch_plan(ms, cfg, x, C, K_up, kw, L_out, **change):
@@ -2855,14 +2881,14 @@ def ulp_gate(got, ref):
     return d.max().item(), worst, (d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
 
 
-def unrounded_controls(ms, x, blocks, dils, kr, kw, packed, ref, got, sep, what):
-    """The controls of (a) on one stage call: the kernel's f32 mode on the
-    staged packs (f16 weights, activations as they are: what f32 arithmetic
-    launched with the staged weights computes) and the plain stage with f16
-    weights and every activation truncated to TF32 (what a TF32 MMA reads of
-    an unrounded f32 operand).  Each must lie `sep` times farther from the
-    staged plain version `ref` in rms than the staged kernel `got`; returns
-    the log text."""
+def unrounded_controls(ms, x, blocks, dils, kr, kw, ref, got, sep, what):
+    """The controls of (a) on one stage call: the kernel's f32 mode on
+    f16-rounded weights packed outside the staging (f16 weights,
+    activations as they are: what f32 arithmetic on the staged weights
+    computes) and the plain stage with f16 weights and every activation
+    truncated to TF32 (what a TF32 MMA reads of an unrounded f32 operand).
+    Each must lie `sep` times farther from the staged plain version `ref` in
+    rms than the staged kernel `got`; returns the log text."""
     import torch
     from zerovox_tpu_torch.ops.conv import (conv1d, conv_transpose1d, f16_staging,
                                             round_f16)
@@ -2876,15 +2902,18 @@ def unrounded_controls(ms, x, blocks, dils, kr, kw, packed, ref, got, sep, what)
     def conv_t(x_, w, b=None, **k):
         return conv_transpose1d(tf32(x_), round_f16(w), b, **k)
 
+    f16_blocks = [{cs: [dict(c, w=round_f16(c["w"])) for c in blk[cs]]
+                   for cs in ("convs1", "convs2")} for blk in blocks]
+    up = kw.get("upsample")
+    f16_up = None if up is None else dict(up, w=round_f16(up["w"]))
     with f16_staging(False):
-        f32_mode = ms._launch(x, blocks, dils, kr, kw.get("upsample"), kw.get("in_bias"),
-                              kw.get("in_leaky"), kw.get("out_leaky"),
-                              packed._replace(staged=False))
+        f32_mode = ms._launch(x, f16_blocks, dils, kr, f16_up, kw.get("in_bias"),
+                              kw.get("in_leaky"), kw.get("out_leaky"), None)
         truncated = ms.mrf_stage_ref(x, blocks, dils, kr, conv=conv, conv_transpose=conv_t,
                                      **kw)
     rms = ulp_gate(got, ref)[2]
     text, bad = f"rms {rms:.3e} of rms(out)", []
-    for label, c in (("f32 mode on the staged packs", f32_mode),
+    for label, c in (("f32 mode on f16 weights", f32_mode),
                      ("activations truncated to TF32", truncated)):
         _, worst, r = ulp_gate(c, ref)
         text += (f"; {label}: rms {r:.3e} (x{r / rms:.1f} the kernel's" if rms else
@@ -2910,11 +2939,10 @@ def staged_stages(cfg, params, gen, pk):
     from zerovox_tpu_torch.models.hifigan import pack_vocoder
     from zerovox_tpu_torch.ops.conv import f16_staging
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
-    _, tf32, bw, f16 = pk
+    _, _, bw, f16 = pk
     dils, kr = cfg.resblock_dilations, cfg.resblock_kernel_size
     n_convs = sum(2 * len(d) for d in dils)
     rec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0, bound_by="operations")
-    tf32_bound = 0.0
     with torch.no_grad(), f16_staging():
         packs = pack_vocoder(params, cfg)
         if not all(p.staged for p in packs):
@@ -2932,8 +2960,7 @@ def staged_stages(cfg, params, gen, pk):
                 raise RuntimeError(f"{what}: |d| reaches {worst:.2f} of its tolerance "
                                    f"({F16_STAGE_ULPS} f16 ulps + one at max|out| {scale:.3e})")
             log(f"{what} against the unrounded controls: "
-                + unrounded_controls(ms, x, blocks, dils, kr, kw, packs[i], ref, got, SEP_PROD,
-                                     what))
+                + unrounded_controls(ms, x, blocks, dils, kr, kw, ref, got, SEP_PROD, what))
             probe = [dict(convs1=blocks[0]["convs1"][:1], convs2=blocks[0]["convs2"][:1])]
             probe_dils = [[dils[0][0]]]
             probe_pack = ms.pack_stage(probe, probe_dils, kr, kw["upsample"]["w"])
@@ -2944,8 +2971,8 @@ def staged_stages(cfg, params, gen, pk):
             if not torch.isfinite(p_got).all() or not p_worst <= 1.0:
                 raise RuntimeError(f"{p_what}: |d| reaches {p_worst:.2f} of the ulp gate")
             log(f"{p_what}: {p_worst:.3f} of the ulp gate, "
-                + unrounded_controls(ms, x, probe, probe_dils, kr, kw, probe_pack, p_ref, p_got,
-                                     SEP_PROBE, p_what))
+                + unrounded_controls(ms, x, probe, probe_dils, kr, kw, p_ref, p_got, SEP_PROBE,
+                                     p_what))
             del p_got, p_ref
             ms_k = cuda_ms(lambda: ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw), reps=5)
             ms_p = cuda_ms(lambda: ms.mrf_stage_ref(x, blocks, dils, kr, **kw), reps=3)
@@ -2954,19 +2981,17 @@ def staged_stages(cfg, params, gen, pk):
             w_numel += kw["upsample"]["w"].numel() + kw["in_bias"].numel()
             flops, nbytes = stage_work(x, C, got.shape[1], K_up, n_convs, kr, w_numel)
             # the least time: f16 operands on the dense f16 tensor cores (the
-            # bf16 rate), f32 tensors in device memory; the kernel's own
-            # design does one TF32 product per product
+            # bf16 rate), f32 tensors in device memory
             bound = 1e3 * max(flops / f16, nbytes / bw)
-            tf32_bound += 1e3 * max(flops / tf32, nbytes / bw)
             if nbytes / bw > flops / f16:
                 rec["bound_by"] = "bytes"
             plan = ms.stage_plan(x.device, C, dils, kr, 1, got.shape[1], x.shape[2], K_up,
                                  kw["upsample"]["stride"], torch.float32)
             log(f"{what}: max|d| {err:.3e} ({worst:.2f} of the ulp gate at max|out| {scale:.3e})"
                 f"  kernel {ms_k:.3f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms"
-                f"  bound f16 tensor cores {bound:.3f} ms, one TF32 product "
-                f"{1e3 * max(flops / tf32, nbytes / bw):.3f} ms; {plan.clusters} clusters of "
-                f"tile {plan.tile}")
+                f"  bound f16 tensor cores {bound:.3f} ms; {plan.clusters} clusters of "
+                f"tile {plan.tile} (window {plan.window}, chunk {plan.kb} ch x ring "
+                f"{plan.stages})")
             rec["ms"] += ms_k
             rec["plain_ms"] += ms_p
             rec["bound_ms"] += bound
@@ -2974,8 +2999,7 @@ def staged_stages(cfg, params, gen, pk):
             del got, ref
     log(f"phase 11 (a) four f16-staged launches: kernel {rec['ms']:.3f} ms, plain "
         f"{rec['plain_ms']:.3f} ms, bound f16 tensor cores {rec['bound_ms']:.3f} ms "
-        f"({100 * rec['bound_ms'] / rec['ms']:.0f} %), one TF32 product {tf32_bound:.3f} ms "
-        f"({100 * tf32_bound / rec['ms']:.0f} %)")
+        f"({100 * rec['bound_ms'] / rec['ms']:.1f} %)")
     torch.cuda.empty_cache()
     return rec
 
@@ -3259,13 +3283,14 @@ def run() -> int:
 
     t0 = time.perf_counter()
     lib = ms.library()
-    log(f"built {ms.SOURCE.relative_to(ROOT)} (f32, f16-staged) and "
-        f"{ms.SOURCE_BF16.relative_to(ROOT)} (bf16) in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {lib.build_seconds:.1f} s, three runs at once)")
+    log(f"built {ms.SOURCE.relative_to(ROOT)} (f32) and "
+        f"{ms.SOURCE_BF16.relative_to(ROOT)} (bf16, f16-staged) in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc {lib.build_seconds:.1f} s, three runs at once)")
     for line in lib.build_log.splitlines():
         if any(k in line for k in ("[", "entry function", "registers", "spill", "rror",
                                    "smem", "arning", "Potential Performance Loss")):
             log(f"  ptxas: {line.strip()}")
+    ptxas_summary(lib.build_log)
 
     cfg = ZeroVoxConfig()
     t0 = time.perf_counter()
@@ -3277,10 +3302,12 @@ def run() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             model = os.path.join(tmp, "model.gguf")
             save_params(model, params, cfg)
-            log(f"phase 11 alone ({VERIFY_ONLY})")
+            log(f"phase 11 alone ({VERIFY_ONLY}), after phase 3's f16 probe")
+            wgmma_probe_check(("f16_staged",))
             staged_stages(cfg, params, gen, pk)
             verify_path(cfg, params, model, tmp, card)
-        log(f"{VERIFY_ONLY}: phases 1-2 and 11 passed in {time.perf_counter() - t_start:.1f} s; "
+        log(f"{VERIFY_ONLY}: phases 1-2, the f16 probe and 11 passed in "
+            f"{time.perf_counter() - t_start:.1f} s; "
             "no result line")
         return 0
     wgmma_probe_check()

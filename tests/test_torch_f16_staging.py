@@ -172,10 +172,11 @@ def test_staging_keeps_float64(rng):
 
 
 def test_f16_values_are_tf32_values(rng):
-    """The premise of the kernel's f16-staged mode: an f16 value held in
-    f32 is a TF32 value, so the kernel's split (split_tf32) of a staged
-    operand has lo = 0 and one TF32 product is exact; normal, subnormal
-    and largest f16 values alike."""
+    """An f16 value held in f32 is a TF32 value: the f32 mode's split
+    (split_tf32) of it has lo = 0, so a TF32 product of f16 values is exact,
+    as an f16 wgmma product of the staged mode is (11 significant bits a
+    factor, 22 in f32's 24); normal, subnormal and largest f16 values
+    alike."""
     v = torch.from_numpy(np.concatenate([
         rng.normal(size=4096) * 10.0 ** rng.integers(-6, 5, size=4096),
         [65504.0, -65504.0, 2.0 ** -24, 2.0 ** -14 * 0.75, 0.0]]).astype(np.float32))
@@ -277,8 +278,10 @@ def test_mrf_stage_ref_staged_matches_jax_stage(rng, tiny, which, stage, R, in_l
 
 
 def test_pack_stage_staged_rounds_the_weights(tiny):
-    """Packed under f16_staging, the weights are the f32 pack of
-    f16-rounded weights (biases as they are)."""
+    """Packed under f16_staging (the f16-staged mode runs the wgmma design
+    of csrc/mrf_stage_bf16.cu), the weights are f16 planes of the
+    f16-rounded weights, to_planes(round_f16(w)), in the layout the bf16
+    pack gives bf16 weights; the biases float32 as they are."""
     _, pt = tiny
     n = TINY_CONFIG.num_resblocks
     blocks = pt["vocoder"]["blocks"][:n]
@@ -288,9 +291,17 @@ def test_pack_stage_staged_rounds_the_weights(tiny):
     with tconv.f16_staging():
         staged = ms.pack_stage(blocks, dils, k, up)
     assert staged.staged and not plain.staged
-    assert torch.equal(staged.w, tconv.round_f16(plain.w))
-    assert torch.equal(staged.w_up, tconv.round_f16(plain.w_up))
-    assert torch.equal(staged.b, plain.b) and not torch.equal(staged.w, plain.w)
+    assert staged.w.dtype == staged.w_up.dtype == torch.float16
+    assert staged.b.dtype == torch.float32
+    # the f32 pack's [k][ci][co] rows (swizzle_rows is an involution)
+    assert torch.equal(staged.w.float(), ms.to_planes(tconv.round_f16(ms.swizzle_rows(plain.w))))
+    assert torch.equal(staged.w_up.float(), ms.to_planes(tconv.round_f16(plain.w_up)))
+    assert torch.equal(staged.b, plain.b)
+    assert not torch.equal(ms.from_planes(staged.w).float(), ms.swizzle_rows(plain.w))
+    bf16 = ms.pack_stage([{cs: [{kk: v.to(torch.bfloat16) for kk, v in c.items()}
+                                for c in b[cs]] for cs in ("convs1", "convs2")}
+                          for b in blocks], dils, k, up.to(torch.bfloat16))
+    assert staged.w.shape == bf16.w.shape and staged.w_up.shape == bf16.w_up.shape
 
 
 def test_staged_mode_refusals(tiny):
@@ -342,6 +353,91 @@ def test_production_vocoder_staged_takes_the_kernel(monkeypatch):
         wav = hifigan.vocode(_meta_vocoder(prod), prod, mel)
     assert calls == [(256, True), (128, True), (64, True), (32, True)]
     assert convs == [True, True] and wav.shape == (1, 16 * prod.hop_size)
+
+
+PROD_DILS = ZeroVoxConfig().resblock_dilations
+# (C, upsample input channels, kernel, stride): the production stages
+PROD_STAGES = [(256, 512, 10, 5), (128, 256, 10, 5), (64, 128, 8, 4), (32, 64, 6, 3)]
+
+
+def test_kernel_takes_under_staging_answers_for_the_wgmma_design():
+    """Under f16_staging a float32 stage runs the f16-staged mode, on the
+    bf16 mode's wgmma design: kernel_takes answers with its widths (32-256,
+    upsample input channels in whole weight chunks, an upsample kernel that
+    is a multiple of its stride), not the f32 mode's 32-512.  Its cache is
+    keyed by the mode, so asking in either order in one process gives each
+    context its own answer."""
+    wide = (512, PROD_DILS, 3, 1024, 10, 5)          # C=512: the f32 design only
+    odd_k = (256, PROD_DILS, 3, 512, 9, 5)           # k = 9 at s = 5
+    part = (256, PROD_DILS, 3, 520, 10, 5)           # 520 input channels: not whole chunks
+    for first_staged in (True, False):
+        ms._takes.cache_clear()
+        for staged in ((True, False) if first_staged else (False, True)) * 2:
+            with tconv.f16_staging(staged):
+                assert all(ms.kernel_takes(C, PROD_DILS, 3, cin, k, s)
+                           for C, cin, k, s in PROD_STAGES)
+                for args in (wide, odd_k, part):
+                    assert ms.kernel_takes(*args) is not staged, (args, staged)
+                # bfloat16 answers with the bf16 mode's widths in either context
+                assert not ms.kernel_takes(*wide, dtype=torch.bfloat16)
+    for C in (16, 8, 512, 384):
+        with tconv.f16_staging():
+            assert not ms.kernel_takes(C, PROD_DILS, 3)
+
+
+def test_stage_plan_staged_is_the_wgmma_geometry(monkeypatch):
+    """Under f16_staging a launch's plan is bf16_plan's (the wgmma design's
+    geometry, asked of the card in the f16-staged mode), outside it
+    tile_plan's; a width the staged mode does not take raises before the
+    card is asked."""
+    asked = []
+    monkeypatch.setattr(ms, "wave_clusters",
+                        lambda dev, n_rb, C, mode, mt: asked.append((C, mode, mt)) or 44)
+    for C, cin, k, s in PROD_STAGES:
+        L = 1500 * 5
+        with tconv.f16_staging():
+            plan = ms.stage_plan(torch.device("cuda", 0), C, PROD_DILS, 3, 1, L, cin, k, s)
+        assert isinstance(plan, ms.Bf16Plan)
+        assert plan == ms.bf16_plan(C, PROD_DILS, 3, cin, k, s, B=1, L_out=L, wave=44)
+        assert asked[-1] == (C, "f16_staged", plan.mt)
+        plain = ms.stage_plan(torch.device("cuda", 0), C, PROD_DILS, 3, 1, L, cin, k, s)
+        assert isinstance(plain, ms.TilePlan) and asked[-1][1] == "f32"
+    n = len(asked)
+    with tconv.f16_staging(), pytest.raises(ValueError, match="32/64/128/256"):
+        ms.stage_plan(torch.device("cuda", 0), 512, PROD_DILS, 3, 1, 100, 1024, 10, 5)
+    assert len(asked) == n
+
+
+def test_staged_vocoder_routes_a_wide_stage_to_the_plain_version(monkeypatch):
+    """A vocoder whose first stage is 512 channels wide: outside the staging
+    every stage takes the kernel (the f32 mode's widths); under it the wide
+    stage runs mrf_stage_ref, staged, and the others the kernel's staged
+    mode, whose packs are f16 planes (meta tensors stand for the card)."""
+    from test_torch_mrf import _meta_vocoder
+    cfg = ZeroVoxConfig(hifigan_channels=1024)
+    params = _meta_vocoder(cfg)
+    assert hifigan.stage_routes(params, cfg) == [True] * 4
+    calls = []
+    monkeypatch.setattr(hifigan, "mrf_stage",
+                        lambda x, blocks, *a, upsample=None, packed=None, **kw: calls.append(
+                            ("kernel", blocks[0]["convs1"][0]["w"].shape[0], tconv.staging(),
+                             packed.w.dtype))
+                        or torch.empty(x.shape[0], x.shape[1] * upsample["stride"],
+                                       blocks[0]["convs1"][0]["w"].shape[0], device="meta"))
+    monkeypatch.setattr(hifigan, "mrf_stage_ref",
+                        lambda x, blocks, *a, upsample=None, **kw: calls.append(
+                            ("plain", blocks[0]["convs1"][0]["w"].shape[0], tconv.staging()))
+                        or torch.empty(x.shape[0], x.shape[1] * upsample["stride"],
+                                       blocks[0]["convs1"][0]["w"].shape[0], device="meta"))
+    with torch.no_grad(), tconv.f16_staging():
+        assert hifigan.stage_routes(params, cfg) == [False, True, True, True]
+        packs = hifigan.pack_vocoder(params, cfg)
+        assert packs[0] is None and all(p.staged and p.w.dtype == torch.float16
+                                        for p in packs[1:])
+        hifigan.vocode(params, cfg, torch.empty(1, 16, cfg.num_mels, device="meta"),
+                       packed=packs)
+    assert calls == [("plain", 512, True)] + [("kernel", C, True, torch.float16)
+                                              for C in (256, 128, 64)]
 
 
 # --------------------------------------------------------------------------

@@ -1,27 +1,32 @@
-"""The bf16 MRF kernel (zerovox_tpu_torch/csrc/mrf_stage_bf16.cu) without a card:
-its launch plan (`bf16_plan`), its weight layout (`pack_stage` on bf16
-weights: planes of 8 input channels) and a CPU model of its shared-memory
-addressing.
+"""The wgmma MRF kernel (zerovox_tpu_torch/csrc/mrf_stage_bf16.cu: the bf16
+mode, and the f16-staged mode built from it) without a card: its launch
+plan (`bf16_plan`), its weight layout (`pack_stage` on bf16 weights, or
+float32 weights under f16_staging: planes of 8 input channels) and a CPU
+model of its shared-memory addressing.
 
 The model (`kernel_model`) replays the kernel's loops in numpy: the weight
 chunks in stream order, copied from the packed weights as the bulk copies
 copy them; every wgmma operand read through the byte address arithmetic of
 its no-swizzle descriptor (start, LBO, SBO) from an emulated shared-memory
 buffer; the epilogues written back through the kernel's plane and swizzled
-h addresses; products summed in float64.  It is held against the plain
-version (`mrf_stage_ref` on bf16 tensors) at the bf16 gate of chip_smoke.py's
-phase 3, at TINY's geometry (at the kernel's smallest width) and at
+h addresses; products summed in float64.  The operand format follows the
+packed weights: bf16 planes with bf16 input and output, or f16 planes with
+float32 input and output (the f16-staged mode).  It is held against the
+plain version (`mrf_stage_ref` on bf16 tensors, or on float32 ones under
+f16_staging) at chip_smoke.py's gates (phase 3's bf16 gate, phase 11's f16
+ulp gate), at TINY's geometry (at the kernel's smallest width) and at
 production widths on a few dozen rows, and the planes it reads are checked
-to hold exactly round_bf16(leaky(.)) of the window.  The card's own check of
-the kernel is phase 3 of chip_smoke.py; the descriptor semantics the model
-assumes are what phase 3's wgmma probe checks there."""
+to hold exactly round(leaky(.)) of the window in the operand format.  The
+card's own check of the kernel is phases 3 and 11 of chip_smoke.py; the
+descriptor semantics the model assumes are what phase 3's wgmma probes
+(bf16 and f16) check there."""
 
 import numpy as np
 import pytest
 import torch
 
 from zerovox_tpu_torch.config import TINY_CONFIG, ZeroVoxConfig
-from zerovox_tpu_torch.ops.conv import transpose_out_len
+from zerovox_tpu_torch.ops.conv import f16_staging, transpose_out_len
 from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
 
 PROD = ZeroVoxConfig()
@@ -33,6 +38,7 @@ STAGES = [(256, 512, 5, 10, 7500), (128, 256, 5, 10, 37500),
 SMEM_MAX = 232448
 WAVE = 44                           # clusters of 3 an H100's 132 SMs hold at once
 BF16_ULP = 2.0 ** -8
+F16_ULP = 2.0 ** -10
 
 
 def _cdiv(a, b):
@@ -235,17 +241,26 @@ def test_pack_stage_bf16_refuses_partial_planes(rng):
 # --------------------------------------------------------------------------
 
 def _bits(t):
+    """A 16-bit tensor as the model stores it in shared memory: bf16 as its
+    bits (uint16), f16 as numpy's float16."""
+    if t.dtype == torch.float16:
+        return t.contiguous().numpy()
     return t.contiguous().view(torch.int16).numpy().view(np.uint16)
 
 
-def _round_bits(v):
-    """bf16 bits of float values (rounded to nearest even through f32, as
-    the kernel rounds its f32 values)."""
-    return _bits(torch.from_numpy(np.asarray(v, np.float32)).to(torch.bfloat16))
+def _round_bits(v, op=torch.bfloat16):
+    """Float values as operands of type `op` (bf16 or f16), stored as _bits
+    stores them, rounded to nearest even through f32 as the kernel rounds its
+    f32 values."""
+    return _bits(torch.from_numpy(np.asarray(v, np.float32)).to(op))
 
 
 def _values(bits):
-    return (np.asarray(bits).astype(np.uint32) << 16).view(np.float32).astype(np.float64)
+    """The float64 values of stored operands (_bits)."""
+    bits = np.asarray(bits)
+    if bits.dtype == np.float16:
+        return bits.astype(np.float64)
+    return (bits.astype(np.uint32) << 16).view(np.float32).astype(np.float64)
 
 
 def _leaky(v, slope):
@@ -254,7 +269,7 @@ def _leaky(v, slope):
 
 def desc_view(mem, start, k_bytes, mn_bytes, rows):
     """The (rows, 16) matrix a no-swizzle K-major wgmma descriptor reads from
-    `mem` (shared memory as uint16): element (m, k) at byte start + (m % 8) *
+    `mem` (shared memory as 16-bit operands, _bits): element (m, k) at byte start + (m % 8) *
     16 + (m // 8) * mn_bytes + (k // 8) * k_bytes + (k % 8) * 2 (core
     matrices of 8 rows x 16 bytes; k_bytes between the k halves, mn_bytes
     between 8-row groups: the kernel's make_desc arguments.  Which of the
@@ -285,10 +300,17 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
     """csrc/mrf_stage_bf16.cu's launch on the CPU: per cluster (batch row,
     time tile) and CTA (resblock), the weight stream, the descriptors, the
     epilogues and the resblock sum as the kernel runs them, with float64
-    sums.  `checks` counts the operand views held against round_bf16(leaky(.))
-    of the window."""
+    sums.  The operands are of the packed weights' type (bf16, or f16 in the
+    f16-staged mode), the input and output of x's (bf16, or float32: read
+    as it is, written unrounded).  `checks` counts the operand views held
+    against round(leaky(.)) of the window."""
     B, L_in, Cin = x.shape
     C = packed.b.shape[1]
+    op = packed.w.dtype
+
+    def rb(v):
+        return _round_bits(v, op)
+
     n_rb, half = len(dils), (kr - 1) // 2
     halo = ms.stage_halo(dils, kr)
     kb, mt, W, tile, margin = plan.kb, plan.mt, plan.window, plan.tile, plan.margin
@@ -297,7 +319,7 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
     w_flat = _bits(packed.w).reshape(-1)
     bias = packed.b.double().numpy()
     ib = np.zeros(C) if in_bias is None else in_bias.double().numpy()
-    xv = _values(_bits(x))
+    xv = x.double().numpy()
     if up is not None:
         s, pad, K_up = up["stride"], up["padding"], packed.w_up.shape[0]
         L_out = transpose_out_len(L_in, s, K_up, pad, up["output_padding"])
@@ -333,7 +355,7 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
             t0 = ti * tile
             t_base = t0 - halo
             H = [np.zeros(W * C) for _ in range(n_rb)]
-            bufs = [np.zeros(plan.buf // 2, np.uint16) for _ in range(n_rb)]
+            bufs = [np.zeros(plan.buf // 2, w_flat.dtype) for _ in range(n_rb)]
             rows = np.arange(W)
             valid = (t_base + rows >= 0) & (t_base + rows < L_out)
             cols = np.arange(C)
@@ -345,9 +367,9 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                 ok = (j >= 0) & (j < L_in)
                 pre[ok] = xv[bi, j[ok]]
                 if in_leaky is not None:
-                    pre = _values(_round_bits(_leaky(pre, in_leaky)))
+                    pre = _leaky(pre, in_leaky)
                 for rank in range(n_rb):
-                    plane_write(bufs[rank], npb, 0, np.arange(plan.np_rows), _round_bits(pre))
+                    plane_write(bufs[rank], npb, 0, np.arange(plan.np_rows), rb(pre))
                     for ph in range(rank, s, n_rb):
                         r_ph = (ph - (t_base + pad)) % s
                         n_ph = _cdiv(W - r_ph, s) if r_ph < W else 0
@@ -362,8 +384,8 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                                 good = (i < n_ph) & (q >= 0) & (q < L_in)
                                 want = xv[bi, q[good], :16]
                                 if in_leaky is not None:
-                                    want = _values(_round_bits(_leaky(want, in_leaky)))
-                                np.testing.assert_array_equal(v[good], want)
+                                    want = _leaky(want, in_leaky)
+                                np.testing.assert_array_equal(v[good], _values(rb(want)))
                                 checks["upsample"] += 1
                         acc = gemm(bufs[rank],
                                    lambda c: ((c % nb_up) * kb // 8) * npb + (base - c // nb_up) * 16,
@@ -385,7 +407,7 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                     hh[hsw] = h0
             for rank in range(n_rb):
                 buf, h = bufs[rank], H[rank]
-                operand = _round_bits(_leaky(h[hsw], 0.1))
+                operand = rb(_leaky(h[hsw], 0.1))
                 plane_write(buf, pb, margin, rows, operand)
                 lo, hi, q = 0, W, conv_base[rank]
                 for di, d in enumerate(dils[rank]):
@@ -403,7 +425,7 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                                     inside = (r >= lo - half * dd) & (r < hi + half * dd)
                                     np.testing.assert_array_equal(
                                         v[inside],
-                                        _values(_round_bits(_leaky(h[hsw[r[inside], :16]], 0.1))))
+                                        _values(rb(_leaky(h[hsw[r[inside], :16]], 0.1))))
                                     checks["conv"] += 1
                         acc = gemm(buf,
                                    lambda c: margin * 16 + ((c % nb) * kb // 8) * pb
@@ -421,10 +443,10 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                                 hv = np.where(valid[r][:, None], h[idx] + v, 0.0)
                                 h[idx] = hv
                                 if di + 1 < len(dils[rank]):
-                                    plane_write(buf, pb, margin, r, _round_bits(_leaky(hv, 0.1)))
+                                    plane_write(buf, pb, margin, r, rb(_leaky(hv, 0.1)))
                             else:
                                 o = np.where(valid[r][:, None], _leaky(v, 0.1), 0.0)
-                                plane_write(buf, pb, margin, r, _round_bits(o))
+                                plane_write(buf, pb, margin, r, rb(o))
                         q += 1
             for r in range(tile):
                 tg = t0 + r
@@ -437,30 +459,49 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                 if out_leaky is not None:
                     v = _leaky(v, out_leaky)
                 y[bi, tg] = v
-    return torch.from_numpy(y.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(y.astype(np.float32)).to(x.dtype)
 
 
 def _gate(got, ref):
-    """chip_smoke.py's bf16 gate, per element: 2 bf16 ulps of its magnitude
-    plus one ulp of max|ref|; returns the worst fraction of it."""
+    """chip_smoke.py's gate of the mode, per element: 2 ulps of its
+    magnitude plus one ulp of max|ref|, in bf16 ulps (phase 3) for bf16
+    output, in f16 ulps (phase 11's F16_STAGE_ULPS) for the f16-staged
+    mode's float32 output; returns the worst fraction of it."""
+    ulp = BF16_ULP if got.dtype == torch.bfloat16 else F16_ULP
     got, ref = got.float(), ref.float()
-    tol = BF16_ULP * (2.0 * ref.abs() + ref.abs().max())
+    tol = ulp * (2.0 * ref.abs() + ref.abs().max())
     return ((got - ref).abs() / tol).max().item()
 
 
-def _run_model(rng, C, cin, s, k, dils, kr, L_pre, B, wave, in_leaky, out_leaky):
-    blocks = _blocks(rng, C, dils, kr)
-    upw = _bf16(rng, C, cin, k, scale=0.05)
+def _weights(rng, *shape, scale=1.0, staged=False):
+    """Random values: bf16 tensors, or float32 ones for the f16-staged mode
+    (which rounds them to f16 itself)."""
+    t = torch.from_numpy(rng.normal(scale=scale, size=shape).astype(np.float32))
+    return t if staged else t.to(torch.bfloat16)
+
+
+def _run_model(rng, C, cin, s, k, dils, kr, L_pre, B, wave, in_leaky, out_leaky,
+               staged=False):
+    """The model against mrf_stage_ref on one stage with an upsample: bf16
+    tensors, or (staged) float32 ones with both sides under f16_staging;
+    the worst fraction of the mode's gate."""
+    blocks = [{cs: [{"w": _weights(rng, C, C, kr, scale=0.05, staged=staged),
+                     "b": _weights(rng, C, scale=0.1, staged=staged)}
+                    for _ in ds] for cs in ("convs1", "convs2")} for ds in dils]
+    upw = _weights(rng, C, cin, k, scale=0.05, staged=staged)
     up = dict(w=upw, stride=s, padding=s // 2 + s % 2, output_padding=s % 2)
-    x = _bf16(rng, B, L_pre, cin)
-    in_bias = _bf16(rng, C, scale=0.1)
-    packed = ms.pack_stage(blocks, dils, kr, upw)
+    x = _weights(rng, B, L_pre, cin, scale=2.0 if staged else 1.0, staged=staged)
+    in_bias = _weights(rng, C, scale=0.1, staged=staged)
+    with f16_staging(staged):
+        packed = ms.pack_stage(blocks, dils, kr, upw)
+        ref = ms.mrf_stage_ref(x, blocks, dils, kr, upsample=up, in_bias=in_bias,
+                               in_leaky=in_leaky, out_leaky=out_leaky)
+    assert packed.w.dtype == (torch.float16 if staged else torch.bfloat16)
     L_out = transpose_out_len(L_pre, s, k, up["padding"], up["output_padding"])
     plan = ms.bf16_plan(C, dils, kr, cin, k, s, B=B, L_out=L_out, wave=wave)
     checks = {"conv": 0, "upsample": 0}
     got = kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, checks)
-    ref = ms.mrf_stage_ref(x, blocks, dils, kr, upsample=up, in_bias=in_bias,
-                           in_leaky=in_leaky, out_leaky=out_leaky)
+    assert got.dtype == x.dtype == ref.dtype
     assert got.shape == ref.shape == (B, L_out, C) and _cdiv(L_out, plan.tile) > 1
     assert checks["conv"] > 0 and checks["upsample"] > 0
     return _gate(got, ref)
@@ -511,6 +552,58 @@ def test_model_catches_a_wrong_descriptor(rng, monkeypatch):
         _run_model(rng, 32, 64, 3, 6, PROD_DILS, 3, 14, 1, 2, None, 0.01)
 
 
+# the f16-staged mode: the same design on f16 planes, float32 input and output
+
+def test_staged_model_matches_plain_tiny_geometry(rng):
+    """The f16-staged mode at TINY's resblocks and first upsample (C=32, B=2,
+    45 output rows over several clusters, every option on) against
+    mrf_stage_ref under f16_staging, at phase 11's f16 ulp gate."""
+    worst = _run_model(rng, 32, 64, 5, 10, TINY_CONFIG.resblock_dilations,
+                       TINY_CONFIG.resblock_kernel_size, 9, 2, 4, 0.1, 0.1, staged=True)
+    assert worst <= 1.0
+
+
+@pytest.mark.parametrize("C,cin,s,k,L_pre", [(256, 512, 5, 10, 8), (32, 64, 3, 6, 14)])
+def test_staged_model_matches_plain_production(rng, C, cin, s, k, L_pre):
+    """The f16-staged mode at production stages 1 (with in_leaky) and 4
+    (without: the pre-upsample rows are rounded all the same) on a few
+    dozen output rows, two clusters."""
+    out_leaky = 0.1 if C == 256 else 0.01
+    worst = _run_model(rng, C, cin, s, k, PROD_DILS, 3, L_pre, 1, 2,
+                       0.1 if C == 256 else None, out_leaky, staged=True)
+    assert worst <= 1.0
+
+
+def test_staged_model_matches_plain_unfolded(rng):
+    """The f16-staged mode without an upsample (mrf_stage_unfolded's call):
+    the float32 input into h unrounded, C=64, 50 rows over two clusters,
+    the output float32."""
+    C, dils = 64, PROD_DILS
+    blocks = [{cs: [{"w": _weights(rng, C, C, 3, scale=0.05, staged=True),
+                     "b": _weights(rng, C, scale=0.1, staged=True)}
+                    for _ in ds] for cs in ("convs1", "convs2")} for ds in dils]
+    x = _weights(rng, 1, 50, C, scale=2.0, staged=True)
+    with f16_staging():
+        packed = ms.pack_stage(blocks, dils, 3)
+        ref = ms.mrf_stage_ref(x, blocks, dils, 3)
+    plan = ms.bf16_plan(C, dils, 3, B=1, L_out=50, wave=2)
+    checks = {"conv": 0, "upsample": 0}
+    got = kernel_model(x, packed, dils, 3, None, None, None, None, plan, checks)
+    assert got.dtype == torch.float32 and _cdiv(50, plan.tile) == 2 and checks["conv"] > 0
+    assert _gate(got, ref) <= 1.0
+
+
+def test_staged_model_catches_a_wrong_descriptor(rng, monkeypatch):
+    """The model of the f16-staged mode is as sensitive to the addressing:
+    with the A descriptors' k and row-group offsets swapped it fails."""
+    real = desc_view
+    monkeypatch.setitem(globals(), "desc_view",
+                        lambda mem, start, kb, mn, rows: real(mem, start, mn, kb, rows)
+                        if rows == 64 else real(mem, start, kb, mn, rows))
+    with pytest.raises(AssertionError):
+        _run_model(rng, 32, 64, 3, 6, PROD_DILS, 3, 14, 1, 2, None, 0.01, staged=True)
+
+
 # --------------------------------------------------------------------------
 # the tools that measure the kernel on a card
 # --------------------------------------------------------------------------
@@ -520,7 +613,8 @@ def test_ablation_patterns_in_the_sources():
     once, in its mode's source (a silent miss would time the kernel itself
     under an ablation's name)."""
     from zerovox_tpu_torch.tools import mrf_ablation as ab
-    for dtype, source in (("float32", ms.SOURCE), ("bfloat16", ms.SOURCE_BF16)):
+    for dtype, source in (("float32", ms.SOURCE), ("bfloat16", ms.SOURCE_BF16),
+                          ("f16-staged", ms.SOURCE_BF16)):
         text = source.read_text()
         for name, subs in ab.ABLATIONS[dtype].items():
             for old, new in subs:
@@ -534,3 +628,24 @@ def test_mrf_compare_refuses_a_tree_without_the_package(tmp_path, capsys):
     assert mc.main(["--other", str(tmp_path)]) == 2
     assert "no zerovox_tpu_torch package" in capsys.readouterr().err
     compile(mc._RUN, "mrf_compare run", "exec")
+
+
+def test_mrf_compare_sass_matches_modes_and_counts_lines(monkeypatch):
+    """tools/mrf_compare.py's machine-code comparison: each mode's library
+    of one checkout is held against the same mode's of the other, by the
+    mode in the file name; the anonymous namespace's per-file names are
+    masked and only lines that differ count."""
+    from zerovox_tpu_torch.tools import mrf_compare as mc
+    anon = "_GLOBAL__N__{}_17_mrf_stage_bf16_cu_{}15mrf_bf16_kernel"
+    code = {"a/mrf_stage_bf16_0123456789ab.so": [anon.format("366e2ed3", "d0be69bc"),
+                                                 "IMAD R1, R2", "RET"],
+            "b/mrf_stage_bf16_ba9876543210.so": [anon.format("1234abcd", "00aa11bb"),
+                                                 "IMAD R1, R2", "RET"],
+            "a/mrf_stage_f16_staged_0123456789ab.so": ["HMMA", "RET"],
+            "b/mrf_stage_f16_staged_0123456789ac.so": ["WGMMA", "WGMMA", "RET"],
+            "b/zvnative_0123456789ab.so": []}
+    monkeypatch.setattr(mc, "cuobjdump_sass", lambda lib: "\n".join(code[lib]))
+    got = mc.compare_sass({"other": [k for k in code if k.startswith("a/")],
+                           "this": [k for k in code if k.startswith("b/")]})
+    assert got == {"bf16": dict(other_lines=3, this_lines=3, differing_lines=0),
+                   "f16_staged": dict(other_lines=2, this_lines=3, differing_lines=3)}

@@ -1,9 +1,7 @@
-// Fused HiFi-GAN multi-receptive-field (MRF) stage for Hopper (sm_90a), in
-// two modes chosen when this file is compiled: f32 accuracy on the tensor
-// cores (3xTF32; the default), and with -DZV_MRF_F16_STAGED=1 the f16-staged
-// mode of checkpoint verification (f32 tensors, f16 conv operands, f32
-// accumulation and chain state).  The bf16 serving mode has a source and a
-// design of its own, csrc/mrf_stage_bf16.cu.
+// Fused HiFi-GAN multi-receptive-field (MRF) stage for Hopper (sm_90a): the
+// f32 mode, f32 accuracy on the tensor cores (3xTF32).  The bf16 serving
+// mode and the f16-staged mode of checkpoint verification have a source and
+// a design of their own, csrc/mrf_stage_bf16.cu.
 //
 // Replaces the TPU kernel zerovox_tpu/ops/pallas/folded_mrf.py:154-717
 // (_mrf_kernel behind folded_mrf_stage, and mrf_stage_unfolded at :720-794).
@@ -67,21 +65,6 @@
 //     complete on an mbarrier per stage; warps release a stage through a
 //     shared-memory counter, the last one refills it, so no CTA-wide barrier
 //     is taken per chunk, only one per conv (the activation dependency).
-//
-// The f16-staged mode computes what the reference's ggml graph computes (f16
-// conv weights and an f16 im2col, f32 accumulation) and what the JAX
-// package's f16_staging computes on its XLA route (zerovox_tpu/ops/conv.py:
-// 29-67; the TPU kernel never staged).  It is the f32 mode with every conv
-// operand rounded to f16 after the leaky (cvt.rn: to nearest even, beyond
-// +-65504 to +-inf): the A fragments as they are loaded, the upsample's
-// staged rows always (not only after leaky_in), and the weights, which the
-// host packs as f16 values in the f32 layout.  Every f16 value is a TF32
-// value (TF32 keeps the same 10 explicit mantissa bits, with a wider
-// exponent), so an operand's split has lo = 0 and ONE m16n8k8 TF32 product
-// per k-step is exact: the f32 mode without two thirds of its MMAs, on the
-// f32 mode's layouts, tile plans and instances.  The alternative, f16
-// products on csrc/mrf_stage_bf16.cu's wgmma design (exact in f32 as these
-// TF32 products are), is the next kernel design in ROADMAP.md's queue.
 
 // Interface: plain C, loaded with ctypes.  The host wrapper
 // (zerovox_tpu_torch/ops/cuda/mrf_stage.py) chooses the geometry (tile,
@@ -91,13 +74,8 @@
 // uncomputed or overrun shared memory.
 
 #include <cooperative_groups.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef ZV_MRF_F16_STAGED
-#define ZV_MRF_F16_STAGED 0
-#endif
 
 namespace cg = cooperative_groups;
 
@@ -245,15 +223,6 @@ __device__ __forceinline__ void store_out4(elem_t* ptr, float4 v) {
   *reinterpret_cast<float4*>(ptr) = v;
 }
 
-// an operand of a product: as it is in f32, an f16 value in the f16-staged mode
-__device__ __forceinline__ float round_operand(float v) {
-#if ZV_MRF_F16_STAGED
-  return __half2float(__float2half_rn(v));
-#else
-  return v;
-#endif
-}
-
 struct Stream {
   int conv_base;   // first conv of this CTA's resblock in the packed chain
   int nb;          // chunks per tap (C / kc)
@@ -341,30 +310,6 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
     // KC is a compile-time chunk: the k-steps of a chunk unroll into one block
 #pragma unroll
     for (int kk = 0; kk < KC; kk += 8) {
-#if ZV_MRF_F16_STAGED
-      // f16 values in f32 words are TF32 values: one exact product, no split
-      uint32_t bh[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int col = ((j ^ t) << 3);
-        bh[j][0] = w_base[(kk + t) * C + col];
-        bh[j][1] = w_base[(kk + t + 4) * C + col];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (!act[i]) continue;
-        float a[4] = {a_base[roff[i][0] + kk], a_base[roff[i][1] + kk],
-                      a_base[roff[i][0] + kk + 4], a_base[roff[i][1] + kk + 4]};
-        uint32_t ah[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (!RESIDUAL) a[e] = leaky(a[e], 0.1f);
-          ah[e] = __float_as_uint(round_operand(a[e]));
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
-      }
-#else
       uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -390,7 +335,6 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
           mma_tf32(acc[i][j], ah, bh[j][0], bh[j][1]);
         }
       }
-#endif
     }
     release(p, sm, st, q);
   }
@@ -432,9 +376,7 @@ __device__ void conv_pass(const Params& p, const Smem& sm, const Stream& st,
 // of P per row) and are summed by two xor shuffles, in which both lanes of a
 // pair add the same two values, so the sum is deterministic.  CTA `rank`
 // takes every n_rb-th warp item, so each weight is read once per row group
-// of a phase, by one cluster.  Needs C % 32 == 0 and Cin % kVec == 0.  In
-// the f16-staged mode every staged row is rounded to f16 and the weights are f16 values
-// from the host.
+// of a phase, by one cluster.  Needs C % 32 == 0 and Cin % kVec == 0.
 __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, float* H,
                                   float* P, int W, int t_base, int batch, int rank) {
   const int C = p.C, Cin = p.Cin, s = p.stride, ss = p.ss;
@@ -459,10 +401,7 @@ __device__ void upsample_prologue(const Params& p, cg::cluster_group& cluster, f
       if (e >= nv) break;
       if (p.has_in_leaky) {
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) v[u].v[i] = round_operand(leaky(v[u].v[i], p.in_leaky));
-      } else if (ZV_MRF_F16_STAGED) {   // f32 rows are no f16 values
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) v[u].v[i] = round_operand(v[u].v[i]);
+        for (int i = 0; i < kVec; ++i) v[u].v[i] = leaky(v[u].v[i], p.in_leaky);
       }
       store_vec(P + (size_t)e * kVec, v[u]);
     }
@@ -689,17 +628,8 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 
 }  // namespace
 
-// One entry per mode; a library built from this file holds one of them.
-#if ZV_MRF_F16_STAGED
-#define ZV_STAGE_ENTRY zv_mrf_stage_f16_staged
-#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_f16_staged
-#else
-#define ZV_STAGE_ENTRY zv_mrf_stage_f32
-#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters
-#endif
-
 // kc counts the input channels of a weight chunk; in_bias and b are f32.
-extern "C" int ZV_STAGE_ENTRY(
+extern "C" int zv_mrf_stage_f32(
     const elem_t* x, const elem_t* w_up, const float* in_bias, const uint32_t* w,
     const float* b, elem_t* y, int B, int L_in, int Cin, int C, int L_out,
     int K_up, int stride, int pad, int has_in_leaky, float in_leaky,
@@ -766,7 +696,7 @@ extern "C" int ZV_STAGE_ENTRY(
 // Clusters of n_rb CTAs of the (nt, mt) instances that the card holds at
 // once with smem_bytes of shared memory each (one wave; the same for every
 // chunk size: one CTA per SM); negative: -cudaError_t.
-extern "C" int ZV_CLUSTERS_ENTRY(int n_rb, int nt, int mt, int smem_bytes) {
+extern "C" int zv_mrf_max_clusters(int n_rb, int nt, int mt, int smem_bytes) {
   const KernelFn kernel = pick_kernel(nt, mt, 32);
   if (kernel == nullptr || n_rb < 1 || n_rb > kMaxRB) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -780,8 +710,6 @@ extern "C" int ZV_CLUSTERS_ENTRY(int n_rb, int nt, int mt, int smem_bytes) {
   return n;
 }
 
-#if !ZV_MRF_F16_STAGED
 extern "C" const char* zv_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
-#endif

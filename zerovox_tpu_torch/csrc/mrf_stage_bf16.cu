@@ -1,5 +1,8 @@
-// Fused HiFi-GAN multi-receptive-field (MRF) stage for Hopper (sm_90a): the
-// bf16 serving mode, on warpgroup MMAs (wgmma) fed by the TMA unit.
+// Fused HiFi-GAN multi-receptive-field (MRF) stage for Hopper (sm_90a) on
+// warpgroup MMAs (wgmma) fed by the TMA unit, in two modes chosen when this
+// file is compiled: the bf16 serving mode (the default), and with
+// -DZV_MRF_F16_STAGED=1 the f16-staged mode of checkpoint verification
+// (below).
 //
 // Replaces the TPU kernel's dot_bf16 path: zerovox_tpu/ops/pallas/
 // folded_mrf.py:334-349, :380-391 and :434-443, inside _mrf_kernel (:154-443)
@@ -78,6 +81,22 @@
 //   * one resblock per CTA, the n_rb CTAs of a time tile in one cluster: the
 //     resblock sum reads the cluster's h windows in rank order; the
 //     receptive-field halo is recomputed, so clusters run in any order.
+//
+// The f16-staged mode (-DZV_MRF_F16_STAGED=1) computes what the reference's
+// ggml graph computes (f16 conv weights and an f16 im2col, f32
+// accumulation) and what the JAX package's f16_staging computes on its XLA
+// route (zerovox_tpu/ops/conv.py:29-67; the TPU kernel never staged): the
+// numerics above with f16 in place of bf16 (cvt.rn: to nearest even,
+// beyond +-65504 to +-inf, so a non-finite operand shows in the output), on
+// f32 tensors.  It is this design with f16 operand planes and f16 weights
+// (wgmma .f32.f16.f16: the same shapes, descriptors and rate, and an f16
+// product is exact in f32 as a bf16 one is); only the edges differ: the
+// stage input is read as f32 (two 16-byte loads per plane row of 8
+// channels), the pre-upsample rows are rounded to f16 whether or not
+// leaky_in acts on them (f32 values are no f16 values), the unfolded
+// entry's input goes into h unrounded, and the output is written f32,
+// unrounded.  The h window, the biases, the residual and the resblock sum
+// are f32 in both modes, so the geometry (bf16_plan) is the same.
 
 // Interface: plain C, loaded with ctypes by zerovox_tpu_torch/ops/cuda/
 // mrf_stage.py, which chooses the geometry (tile, window, operand plane rows,
@@ -87,14 +106,28 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef ZV_MRF_F16_STAGED
+#define ZV_MRF_F16_STAGED 0
+#endif
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+#if ZV_MRF_F16_STAGED
+typedef __half op_t;                                  // operand planes and weights
+typedef float io_t;                                   // stage input and output
+#define ZV_WGMMA_AB ".f16.f16 "
+#else
+typedef bf16 op_t;
+typedef bf16 io_t;
+#define ZV_WGMMA_AB ".bf16.bf16 "
+#endif
 
 constexpr int kWarps = 8;                             // two warpgroups
 constexpr int kThreads = 32 * kWarps;
@@ -118,12 +151,12 @@ struct Geo {
 };
 
 struct Params {
-  const bf16* x;          // (B, L_in, Cin) stage input (pre-upsample when w_up)
-  const bf16* w_up;       // (K_up, Cin/8, C, 8) upsample taps as planes, or nullptr
+  const io_t* x;          // (B, L_in, Cin) stage input (pre-upsample when w_up)
+  const op_t* w_up;       // (K_up, Cin/8, C, 8) upsample taps as planes, or nullptr
   const float* in_bias;   // (C,) or nullptr
-  const bf16* w;          // (n_conv, kr, C/8, C, 8) conv taps as planes, chain order
+  const op_t* w;          // (n_conv, kr, C/8, C, 8) conv taps as planes, chain order
   const float* b;         // (n_conv, C)
-  bf16* y;                // (B, L_out, C)
+  io_t* y;                // (B, L_out, C)
   int L_in, Cin, L_out;
   int K_up, stride, pad;
   int has_in_leaky;
@@ -176,9 +209,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// {lo, hi} rounded to nearest even, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+// {lo, hi} as two operands (bf16, or f16 in the f16-staged mode) rounded to
+// nearest even, lo in the low half
+__device__ __forceinline__ uint32_t pack_op2(float lo, float hi) {
+#if ZV_MRF_F16_STAGED
+  const __half2 v = __floats2half2_rn(lo, hi);
+#else
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+#endif
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -337,12 +375,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D(64 x N, f32) (+)= A(64 x 16, bf16) * B(16 x N, bf16); scale_d == 0 overwrites D
+// D(64 x N, f32) (+)= A(64 x 16) * B(16 x N), operands bf16 (f16 in the f16-staged
+// mode, ZV_WGMMA_AB); scale_d == 0 overwrites D
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" ZV_WGMMA_AB
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
       "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
@@ -355,7 +394,7 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" ZV_WGMMA_AB
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -371,7 +410,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" ZV_WGMMA_AB
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
@@ -393,7 +432,7 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32" ZV_WGMMA_AB
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
@@ -434,9 +473,9 @@ __device__ __forceinline__ void wgmma(float (&d)[C / 2], uint64_t da, uint64_t d
 // Chunk n of this CTA's weight stream: first its upsample phases (rank,
 // rank + n_rb, ...; per phase its taps ph + s*m, per tap Cin / KB chunks),
 // then its resblock's convs (per conv its taps, per tap C / KB chunks).  The
-// host packs both as planes, so a chunk is KB * C contiguous bf16 values.
+// host packs both as planes, so a chunk is KB * C contiguous 16-bit values.
 template <int C, int KB, int MT>
-__device__ __forceinline__ const bf16* chunk_src(const Params& p, const Stream& st, int rank,
+__device__ __forceinline__ const op_t* chunk_src(const Params& p, const Stream& st, int rank,
                                                  int n) {
   using G = Geo<C, KB, MT>;
   if (n < st.n_up) {
@@ -602,7 +641,7 @@ __device__ __forceinline__ void conv_pass(const Params& p, const Smem& sm, const
             o0 = valid[hh] ? leaky01(v0) : 0.f;
             o1 = valid[hh] ? leaky01(v1) : 0.f;
           }
-          w[e][hh] = pack_bf16x2(o0, o1);
+          w[e][hh] = pack_op2(o0, o1);
         }
       }
       if (!RESIDUAL || write_planes)
@@ -670,6 +709,85 @@ __device__ __forceinline__ void upsample(const Params& p, const Smem& sm, const 
   }
 }
 
+#if ZV_MRF_F16_STAGED
+// The f16-staged mode's pre-upsample rows jlo .. jlo + np_rows - 1 as planes
+// of round_f16(leaky_in(x)), rounded with or without leaky_in (f32 rows are
+// no f16 values): two 16-byte loads per plane row of 8 channels, kBatch rows
+// in flight per thread.
+__device__ __forceinline__ void stage_pre_rows_f32(const Params& p, const Smem& sm, int batch,
+                                                   int jlo) {
+  const float* xb = p.x + (size_t)batch * p.L_in * p.Cin;
+  const int n = p.np_rows * (p.Cin / 8);
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kThreads) {
+    float4 v[kBatch][2];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int pr = e / (p.Cin / 8), g8 = e % (p.Cin / 8), j = jlo + pr;
+      v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < n && j >= 0 && j < p.L_in) {
+        const float4* src = reinterpret_cast<const float4*>(xb + (size_t)j * p.Cin + g8 * 8);
+        v[u][0] = __ldg(src);
+        v[u][1] = __ldg(src + 1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e >= n) break;
+      const int pr = e / (p.Cin / 8), g8 = e % (p.Cin / 8);
+      float f[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
+                    v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
+      if (p.has_in_leaky) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = leaky(f[i], p.in_leaky);
+      }
+      sts_u4(sm.buf_addr + (uint32_t)g8 * p.np_rows * 16 + (uint32_t)pr * 16,
+             make_uint4(pack_op2(f[0], f[1]), pack_op2(f[2], f[3]), pack_op2(f[4], f[5]),
+                        pack_op2(f[6], f[7])));
+    }
+  }
+}
+
+// The f16-staged mode's stage input (+ in_bias) into the h window as it is:
+// f32 rows, unrounded (no upsample: mrf_stage_unfolded's call).
+template <int C>
+__device__ __forceinline__ void widen_input_f32(const Params& p, const Smem& sm, int batch,
+                                                int t_base) {
+  const float* xb = p.x + (size_t)batch * p.L_in * C;
+  const int n = p.window * (C / 8);
+  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kThreads) {
+    float4 v[kBatch][2];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int tg = t_base + e / (C / 8);
+      v[u][0] = v[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < n && tg >= 0 && tg < p.L_out) {
+        const float4* src = reinterpret_cast<const float4*>(xb + (size_t)tg * C + (e % (C / 8)) * 8);
+        v[u][0] = __ldg(src);
+        v[u][1] = __ldg(src + 1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e >= n) break;
+      const int r = e / (C / 8), g8 = e % (C / 8), tg = t_base + r;
+      float f[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
+                    v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
+      if (p.in_bias != nullptr && tg >= 0 && tg < p.L_out) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] += __ldg(p.in_bias + g8 * 8 + i);
+      }
+      const uint32_t ha = sm.h_addr + 4u * (uint32_t)hidx<C>(r, 8 * g8);
+      sts_f4(ha, make_float4(f[0], f[1], f[2], f[3]));
+      sts_f4(ha + 16, make_float4(f[4], f[5], f[6], f[7]));
+    }
+  }
+}
+#endif
+
 template <int C, int KB, int MT>
 __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kernel(const Params p) {
   using G = Geo<C, KB, MT>;
@@ -721,6 +839,10 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
   cluster.sync();                                    // every CTA of the cluster runs
 
   const int jlo = p.w_up != nullptr ? floordiv(t_base + p.pad - (p.K_up - 1), p.stride) : 0;
+#if ZV_MRF_F16_STAGED
+  if (p.w_up != nullptr) stage_pre_rows_f32(p, sm, batch, jlo);
+  else widen_input_f32<C>(p, sm, batch, t_base);
+#else
   if (p.w_up != nullptr) {
     // the pre-upsample rows jlo .. jlo + np_rows - 1 as planes of round(leaky_in(x)),
     // kBatch 16-byte loads in flight per thread
@@ -744,10 +866,10 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
         uint4 w = v[u];
         if (p.has_in_leaky) {
           const float a = p.in_leaky;
-          w = make_uint4(pack_bf16x2(leaky(bf16_lo(w.x), a), leaky(bf16_hi(w.x), a)),
-                         pack_bf16x2(leaky(bf16_lo(w.y), a), leaky(bf16_hi(w.y), a)),
-                         pack_bf16x2(leaky(bf16_lo(w.z), a), leaky(bf16_hi(w.z), a)),
-                         pack_bf16x2(leaky(bf16_lo(w.w), a), leaky(bf16_hi(w.w), a)));
+          w = make_uint4(pack_op2(leaky(bf16_lo(w.x), a), leaky(bf16_hi(w.x), a)),
+                         pack_op2(leaky(bf16_lo(w.y), a), leaky(bf16_hi(w.y), a)),
+                         pack_op2(leaky(bf16_lo(w.z), a), leaky(bf16_hi(w.z), a)),
+                         pack_op2(leaky(bf16_lo(w.w), a), leaky(bf16_hi(w.w), a)));
         }
         sts_u4(sm.buf_addr + (uint32_t)g8 * p.np_rows * 16 + (uint32_t)pr * 16, w);
       }
@@ -783,6 +905,7 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
       }
     }
   }
+#endif
   // the upsample's bias (its epilogue reads it from here)
   for (int c = threadIdx.x; c < C; c += kThreads)
     sm.bias[c] = p.in_bias != nullptr ? __ldg(p.in_bias + c) : 0.f;
@@ -803,10 +926,10 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
       const uint32_t ha = sm.h_addr + 4u * (uint32_t)hidx<C>(r, 8 * g8);
       const float4 a = lds_f4(ha), b = lds_f4(ha + 16);
       sts_u4(sm.buf_addr + (uint32_t)g8 * plane_bytes + (uint32_t)(p.margin + r) * 16,
-             make_uint4(pack_bf16x2(leaky01(a.x), leaky01(a.y)),
-                        pack_bf16x2(leaky01(a.z), leaky01(a.w)),
-                        pack_bf16x2(leaky01(b.x), leaky01(b.y)),
-                        pack_bf16x2(leaky01(b.z), leaky01(b.w))));
+             make_uint4(pack_op2(leaky01(a.x), leaky01(a.y)),
+                        pack_op2(leaky01(a.z), leaky01(a.w)),
+                        pack_op2(leaky01(b.x), leaky01(b.y)),
+                        pack_op2(leaky01(b.z), leaky01(b.w))));
     }
   }
   const int half = (p.kr - 1) / 2;
@@ -831,7 +954,7 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
   cluster.sync();                                    // every resblock's h is final
 
   // resblock sum over the cluster in rank order; this CTA writes its share of rows
-  bf16* yb = p.y + (size_t)batch * p.L_out * C;
+  io_t* yb = p.y + (size_t)batch * p.L_out * C;
   uint32_t hs[kMaxRB];
 #pragma unroll
   for (int r = 0; r < kMaxRB; ++r) hs[r] = r < p.n_rb ? cluster_addr(sm.h_addr, r) : 0u;
@@ -855,22 +978,29 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
       v[i] *= p.inv_n;
       if (p.has_out_leaky) v[i] = leaky(v[i], p.out_leaky);
     }
+#if ZV_MRF_F16_STAGED
+    float4* dst = reinterpret_cast<float4*>(yb + (size_t)tg * C + g8 * 8);   // f32, unrounded
+    dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+    dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+#else
     *reinterpret_cast<uint4*>(yb + (size_t)tg * C + g8 * 8) =
-        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
-                   pack_bf16x2(v[6], v[7]));
+        make_uint4(pack_op2(v[0], v[1]), pack_op2(v[2], v[3]), pack_op2(v[4], v[5]),
+                   pack_op2(v[6], v[7]));
+#endif
   }
   cluster.sync();                                    // no CTA leaves while its h is read
 }
 
 // The probe of the shifted no-swizzle descriptor: one warpgroup computes
-// D(64 x 32) = A[shift : shift + 64, 0:16] * B(32 x 16)^T with A (rows x 16,
+// D(64 x 32) = A[shift : shift + 64, 0:16] * B(32 x 16)^T of the mode's
+// operand type (bf16; f16 in the f16-staged build) with A (rows x 16,
 // row-major in global memory) staged as two planes of 8 channels and B as two
 // planes of 8 k values per n.  lbo_k: 1 = LBO holds the stride between the k
 // halves (planes) and SBO between 8-row groups; 0 = the two swapped.  The
 // shared arrays leave room for either reading (they are zeroed first), so
 // the wrong assignment gives a wrong product, not a fault.
 __global__ void __launch_bounds__(128, 1)
-    wgmma_probe_kernel(const bf16* a, const bf16* b, float* d, int rows, int shift, int lbo_k) {
+    wgmma_probe_kernel(const op_t* a, const op_t* b, float* d, int rows, int shift, int lbo_k) {
   __shared__ __align__(128) uint8_t sa[16384];
   __shared__ __align__(128) uint8_t sb[4096];
   for (int e = threadIdx.x; e < 16384 / 16; e += 128)
@@ -947,9 +1077,21 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 
 }  // namespace
 
-// kb: the instance's chunk channels (checked); in_bias and b are f32.
-extern "C" int zv_mrf_stage_bf16(
-    const bf16* x, const bf16* w_up, const float* in_bias, const bf16* w, const float* b, bf16* y,
+// One set of entries per mode; a library built from this file holds one of them.
+#if ZV_MRF_F16_STAGED
+#define ZV_STAGE_ENTRY zv_mrf_stage_f16_staged
+#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_f16_staged
+#define ZV_PROBE_ENTRY zv_wgmma_probe_f16
+#else
+#define ZV_STAGE_ENTRY zv_mrf_stage_bf16
+#define ZV_CLUSTERS_ENTRY zv_mrf_max_clusters_bf16
+#define ZV_PROBE_ENTRY zv_wgmma_probe
+#endif
+
+// kb: the instance's chunk channels (checked); in_bias and b are f32; x and
+// y bf16 (f32 in the f16-staged mode), w_up and w bf16 (f16) planes.
+extern "C" int ZV_STAGE_ENTRY(
+    const io_t* x, const op_t* w_up, const float* in_bias, const op_t* w, const float* b, io_t* y,
     int B, int L_in, int Cin, int C, int L_out, int K_up, int stride, int pad, int has_in_leaky,
     float in_leaky, int has_out_leaky, float out_leaky, int n_rb, int n_dmax, int kr,
     const int* dils, int halo, int tile, int window, int margin, int plane_rows, int np_rows,
@@ -1021,7 +1163,7 @@ extern "C" int zv_mrf_stage_bf16(
 // Clusters of n_rb CTAs of the (C, mt) instances that the card holds at
 // once with smem_bytes of shared memory each (one wave; the same for every
 // chunk size); negative: -cudaError_t.
-extern "C" int zv_mrf_max_clusters_bf16(int n_rb, int C, int mt, int smem_bytes) {
+extern "C" int ZV_CLUSTERS_ENTRY(int n_rb, int C, int mt, int smem_bytes) {
   const KernelFn kernel = pick_kernel(C, C == 256 ? 64 : C, mt);
   if (kernel == nullptr || n_rb < 1 || n_rb > kMaxRB) return -(int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1038,9 +1180,9 @@ extern "C" int zv_mrf_max_clusters_bf16(int n_rb, int C, int mt, int smem_bytes)
 // The stage kernel's descriptor field assignment (kLboIsK).
 extern "C" int zv_wgmma_lbo_is_k() { return kLboIsK ? 1 : 0; }
 
-// The descriptor probe (above): a (rows x 16) and b (32 x 16) bf16 row-major,
-// d (64 x 32) f32; 0 or a cudaError_t.
-extern "C" int zv_wgmma_probe(const bf16* a, const bf16* b, float* d, int rows, int shift,
+// The descriptor probe (above): a (rows x 16) and b (32 x 16) row-major of the
+// mode's operand type, d (64 x 32) f32; 0 or a cudaError_t.
+extern "C" int ZV_PROBE_ENTRY(const op_t* a, const op_t* b, float* d, int rows, int shift,
                               int lbo_k, void* stream) {
   if (rows < 64 || rows > 136 || shift < 0 || shift + 64 > rows) return (int)cudaErrorInvalidValue;
   wgmma_probe_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(a, b, d, rows, shift, lbo_k);

@@ -8,8 +8,9 @@ side run inside it, so on the card the upsampled activation never reaches
 device memory.  `pack_vocoder` puts the stages' weights in the kernel's
 layout once per model; a serving caller passes the result to `vocode`.
 A stage whose geometry the kernel does not take (`stage_routes`, from
-ops.cuda.mrf_stage.kernel_takes: a width outside 32-512, say, as every
-stage of TINY_CONFIG) runs the kernel's plain version on every device, as
+ops.cuda.mrf_stage.kernel_takes: a width outside 32-512 in float32, or
+32-256 in bfloat16 and under f16_staging, say, as every stage of
+TINY_CONFIG) runs the kernel's plain version on every device, as
 the JAX vocoder runs such stages through XLA convs.
 Everything runs in the params' dtype: float32, or bfloat16 after
 cast_params (the MRF stages then take the kernel's bf16 mode).  Under
@@ -62,7 +63,8 @@ def _stage_blocks(voc: dict, cfg: ZeroVoxConfig, i: int) -> list:
 
 def stage_routes(params: dict, cfg: ZeroVoxConfig) -> List[bool]:
     """Per MRF stage, whether the kernel takes it (kernel_takes on the
-    stage's widths, upsample and resblocks, in the params' dtype): True for
+    stage's widths, upsample and resblocks, in the params' dtype and the
+    calling context's f16_staging): True for
     every stage of the production geometry, False for every stage of
     TINY_CONFIG (C = 16, 8, 4)."""
     ups = params["vocoder"]["upsamples"]

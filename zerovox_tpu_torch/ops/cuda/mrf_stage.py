@@ -6,8 +6,8 @@ multi-receptive-field stage, optionally with the preceding ConvTranspose1d
 upsample, its bias and the leaky-relus on either side fused in.
 `mrf_stage_unfolded` is the same kernel with every option off, the port of
 `mrf_stage_unfolded`.  The kernel sources are zerovox_tpu_torch/csrc/
-mrf_stage.cu (the float32 and f16-staged modes) and csrc/mrf_stage_bf16.cu
-(the bfloat16 serving mode).
+mrf_stage.cu (the float32 mode) and csrc/mrf_stage_bf16.cu (the bfloat16
+serving mode and the f16-staged mode).
 
 For a CUDA tensor the wrappers launch the kernel or raise; they take the
 plain version (`mrf_stage_ref`, built from F.conv1d / F.conv_transpose1d)
@@ -40,13 +40,16 @@ input's dtype and ops.conv's f16_staging:
             computes the same for bf16 tensors (`round_bf16` on each conv's
             operand, f32 convs on exactly representable products).
   f16-staged  float32 under f16_staging (`--verify`'s simulation of the
-            ggml reference): f32 tensors and chain state, every conv's
-            operands (the upsample's too) rounded to f16 after the leaky,
-            weights packed as f16 values in the f32 layout (`pack_stage`
-            rounds them), one TF32 product per k-step, exact on f16 values.
-            `mrf_stage_ref` computes the same through ops.conv's staging.
-            The TPU kernel has no such mode: the JAX vocoder staged only on
-            its XLA route.
+            ggml reference), on the bfloat16 mode's design and geometry
+            (csrc/mrf_stage_bf16.cu built with ZV_MRF_F16_STAGED; wgmma on
+            f16 operand planes): f32 input, output and chain state, every
+            conv's operands (the upsample's too, with or without in_leaky)
+            rounded to f16 after the leaky, weights packed as f16 planes
+            (`pack_stage` rounds them), f16 products exact and summed in
+            f32, the output written f32, unrounded.  C in 32/64/128/256, an
+            upsample of k = t * s.  `mrf_stage_ref` computes the same
+            through ops.conv's staging.  The TPU kernel has no such mode:
+            the JAX vocoder staged only on its XLA route.
 
 A bf16 input with f32 weights (or the reverse) raises, and so does a bf16
 call under f16_staging (no entry point asks for one; the kernel has no such
@@ -63,8 +66,8 @@ The kernel is compiled with nvcc, at its first CUDA call (never at import),
 into the port's build directory (utils.compile_cache.build_dir():
 build/zerovox_tpu_torch/ at the root of the checkout, or --compile-cache's
 DIR; a build of the same source and flags found there is reused), as one shared
-library per mode (csrc/mrf_stage.cu as it is and with -DZV_MRF_F16_STAGED=1,
-csrc/mrf_stage_bf16.cu; the three nvcc runs started together) with a plain C
+library per mode (csrc/mrf_stage.cu; csrc/mrf_stage_bf16.cu as it is and with
+-DZV_MRF_F16_STAGED=1; the three nvcc runs started together) with a plain C
 interface loaded through ctypes.  The build is guarded
 by a lock: concurrent first calls (a server made without a warm-up) wait
 for the one nvcc run.  A mode whose library does not build or launch raises:
@@ -88,13 +91,13 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from ..conv import (conv1d, conv_transpose1d, round_f16, staging, transpose_out_len,
+from ..conv import (conv1d, conv_transpose1d, staging, transpose_out_len,
                     unflip_transpose_weight)
 from ..misc import leaky_relu
 
 _PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "mrf_stage.cu"            # the float32 and f16-staged modes
-SOURCE_BF16 = _PKG / "csrc" / "mrf_stage_bf16.cu"  # the bfloat16 mode
+SOURCE = _PKG / "csrc" / "mrf_stage.cu"            # the float32 mode
+SOURCE_BF16 = _PKG / "csrc" / "mrf_stage_bf16.cu"  # the bfloat16 and f16-staged modes
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -108,6 +111,8 @@ _SMEM_MAX = 232448        # dynamic shared memory one CTA may use (bytes)
 _SMS = 132                # streaming multiprocessors of an H100 SXM
 _MT = {8: 3, 4: 6}        # kernel instances: n8 column tiles per warp -> m16 row tiles
 _KC = {8: (16, 32, 64), 4: (16, 32)}   # ... and their weight chunks (input channels)
+# The modes on csrc/mrf_stage_bf16.cu's wgmma design (bf16_plan's geometry)
+_WGMMA_MODES = ("bf16", "f16_staged")
 # Limits shared with csrc/mrf_stage_bf16.cu: its instances (C -> the input
 # channels a weight chunk may hold) and its ring of weight chunks
 _BF16_KB = {256: (16, 64), 128: (32, 128), 64: (64,), 32: (32,)}
@@ -246,7 +251,7 @@ def split_tf32(v: torch.Tensor):
 
 
 class TilePlan(NamedTuple):
-    """Launch geometry of the float32 and f16-staged modes (csrc/mrf_stage.cu)."""
+    """Launch geometry of the float32 mode (csrc/mrf_stage.cu)."""
     tile: int        # output rows per cluster (its CTAs run one resblock each)
     clusters: int    # clusters per launch (B x time tiles); 0 with no L_out
     ss: int          # window row stride (floats: C + 4)
@@ -367,7 +372,7 @@ def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
 
 
 class Bf16Plan(NamedTuple):
-    """Launch geometry of the bfloat16 mode (csrc/mrf_stage_bf16.cu)."""
+    """Launch geometry of the bfloat16 and f16-staged modes (csrc/mrf_stage_bf16.cu)."""
     tile: int          # output rows per cluster (its CTAs run one resblock each)
     clusters: int      # clusters per launch (B x time tiles); 0 with no L_out
     window: int        # rows a CTA holds: tile + 2 * halo
@@ -449,7 +454,8 @@ def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
               window: Optional[int] = None, stages: Optional[int] = None,
               kb: Optional[int] = None) -> Bf16Plan:
     """Launch geometry of the bfloat16 kernel (csrc/mrf_stage_bf16.cu) for a
-    stage of C channels (32/64/128/256).
+    stage of C channels (32/64/128/256); the f16-staged mode's too (its f16
+    operand planes and f32 h window take the same shared memory).
 
     A cluster of len(dilation_sets) CTAs takes one time tile, a CTA per
     resblock.  Its two warpgroups hold every 64-row M-tile of the window
@@ -482,36 +488,41 @@ def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
 def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
                  up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
                  dtype: torch.dtype = torch.float32) -> bool:
-    """Whether the kernel takes a stage of this geometry in the mode of
-    `dtype`, at any batch size and length: C channels, one resblock per
-    entry of dilation_sets, and (up_cin > 0) an upsample of up_cin input
-    channels, kernel up_k and stride up_stride.  Plain Python, so the CPU
-    tests reach it; the vocoder runs a stage it does not take through the
-    plain version (mrf_stage_ref), on the card too.  It asks what _launch
-    and tile_plan ask: an odd kernel size, 1-8 resblocks of 1-8 dilations
-    >= 1, a width and chunk the mode's instances hold, upsample input
-    channels in 16-byte groups (bf16: in whole weight chunks, and an upsample
-    kernel that is a multiple of its stride), and a tile plan whose
+    """Whether the kernel takes a stage of this geometry in the mode a stage
+    of `dtype` runs in the calling context (kernel_mode: float32 under
+    ops.conv's f16_staging is the f16-staged mode), at any batch size and
+    length: C channels, one resblock per entry of dilation_sets, and
+    (up_cin > 0) an upsample of up_cin input channels, kernel up_k and
+    stride up_stride.  Plain Python, so the CPU tests reach it; the vocoder
+    runs a stage it does not take through the plain version
+    (mrf_stage_ref), on the card too.  It asks what _launch and the mode's
+    plan ask: an odd kernel size, 1-8 resblocks of 1-8 dilations >= 1, a
+    width and chunk the mode's instances hold (float32: 32-512; bfloat16
+    and f16-staged: 32-256), upsample input channels in 16-byte groups
+    (bfloat16 and f16-staged: in whole weight chunks, and an upsample kernel
+    that is a multiple of its stride), and (float32) a tile plan whose
     pre-upsample rows fit at every tile length a launch can choose (1 up to
-    the longest)."""
+    the longest).  The answer is cached per mode."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
     return _takes(C, tuple(tuple(int(d) for d in ds) for ds in dilation_sets), kernel_size,
-                  up_cin, up_k, up_stride, dtype)
+                  up_cin, up_k, up_stride, kernel_mode(dtype))
 
 
 @functools.lru_cache(maxsize=256)
-def _takes(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, dtype) -> bool:
-    if dtype not in (torch.float32, torch.bfloat16) or kernel_size % 2 != 1 \
-            or not 1 <= len(dilation_sets) <= _MAX_RB \
+def _takes(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, mode) -> bool:
+    wgmma = mode in _WGMMA_MODES
+    if kernel_size % 2 != 1 or not 1 <= len(dilation_sets) <= _MAX_RB \
             or any(not 1 <= len(d) <= _MAX_D or min(d) < 1 for d in dilation_sets) \
-            or (up_cin and up_cin % (16 // dtype.itemsize)):
+            or (up_cin and up_cin % (8 if wgmma else 4)):
         return False
     try:
-        plan = tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride,
-                         elem=dtype.itemsize)
+        if wgmma:
+            bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride)
+            return True        # a shorter window needs less of every buffer
+        plan = tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride)
     except ValueError:
         return False
-    if dtype == torch.bfloat16:
-        return True            # a shorter window needs less of every buffer
     halo = stage_halo(dilation_sets, kernel_size)
     return all(_upsample_fits(t, halo, up_cin, up_k, up_stride, plan.ss)
                for t in range(1, plan.tile + 1))
@@ -538,15 +549,17 @@ class Library(NamedTuple):
     error_string: object   # cudaGetErrorString
     build_log: str         # nvcc's output, every mode (ptxas registers and spills)
     build_seconds: float   # wall time of the compile, 0 when earlier builds were reused
-    probe: object = None   # the bf16 library's zv_wgmma_probe (wgmma_probe)
-    lbo_is_k: int = 1      # its descriptors' assignment of LBO (1: across k, 0: across rows)
+    probe: Optional[dict] = None   # wgmma mode -> its library's descriptor probe (wgmma_probe)
+    lbo_is_k: int = 1      # their descriptors' assignment of LBO (1: across k, 0: across rows)
 
 
 # (mode, source, nvcc defines, launch entry, cluster-occupancy entry): one library each
 _MODES = (("f32", SOURCE, (), "zv_mrf_stage_f32", "zv_mrf_max_clusters"),
           ("bf16", SOURCE_BF16, (), "zv_mrf_stage_bf16", "zv_mrf_max_clusters_bf16"),
-          ("f16_staged", SOURCE, ("-DZV_MRF_F16_STAGED=1",), "zv_mrf_stage_f16_staged",
+          ("f16_staged", SOURCE_BF16, ("-DZV_MRF_F16_STAGED=1",), "zv_mrf_stage_f16_staged",
            "zv_mrf_max_clusters_f16_staged"))
+# the descriptor probe of each wgmma mode's library (bf16 or f16 operands)
+_PROBES = {"bf16": "zv_wgmma_probe", "f16_staged": "zv_wgmma_probe_f16"}
 
 
 def kernel_mode(dtype: torch.dtype) -> str:
@@ -594,9 +607,9 @@ def _so_name(tag: str, source: Path, defines) -> str:
 
 def _build_library() -> Library:
     """Build (once per source version) and load the kernel's three
-    libraries, one per mode (_MODES: csrc/mrf_stage.cu with and without
-    ZV_MRF_F16_STAGED, csrc/mrf_stage_bf16.cu), every nvcc run started
-    together.  A failed build raises."""
+    libraries, one per mode (_MODES: csrc/mrf_stage.cu, csrc/mrf_stage_bf16.cu
+    with and without ZV_MRF_F16_STAGED), every nvcc run started together.
+    A failed build raises."""
     from ...utils.compile_cache import build_dir, note_loaded
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -623,13 +636,13 @@ def _build_library() -> Library:
         raise RuntimeError(failed)
     seconds = time.perf_counter() - t0 if procs else 0.0
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    stage, clusters, error_string, probe, lbo_is_k = {}, {}, None, None, 1
+    stage, clusters, error_string, probe, lbo_is_k = {}, {}, None, {}, 1
     for tag, source, defines, stage_name, clusters_name in _MODES:
         so = out_dir / _so_name(tag, source, defines)
         lib = ctypes.CDLL(str(so))
         note_loaded(so)
         fn = getattr(lib, stage_name)
-        if tag == "bf16":
+        if tag in _WGMMA_MODES:
             fn.argtypes = [p, p, p, p, p, p,    # x w_up in_bias w b y
                            i, i, i, i, i,       # B L_in Cin C L_out
                            i, i, i,             # K_up stride pad
@@ -639,9 +652,9 @@ def _build_library() -> Library:
                            i, i, i, i,          # buf kb mt stages
                            i, p]                # smem stream
             cl_args = [i, i, i, i]              # n_rb C mt smem
-            probe = lib.zv_wgmma_probe
-            probe.argtypes = [p, p, p, i, i, i, p]
-            probe.restype = i
+            probe[tag] = getattr(lib, _PROBES[tag])
+            probe[tag].argtypes = [p, p, p, i, i, i, p]
+            probe[tag].restype = i
             lib.zv_wgmma_lbo_is_k.restype = i
             lbo_is_k = lib.zv_wgmma_lbo_is_k()
         else:
@@ -672,10 +685,11 @@ def wave_clusters(device_index: int, n_rb: int, C: int, mode: str = "f32",
     """Clusters of n_rb CTAs of the mode's kernel (kernel_mode) for C
     channels that the card holds at once (one wave), from
     cudaOccupancyMaxActiveClusters at the shared memory a CTA may use (the
-    bf16 mode: of the instance with mt M-tiles per warpgroup)."""
+    bf16 and f16-staged modes: of the instance with mt M-tiles per
+    warpgroup)."""
     lib = library()
     with torch.cuda.device(device_index):
-        if mode == "bf16":
+        if mode in _WGMMA_MODES:
             n = lib.max_clusters[mode](n_rb, C, mt,
                                        _SMEM_MAX if mt * C > 128 else _SMEM_2)
         else:
@@ -687,22 +701,26 @@ def wave_clusters(device_index: int, n_rb: int, C: int, mode: str = "f32",
     return n
 
 
-def wgmma_probe(device, shift: int, lbo_k: int, rows: int = 72, seed: int = 0):
-    """Run the bf16 library's descriptor probe on the card: one warpgroup
+def wgmma_probe(device, shift: int, lbo_k: int, rows: int = 72, seed: int = 0,
+                mode: str = "bf16"):
+    """Run a wgmma mode's descriptor probe on the card (mode "bf16": bf16
+    operands; "f16_staged": that library's f16 ones): one warpgroup
     computes A[shift : shift + 64] @ B^T (A: rows x 16, B: 32 x 16, random
-    bf16 values from `seed`) with A read through a no-swizzle descriptor
-    whose start is `shift` rows into a plane, LBO holding the offset between
-    the k halves (lbo_k = 1) or between 8-row groups (0; SBO the other; the
-    stage kernel's choice is library().lbo_is_k).  Returns the card's
-    (64, 32) float32 result and the plain product of the same values."""
+    values of the operand type from `seed`) with A read through a
+    no-swizzle descriptor whose start is `shift` rows into a plane, LBO
+    holding the offset between the k halves (lbo_k = 1) or between 8-row
+    groups (0; SBO the other; the stage kernel's choice is
+    library().lbo_is_k).  Returns the card's (64, 32) float32 result and
+    the plain product of the same values."""
+    op = torch.float16 if mode == "f16_staged" else torch.bfloat16
     g = torch.Generator().manual_seed(seed)
-    a = torch.randn(rows, 16, generator=g).to(torch.bfloat16).to(device)
-    b = torch.randn(32, 16, generator=g).to(torch.bfloat16).to(device)
+    a = torch.randn(rows, 16, generator=g).to(op).to(device)
+    b = torch.randn(32, 16, generator=g).to(op).to(device)
     d = torch.empty(64, 32, device=device)
     lib = library()
     with torch.cuda.device(device):
-        err = lib.probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), rows, shift, lbo_k,
-                        torch.cuda.current_stream(device).cuda_stream)
+        err = lib.probe[mode](a.data_ptr(), b.data_ptr(), d.data_ptr(), rows, shift, lbo_k,
+                              torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wgmma probe launch failed: {lib.error_string(err).decode()} ({err})")
     return d, a[shift:shift + 64].float() @ b.float().T
@@ -732,18 +750,19 @@ def swizzle_rows(w: torch.Tensor) -> torch.Tensor:
 class PackedStage(NamedTuple):
     """A stage's weights in the kernel's layout (pack_stage)."""
     w: torch.Tensor                  # f32: (n_conv, K, C, C) [k][ci][swizzled co], chain
-    #                                  order; bf16: (n_conv, K, C/8, C, 8) [k][ci/8][co][ci%8],
-    #                                  planes of 8 input channels
+    #                                  order; bf16 and f16-staged (f16 values): (n_conv, K,
+    #                                  C/8, C, 8) [k][ci/8][co][ci%8], planes of 8 input channels
     b: torch.Tensor                  # (n_conv, C) float32 in every mode
     w_up: Optional[torch.Tensor]     # ConvTranspose1d taps: f32 (K_up, C_pre, C) [k][ci][co];
-    #                                  bf16 (K_up, C_pre/8, C, 8) [k][ci/8][co][ci%8]
-    staged: bool = False             # w and w_up rounded to f16 values (the f16-staged mode)
+    #                                  bf16 and f16-staged (K_up, C_pre/8, C, 8) [k][ci/8][co][ci%8]
+    staged: bool = False             # w and w_up f16 planes (the f16-staged mode)
 
 
 def to_planes(w: torch.Tensor) -> torch.Tensor:
     """w[..., ci, co] as planes of 8 input channels, [..., ci // 8, co, ci % 8]:
-    the bf16 kernel's shared-memory layout of a weight chunk (a plane: C rows
-    of 16 bytes, one core matrix of a wgmma B operand per 8 rows)."""
+    the wgmma kernel's shared-memory layout of a weight chunk (a plane: C
+    rows of 16 bytes of bf16 or f16 values, one core matrix of a wgmma B
+    operand per 8 rows)."""
     *lead, cin, cout = w.shape
     return w.reshape(*lead, cin // 8, 8, cout).transpose(-1, -2).contiguous()
 
@@ -773,18 +792,22 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     copy already in the layout its wgmma descriptors read.  The biases are
     widened to float32 (exact): the kernel adds them in f32.
 
-    Under f16_staging, float32 weights are packed for the f16-staged mode:
-    the convs' and the upsample's rounded to f16 values (round_f16) in the
-    f32 layout, the biases as they are (PackedStage.staged)."""
+    Under f16_staging, float32 weights are packed for the f16-staged mode,
+    whose kernel has the bf16 mode's design: the convs' and the upsample's
+    rounded to f16 (round_f16, to nearest even) as f16 planes, the same
+    layout with f16 values; the biases float32 as they are
+    (PackedStage.staged)."""
     C = blocks[0]["convs1"][0]["w"].shape[0]
     dev = blocks[0]["convs1"][0]["w"].device
     dtype = blocks[0]["convs1"][0]["w"].dtype
     _check_dtypes(dtype, blocks, None if upsample_w is None else dict(w=upsample_w))
-    staged = kernel_mode(dtype) == "f16_staged"
-    if dtype == torch.bfloat16 and (C % 8 or (upsample_w is not None
-                                              and upsample_w.shape[1] % 8)):
-        raise ValueError(f"bf16 weights pack planes of 8 input channels: C={C}"
+    mode = kernel_mode(dtype)
+    staged = mode == "f16_staged"
+    planes = mode in _WGMMA_MODES
+    if planes and (C % 8 or (upsample_w is not None and upsample_w.shape[1] % 8)):
+        raise ValueError(f"{mode} weights pack planes of 8 input channels: C={C}"
                          + ("" if upsample_w is None else f", upsample {upsample_w.shape[1]}"))
+    op = torch.float16 if staged else dtype
     ws, bs = [], []
     for j, blk in enumerate(blocks):
         for di in range(len(dilation_sets[j])):
@@ -797,17 +820,12 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
                     raise ValueError(f"block {j} {cset}[{di}] lies on {conv['w'].device}, "
                                      f"block 0 on {dev}")
                 w = conv["w"].permute(2, 1, 0)                      # [k][ci][co]
-                if staged:
-                    w = round_f16(w)
-                w = to_planes(w) if dtype == torch.bfloat16 else swizzle_rows(w)
-                ws.append(w)
+                ws.append(to_planes(w.to(op)) if planes else swizzle_rows(w))
                 bs.append(conv["b"].to(torch.float32))
     w_up = (None if upsample_w is None
             else unflip_transpose_weight(upsample_w).permute(2, 0, 1).contiguous())
-    if staged and w_up is not None:
-        w_up = round_f16(w_up)
-    if dtype == torch.bfloat16 and w_up is not None:
-        w_up = to_planes(w_up)
+    if planes and w_up is not None:
+        w_up = to_planes(w_up.to(op))
     return PackedStage(torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_up,
                        staged)
 
@@ -817,19 +835,20 @@ def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: int, B:
                dtype: torch.dtype = torch.float32, mode: Optional[str] = None,
                **change) -> TilePlan:
     """The plan a launch on `device` uses in `mode` (default: the mode of
-    `dtype` in the calling context, kernel_mode): tile_plan (bfloat16:
-    bf16_plan) with the card's own wave of clusters (`change`: tile_plan's
-    kc / stages, bf16_plan's window / stages).  The f16-staged mode has the
-    f32 mode's geometry."""
+    `dtype` in the calling context, kernel_mode): tile_plan (bfloat16 and
+    f16-staged: bf16_plan, the wgmma design's geometry) with the card's own
+    wave of clusters (`change`: tile_plan's kc / stages, bf16_plan's window
+    / stages)."""
     mode = mode or kernel_mode(dtype)
+    wgmma = mode in _WGMMA_MODES
     # a geometry the mode does not take raises here, before the card is asked
     mt = 0
-    if mode == "bf16":
+    if wgmma:
         mt = bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, **change).mt
     else:
         warp_grid(C)
     wave = wave_clusters(torch.device(device).index or 0, len(dilation_sets), C, mode, mt)
-    if mode == "bf16":
+    if wgmma:
         return bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
                          **change)
     return tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
@@ -847,6 +866,7 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     _check_dtypes(dtype, blocks, upsample)
     mode = kernel_mode(dtype)
     staged = mode == "f16_staged"
+    wgmma = mode in _WGMMA_MODES
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("mrf_stage kernel takes a contiguous (B, L, C) tensor")
     if kernel_size % 2 != 1:
@@ -869,8 +889,8 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     C = blocks[0]["convs1"][0]["w"].shape[0]
     n_conv = sum(2 * len(ds) for ds in dilation_sets)
     halo = stage_halo(dilation_sets, kernel_size)
-    w_shape = ((n_conv, kernel_size, C, C) if dtype == torch.float32
-               else (n_conv, kernel_size, C // 8, C, 8))
+    w_shape = ((n_conv, kernel_size, C // 8, C, 8) if wgmma
+               else (n_conv, kernel_size, C, C))
     if tuple(packed.w.shape) != w_shape or tuple(packed.b.shape) != (n_conv, C):
         raise ValueError(f"packed weights {tuple(packed.w.shape)} / {tuple(packed.b.shape)} "
                          f"do not match {n_conv} convs of {C} channels")
@@ -879,15 +899,15 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     if upsample is not None:
         if packed.w_up is None:
             raise ValueError("upsample= needs packed weights with w_up")
-        K_up, cin_up, c_up = (packed.w_up.shape if dtype == torch.float32 else
-                              (packed.w_up.shape[0], 8 * packed.w_up.shape[1],
-                               packed.w_up.shape[2]))
+        K_up, cin_up, c_up = ((packed.w_up.shape[0], 8 * packed.w_up.shape[1],
+                               packed.w_up.shape[2]) if wgmma else packed.w_up.shape)
         if c_up != C or cin_up != Cin:
             raise ValueError(f"upsample weight maps {cin_up} -> {c_up} channels, "
                              f"the stage {Cin} -> {C}")
-        if Cin % (16 // dtype.itemsize):
+        group = 8 if wgmma else 4              # 16 bytes of operands / of f32 input
+        if Cin % group:
             raise ValueError(f"mrf_stage kernel: the upsample's input channels ({Cin}) "
-                             f"must be a multiple of {16 // dtype.itemsize}")
+                             f"must be a multiple of {group}")
         stride, pad = int(upsample["stride"]), int(upsample["padding"])
         opad = int(upsample["output_padding"])
         if stride < 1 or not 0 <= opad < stride:
@@ -908,9 +928,10 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     x = _aligned(x)
     w_up = _aligned(packed.w_up) if upsample is not None else None
     w, b = _aligned(packed.w), _aligned(packed.b)
-    for t, want in ((w_up, dtype), (w, dtype), (b, torch.float32)):
+    op = torch.float16 if staged else dtype
+    for t, want in ((w_up, op), (w, op), (b, torch.float32)):
         if t is not None and (t.device != dev or t.dtype != want or not t.is_contiguous()):
-            raise TypeError(f"mrf_stage kernel: packed weights must be contiguous {dtype} "
+            raise TypeError(f"mrf_stage kernel: packed weights must be contiguous {op} "
                             f"(biases float32) on the input's device")
 
     n_dmax = max(len(d) for d in dilation_sets)
@@ -918,7 +939,7 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
         *[ds[i] if i < len(ds) else 0 for ds in dilation_sets for i in range(n_dmax)])
     y = torch.empty(B, L_out, C, device=dev, dtype=dtype)
     lib = library()
-    if mode == "bf16":
+    if wgmma:
         geometry = (halo, plan.tile, plan.window, plan.margin, plan.plane_rows, plan.np_rows,
                     plan.buf, plan.kb, plan.mt, plan.stages)
     else:

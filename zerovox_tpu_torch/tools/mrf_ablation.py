@@ -2,12 +2,13 @@
 with one part of the work taken out, on the production stages.
 
     python -m zerovox_tpu_torch.tools.mrf_ablation [--shape full|bucket256]
-                                                   [--dtype float32|bfloat16]
+                                                   [--dtype float32|bfloat16|f16-staged]
 
 Each ablation is a text substitution in the mode's source (float32:
-csrc/mrf_stage.cu; bfloat16: csrc/mrf_stage_bf16.cu), built with the
-kernel's own nvcc flags into build/zerovox_tpu_torch/ablation/ (all builds
-at once).  An ablated kernel computes a wrong result: only its time means
+csrc/mrf_stage.cu; bfloat16 and f16-staged: csrc/mrf_stage_bf16.cu, the
+latter built with its define and run on float32 tensors under
+ops.conv.f16_staging), built with the kernel's own nvcc flags into
+build/zerovox_tpu_torch/ablation/ (all builds at once).  An ablated kernel computes a wrong result: only its time means
 something.  The difference to the kernel's time is what that part costs.
 float32 (3xTF32 mma.sync):
   one product     hi*hi only, not hi*hi + hi*lo + lo*hi (1/3 of the MMAs)
@@ -16,7 +17,8 @@ float32 (3xTF32 mma.sync):
   no upsample     the fused ConvTranspose1d prologue skips its arithmetic
   no chain        the convs' k-steps (fragment loads, splits, MMAs) are skipped:
                   what remains is the work around the chain
-bfloat16 (wgmma, bulk-copied weight chunks, the upsample on the tensor cores):
+bfloat16 and f16-staged (wgmma, bulk-copied weight chunks, the upsample on
+the tensor cores; the same sites in both):
   no chain        the convs' wgmmas are skipped (their chunks still stream,
                   the epilogues still run): the work around the chain
   no upsample     the upsample's wgmmas are skipped (its chunks still stream)
@@ -44,6 +46,7 @@ import torch
 from ..config import ZeroVoxConfig
 from ..models.hifigan import pack_vocoder
 from ..models.pipeline import cast_params
+from ..ops.conv import f16_staging
 from ..ops.cuda import mrf_stage as ms
 from ..params import init_params
 from ..utils.compile_cache import build_dir
@@ -104,14 +107,16 @@ ABLATIONS = {
         "own h only": [(_B_REMOTE, _B_LOCAL)],
     },
 }
+ABLATIONS["f16-staged"] = ABLATIONS["bfloat16"]
 
 
-def build_all(names, dtype):
-    """{name: ms.Library whose `dtype` entry is the ablated build} for the
-    kernel and each ablation, nvcc runs in parallel."""
-    tag = ms.kernel_mode(dtype)
+def build_all(names, mode):
+    """{name: ms.Library whose entry of `mode` (--dtype's name) is the
+    ablated build} for the kernel and each ablation, nvcc runs in
+    parallel."""
+    tag = _TAGS[mode]
     source, defines, entry_name = next((m[1], m[2], m[3]) for m in ms._MODES if m[0] == tag)
-    ablations = ABLATIONS[str(dtype).split(".")[-1]]
+    ablations = ABLATIONS[mode]
     src = source.read_text()
     out = build_dir() / "ablation"
     out.mkdir(parents=True, exist_ok=True)
@@ -141,6 +146,10 @@ def build_all(names, dtype):
     return libs
 
 
+# --dtype -> the kernel mode (ms.kernel_mode) it times
+_TAGS = {"float32": "f32", "bfloat16": "bf16", "f16-staged": "f16_staged"}
+
+
 def cuda_ms(fn, reps=5):
     fn()
     times = []
@@ -157,15 +166,23 @@ def cuda_ms(fn, reps=5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shape", choices=("full", "bucket256"), default="full")
-    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--dtype", choices=tuple(_TAGS), default="float32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mrf_ablation: needs a CUDA card", file=sys.stderr)
         return 2
     torch.backends.cudnn.allow_tf32 = False
-    dtype = getattr(torch, args.dtype)
+    staged = args.dtype == "f16-staged"
+    dtype = torch.float32 if staged else getattr(torch, args.dtype)
     names = ["kernel", *ABLATIONS[args.dtype]]
-    libs = build_all(names, dtype)
+    libs = build_all(names, args.dtype)
+    with f16_staging(staged):
+        return _time(args, dtype, names, libs)
+
+
+def _time(args, dtype, names, libs) -> int:
+    """Every variant's time per production stage, in the calling context's
+    mode (under f16_staging: the f16-staged one)."""
     cfg = ZeroVoxConfig()
     params = cast_params(init_params(cfg, seed=0, device="cuda"), dtype)
     packs = pack_vocoder(params, cfg)

@@ -18,14 +18,20 @@ run's times per stage, then per shape the four-stage sums of both checkouts
 (the mean of their runs) and their ratio, with the card's name and power
 limit, and a JSON summary as its last line.  A run uses only entry points
 both checkouts have (init_params, cast_params, pack_vocoder, mrf_stage,
-f16_staging, chunk_plan).  Needs a card.
+f16_staging, chunk_plan, compile_cache.loaded).  It also compares, per
+kernel mode, the machine code (cuobjdump -sass) of the library each
+checkout built, the anonymous namespace's per-file names masked: 0
+differing lines means the mode's kernels are the same code.  Needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -107,6 +113,8 @@ with torch.no_grad():
             times["f16-staged B=1 full"] = time_shape(params, pack_vocoder(params, cfg), 1,
                                                       cfg.max_seq_len, 100)
 print("RESULT " + json.dumps(times))
+from zerovox_tpu_torch.utils.compile_cache import loaded
+print("LIBS " + json.dumps(loaded()))
 '''
 
 
@@ -116,15 +124,51 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
-def run_once(root: Path, reps: int, only: str) -> dict:
-    """One run at `root`: its times per shape, per stage (ms)."""
+def run_once(root: Path, reps: int, only: str):
+    """One run at `root`: its times per shape, per stage (ms), and the
+    libraries it loaded."""
     env = dict(os.environ, PYTHONPATH=str(root))
     proc = subprocess.run([sys.executable, "-c", _RUN, str(reps), only], cwd=root, env=env,
                           capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
         raise RuntimeError(f"run at {root} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    line = next(x for x in proc.stdout.splitlines() if x.startswith("RESULT "))
-    return json.loads(line[len("RESULT "):])
+    out = {k: json.loads(x[len(k) + 1:]) for x in proc.stdout.splitlines()
+           for k in ("RESULT", "LIBS") if x.startswith(k + " ")}
+    return out["RESULT"], out["LIBS"]
+
+
+def cuobjdump_sass(lib: str) -> str:
+    """cuobjdump -sass of a library: the machine code of its kernels."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+
+
+def sass(lib: str):
+    """A library's machine code as lines, the per-file names of the
+    anonymous namespace (which follow the file's path) masked."""
+    return re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+", "ANON",
+                  cuobjdump_sass(lib)).splitlines()
+
+
+def compare_sass(libs: dict) -> dict:
+    """Per kernel mode (the tag in mrf_stage_<tag>_<digest>.so), the SASS
+    line counts of both checkouts' builds and the lines that differ: those
+    of one listing that the other lacks, both ways (every instruction line
+    carries its address, so two listings with none differ are the same
+    code; counted in linear time, as two unrelated listings of 10^5 lines
+    would take a line diff long)."""
+    def by_mode(paths):
+        return {m.group(1): p for p in paths
+                if (m := re.match(r"mrf_stage_(\w+)_[0-9a-f]{12}\.so$", Path(p).name))}
+    other, this = by_mode(libs["other"]), by_mode(libs["this"])
+    result = {}
+    for mode in sorted(set(other) & set(this)):
+        a, b = collections.Counter(sass(other[mode])), collections.Counter(sass(this[mode]))
+        result[mode] = dict(other_lines=sum(a.values()), this_lines=sum(b.values()),
+                            differing_lines=sum(((a - b) + (b - a)).values()))
+    return result
 
 
 def main(argv=None) -> int:
@@ -141,9 +185,10 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     runs = {"other": [], "this": []}
+    libs = {}
     order = (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)) * args.rounds
     for label, root in order:
-        times = run_once(root, args.reps, args.only)
+        times, libs[label] = run_once(root, args.reps, args.only)
         runs[label].append(times)
         for shape, ts in times.items():
             print(f"{label} ({root.name}) {shape}: " + " / ".join(f"{t:.3f}" for t in ts)
@@ -159,7 +204,11 @@ def main(argv=None) -> int:
         print(f"{shape}: other {' / '.join('%.3f' % v for v in o)} ms, this "
               f"{' / '.join('%.3f' % v for v in t)} ms, this / other "
               f"{summary[shape]['ratio']:.3f} [{card}]", flush=True)
-    print(json.dumps({"card": card, "shapes": summary}))
+    machine_code = compare_sass(libs)
+    for mode, d in machine_code.items():
+        print(f"SASS {mode}: other {d['other_lines']} lines, this {d['this_lines']} lines, "
+              f"differing lines {d['differing_lines']}", flush=True)
+    print(json.dumps({"card": card, "shapes": summary, "sass": machine_code}))
     return 0
 
 
