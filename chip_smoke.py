@@ -24,7 +24,10 @@ Phases (any failure exits non-zero and prints no result line):
      frames: the first chunk, an interior one, the tail), and in float32
      phase 9's windows (phase9_shapes: the time-sharded TP windows of 786
      frames at B = 1, 2, 4, 8 and of 411 at B = 4, the time-parallel
-     vocoder's 76 and 92 at B = 1); at three of them
+     vocoder's 76 and 92 at B = 1; and example_shapes: 05's TP windows at
+     B = 1); the unfolded entry also in the f16-staged mode (under
+     f16_staging, stage 2's geometry at B=1 and full length, against staged
+     mrf_stage_ref at phase 11's ulp gate, timed beside its bound); at three of them
      (B=1 full length, B=1 and B=8 at bucket 256) and at the windows, time
      every launch with CUDA events next to the plain version and its bounds (f32: f32 FMA and
      3xTF32 tensor cores; bf16: dense bf16 tensor cores); print each
@@ -146,12 +149,17 @@ Phases (any failure exits non-zero and prints no result line):
      float64 one; (c) `python -m zerovox_tpu_torch.cli --verify` as a subprocess with
      ZEROVOX_REF an empty directory: exit 2 with the reason (and exit 0
      where ZEROVOX_REF or the checkout's reference/ holds a tree);
- 12. print the kernels line, then the card line, then {"ok": true, ...}.
+ 12. the examples: each examples_torch/ script's main() in this process, on
+     the card at production geometry (random weights from seed 0), its wall
+     printed; every WAV they write finite, in [-1, 1] and not silent; 01-05
+     each launch mrf_stage; every shape they launch it at held by phase 3;
+ 13. print the kernels line, then the card line, then {"ok": true, ...}.
 
-With --multi-device-only it runs phases 1-3, 9 and 10 and prints no result
+With --examples-only it runs phases 1-3 (without the variants) and 12 and
+prints no result line.  With --multi-device-only it runs phases 1-3, 9 and 10 and prints no result
 line: the quick way to drive the distinct-card regimes on a machine with
 several cards.  With --verify-only it runs phases 1, 2, phase 3's f16 probe
-and phase 11 and prints no result line.  With --kernel-only it runs phases 1-3 (the variants included)
+and f16-staged unfolded entry, and phase 11, and prints no result line.  With --kernel-only it runs phases 1-3 (the variants included)
 and prints no result line: the quick check of a change to a kernel.
 """
 
@@ -213,6 +221,7 @@ KERNEL_ONLY = "--kernel-only"
 SOURCES = {"mrf_stage": "zerovox_tpu_torch/csrc/mrf_stage.cu",
            "mrf_stage_unfolded": "zerovox_tpu_torch/csrc/mrf_stage.cu",
            "mrf_stage_f16_staged": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu",
+           "mrf_stage_unfolded_f16_staged": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu",
            "mrf_stage_bf16": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu",
            "mrf_stage_unfolded_bf16": "zerovox_tpu_torch/csrc/mrf_stage_bf16.cu"}
 
@@ -277,10 +286,15 @@ def cuda_ms(fn, reps: int) -> float:
 # phase 3: the kernel against its plain version
 # --------------------------------------------------------------------------
 
-def stage_work(x, C, L_out, K_up, n_convs, kr, weights_numel):
+def stage_work(x, C, L_out, K_up, n_convs, kr, blocks, kw):
     """(FLOPs, bytes) one MRF stage call must do: every conv's MACs, the
-    upsample's MACs, each input/weight read once and the output written
+    upsample's MACs, each input/weight read once (the resblocks' `blocks`,
+    and with kw's upsample its weight and in_bias) and the output written
     once, in the tensors' own element size."""
+    weights_numel = sum(c[k].numel() for b in blocks for cs in ("convs1", "convs2")
+                        for c in b[cs] for k in ("w", "b"))
+    if kw.get("upsample"):
+        weights_numel += kw["upsample"]["w"].numel() + kw["in_bias"].numel()
     B, L_pre, Cin = x.shape
     flops = 2 * B * (n_convs * kr * C * C * L_out + (K_up * Cin * C * L_pre if K_up else 0))
     nbytes = x.element_size() * (x.numel() + B * L_out * C + weights_numel)
@@ -295,11 +309,7 @@ def bounds_of(x, got, blocks, kw, C, K_up, n_convs, kr, pk):
     bf16 rate, bytes / HBM rate) with 2-byte activations and weights."""
     import torch
     f32, tf32, bw, bf16 = pk
-    w_numel = sum(c[k].numel() for b in blocks for cs in ("convs1", "convs2")
-                  for c in b[cs] for k in ("w", "b"))
-    if kw:
-        w_numel += kw["upsample"]["w"].numel() + kw["in_bias"].numel()
-    flops, nbytes = stage_work(x, C, got.shape[1], K_up, n_convs, kr, w_numel)
+    flops, nbytes = stage_work(x, C, got.shape[1], K_up, n_convs, kr, blocks, kw)
     if x.dtype == torch.bfloat16:
         bounds = {"tc": 1e3 * max(flops / bf16, nbytes / bw)}
         by = "bytes" if nbytes / bw > flops / bf16 else "operations"
@@ -555,6 +565,59 @@ def check_stages(cfg, params, gen, pk, extra=()):
                if tot["fma"] else "bf16 tensor cores ")
             + f"{tot['tc']:.3f} ms ({100 * tot['tc'] / tot['ms']:.0f} %)")
     return records, packs, windows, held
+
+
+def staged_unfolded(cfg, params, gen, pk):
+    """The unfolded entry (every option off) in the kernel's f16-staged mode:
+    one launch of mrf_stage_unfolded under f16_staging on stage 2's
+    geometry at B=1 and full length, on weights packed under the staging,
+    held per element against staged mrf_stage_ref at phase 11's gate
+    (ulp_gate: F16_STAGE_ULPS f16 ulps of each element plus one at
+    max|out|), timed with CUDA events beside the plain version and its bound
+    (max(FLOPs / f16 tensor-core rate, bytes / HBM rate), f32 tensors: the
+    bf16 row's reckoning).  Returns its kernels-line record."""
+    import torch
+    from zerovox_tpu_torch.ops.conv import f16_staging
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    _, _, bw, f16 = pk
+    dils, kr = cfg.resblock_dilations, cfg.resblock_kernel_size
+    n_convs = sum(2 * len(d) for d in dils)
+    _, _, x2, blocks, _, C, _ = stage_calls(cfg, params, gen, 1, cfg.max_seq_len)[1]
+    x = torch.randn(1, x2.shape[1] * cfg.upsample_scales[1], C, generator=gen, device="cuda")
+    del x2
+    what = f"f16-staged mrf_stage_unfolded stage 2 B=1 L={x.shape[1]}"
+    with torch.no_grad(), f16_staging():
+        packed = ms.pack_stage(blocks, dils, kr)
+        if not packed.staged:
+            raise RuntimeError(f"{what}: pack_stage under f16_staging packed unstaged weights")
+        before = ms.mrf_stage_unfolded.staged_launches
+        got = ms.mrf_stage_unfolded(x, blocks, dils, kr, packed=packed)
+        ref = ms.mrf_stage_ref(x, blocks, dils, kr)
+        torch.cuda.synchronize()
+        if ms.mrf_stage_unfolded.staged_launches != before + 1:
+            raise RuntimeError(f"{what}: the call did not launch the kernel's f16-staged mode")
+        if got.shape != ref.shape or got.dtype != torch.float32:
+            raise RuntimeError(f"{what}: {got.dtype} {tuple(got.shape)} vs {tuple(ref.shape)}")
+        err, worst, rms = ulp_gate(got, ref)
+        scale = ref.abs().max().item()
+        if not torch.isfinite(got).all() or not worst <= 1.0:
+            raise RuntimeError(f"{what}: |d| reaches {worst:.2f} of its tolerance "
+                               f"({F16_STAGE_ULPS} f16 ulps + one at max|out| {scale:.3e})")
+        ms_k = cuda_ms(lambda: ms.mrf_stage_unfolded(x, blocks, dils, kr, packed=packed), reps=5)
+        ms_p = cuda_ms(lambda: ms.mrf_stage_ref(x, blocks, dils, kr), reps=3)
+        plan = ms.stage_plan(x.device, C, dils, kr, 1, got.shape[1])
+    flops, nbytes = stage_work(x, C, got.shape[1], 0, n_convs, kr, blocks, {})
+    bound = 1e3 * max(flops / f16, nbytes / bw)
+    log(f"{what}: in {tuple(x.shape)} -> out {tuple(got.shape)}  max|d| {err:.3e} ({worst:.2f} "
+        f"of the ulp gate at max|out| {scale:.3e}, rms {rms:.3e} of rms(out))  kernel "
+        f"{ms_k:.3f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms  bound f16 "
+        f"tensor cores {bound:.3f} ms ({100 * bound / ms_k:.1f} %; {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
+    log(f"    launch: {describe_plan(ms, plan, len(dils))}")
+    del got, ref
+    torch.cuda.empty_cache()
+    return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, max_abs_err=err,
+                bound_by="bytes" if nbytes / bw > flops / f16 else "operations")
 
 
 def time_variants(cfg, params, gen, packs):
@@ -1866,7 +1929,6 @@ def training_path(cfg, params, tmp, card, seen, held):
 # --------------------------------------------------------------------------
 
 TPV_CHUNK, TPV_OVERLAP = 60, 16                # TimeParallelVocoder's defaults
-TP_TOL = dict(atol=2e-4, rtol=1e-3)            # f32 TP against one device (the JAX tests' gate)
 
 
 def phase9_shapes(cfg):
@@ -1881,6 +1943,18 @@ def phase9_shapes(cfg):
     tpv = {w[1] for w in chunk_plan(cfg.max_seq_len, -(-cfg.max_seq_len // TPV_CHUNK),
                                     TPV_CHUNK, TPV_OVERLAP)}
     return sorted({(b, w2) for b in LADDER} | {(4, w4)} | {(1, w) for w in tpv})
+
+
+def example_shapes(cfg):
+    """(per-device batch, mel frames) the examples vocode through the kernel
+    beyond LADDER x BUCKETS and phase9_shapes: 05's TP engine at B=1 on its
+    model axis (4, or every card up to 4 where there are several), whose
+    data rows take one utterance each."""
+    import torch
+    from zerovox_tpu_torch.parallel.infer import time_shard_geometry
+    n = torch.cuda.device_count()
+    geometry = time_shard_geometry(cfg, min(4, n if n > 1 else 4))
+    return [(1, geometry[2])] if geometry else []
 
 
 def timed_run(fn):
@@ -1991,154 +2065,19 @@ def hold_arrays(pairs, gate, what):
     return f"max|d| {worst:.3e} (gate {gate}), bitwise equal: {bitwise}"
 
 
-def variance_of(cfg, front_fn, rows):
-    """Per utterance of the row blocks `rows` ((src, pun, style, lens) on the
-    card), what front_fn(*row) tapped (utils.debug.capture_run): the pitch
-    and energy predictions, the log-durations and the frame counts, as
-    numpy, cut to the utterance's phonemes; and under "front" the tensors a
-    one-device back end and energy predictor need to continue from this
-    front (its encoder output, pitch, features, log-durations, style and
-    phoneme count, on the device that computed them)."""
-    from zerovox_tpu_torch.ops.length_regulator import durations_from_log
-    from zerovox_tpu_torch.utils.debug import capture_run
-    out = []
-    for row in rows:
-        _, taps = capture_run(front_fn, *row)
-        frames = durations_from_log(taps["log_duration"], cfg.max_seq_len)
-        for b, n in enumerate(row[3].tolist()):
-            u = {k: t[b, :n].float().cpu().numpy() for k, t in
-                 (("pitch", taps["pitch"]), ("energy", taps["energy"]), ("frames", frames),
-                  ("log_duration", taps["log_duration"]))}
-            u["front"] = {k: taps[k][b:b + 1] for k in
-                          ("encoder_output", "pitch", "features", "log_duration")}
-            u["front"].update(style=row[2][b:b + 1], num_phonemes=row[3][b:b + 1])
-            out.append(u)
-    return out
-
-
-def energy_after(cfg, model, fr):
-    """The one-device energy predictor on the pitch-updated features of the
-    front `fr` (variance_of's "front"): encode's own steps from that
-    front's encoder output and pitch buckets, so the input is that front's
-    to the bit and only the predictor's sums differ."""
-    from zerovox_tpu_torch.models import fs2_encoder
-    from zerovox_tpu_torch.ops.misc import bucketize
-    enc, dev = model.params["encoder"], model.device
-    x = fr["encoder_output"].to(dev)
-    features = x + fr["style"].to(dev)[:, None, :].to(x.dtype)
-    features = features + enc["pitch_emb"][bucketize(fr["pitch"].to(dev), cfg.ve_n_bins)].to(x.dtype)
-    return fs2_encoder.variance_predictor(features, enc["energy_predictor"], cfg)
-
-
-def back_from(cfg, model, fr):
-    """The one-device length regulator, decoder and vocoder (packed weights)
-    continuing the front `fr`: (mel, wav) of one utterance, as numpy, the
-    full max_seq_len buffer."""
-    import torch
-    from zerovox_tpu_torch.models import hifigan, styletts_decoder
-    from zerovox_tpu_torch.ops import durations_from_log, length_regulate
-    dev = model.device
-    with torch.inference_mode():
-        durations = durations_from_log(fr["log_duration"].to(dev), cfg.max_seq_len)
-        hidden, _ = length_regulate(fr["features"].to(dev), durations, cfg.max_seq_len,
-                                    num_phonemes=fr["num_phonemes"].to(dev))
-        mel = styletts_decoder.decode(model.params, cfg, hidden, fr["style"].to(dev))
-        wav = hifigan.vocode(model.params, cfg, mel, model.packed)
-    return {"mel": mel[0].float().cpu().numpy(), "wav": wav[0].float().cpu().numpy()}
-
-
-# a TP prediction this close to one device's (on the same input to the bit
-# where a pitch bucket moved: energy_after) differs by the order of float
-# sums only; set from phase 9's readings (the largest gap under f32 TP and
-# the TF32 probe's, both printed at the end of the phase; PERF.md)
-FLIP_DELTA = 1e-4
+# the largest f32 TP prediction gaps of the run; moves are within
+# bucket_audit.FLIP_DELTA (zerovox_tpu_torch/parallel/bucket_audit.py)
 TP_UTTERANCES = {"same": 0, "moved": 0}     # over every hold_tp of the run
 TP_GAPS = {"pitch": 0.0, "energy": 0.0, "log_duration": 0.0}   # largest f32 TP gaps of the run
 TF32_GAPS = {}                              # the same, for the TF32 probe's front
 
 
-def tp_audit(cfg, model, got, want, gaps=TP_GAPS):
-    """A TP front's variance_of (`got`) against one device's (`want`, on
-    `model`, a LoadedModel): per utterance the pitch or energy buckets and
-    frame counts that moved, [(what, phoneme, one device -> TP, |TP - one
-    device| of the prediction (the log-duration for a frame count))], and
-    for an utterance with a move, the one-device back end continuing the
-    TP front (back_from), which the TP answer is held against.  Where a
-    pitch bucket moved, the energy is held against the one-device
-    predictor on the TP's pitch-updated features (energy_after).  The
-    largest gap per prediction goes to `gaps`.  Returns (moves, anchors)."""
-    import numpy as np
-    import torch
-    from zerovox_tpu_torch.ops.misc import bucketize
-
-    def buckets(v):
-        return bucketize(torch.as_tensor(v), cfg.ve_n_bins).numpy()
-    moves, anchors = [], {}
-    for u, (g, w) in enumerate(zip(got, want)):
-        f = []
-        ref = {"pitch": w["pitch"], "energy": w["energy"], "log_duration": w["log_duration"]}
-        if (buckets(g["pitch"]) != buckets(w["pitch"])).any():
-            with torch.inference_mode():
-                ref["energy"] = energy_after(cfg, model, g["front"])[0, :len(g["energy"])] \
-                    .float().cpu().numpy()
-        for k in ("pitch", "energy"):
-            bg, bw = buckets(g[k]), buckets(w[k])
-            f += [(k, int(p), int(bw[p]), int(bg[p]), abs(float(g[k][p] - ref[k][p])))
-                  for p in np.flatnonzero(bg != bw)]
-        f += [("frames", int(p), int(w["frames"][p]), int(g["frames"][p]),
-               abs(float(g["log_duration"][p] - w["log_duration"][p])))
-              for p in np.flatnonzero(g["frames"] != w["frames"])]
-        for k in gaps:
-            gaps[k] = max(gaps[k], float(np.abs(g[k] - ref[k]).max(initial=0)))
-        if f:
-            anchors[u] = back_from(cfg, model, g["front"])
-        moves.append(f)
-    return moves, anchors
-
-
 def hold_tp(got, want, audit, what, key):
-    """TP answers (per-utterance arrays, `key` "mel" or "wav") against the
-    single device's.  Where no bucket or frame count moved (tp_audit), within
-    the f32 TP gate.  Where one moved, the utterance is another input to the
-    decoder from there on: each move must be float order (its two
-    predictions within FLIP_DELTA), and the answer is held at the same gate
-    against the one-device back end continuing the TP front; its distance
-    from the one-device answer is reported.  The counts go to
-    TP_UTTERANCES."""
-    import numpy as np
-    moves, anchors = audit
-    same, moved = [], []
-    for u, (g, w, f) in enumerate(zip(got, want, moves)):
-        g, w = np.asarray(g, np.float32), np.asarray(w, np.float32)
-        d = float(np.abs(g - w).max(initial=0)) if g.shape == w.shape else None
-        ref = anchors[u][key][:len(g)] if f else w
-        if (g.shape != ref.shape or not np.isfinite(g).all()
-                or not np.allclose(g, ref, **TP_TOL)):
-            raise RuntimeError(f"{what}: utterance {u} differs from "
-                               + ("the one-device back end on the TP front" if f else
-                                  "one device, every bucket as there")
-                               + f": max|d| {np.abs(g - ref).max() if g.shape == ref.shape else None}"
-                               f" (gate {TP_TOL})")
-        if not f:
-            same.append(d)
-            continue
-        d_back = float(np.abs(g - ref).max(initial=0))
-        log(f"  {what}: utterance {u}: {len(f)} bucket or frame count(s) moved under TP ("
-            + "; ".join(f"{k} of phoneme {p}: {a} -> {b}, predictions {e:.1e} apart"
-                        for k, p, a, b, e in f[:4])
-            + f"{' ...' if len(f) > 4 else ''}); max|d| {d_back:.3e} from the one-device back "
-            f"end on the TP front; "
-            + (f"{d:.3e} from one device" if d is not None else "another length than one device"))
-        unexplained = [x for x in f if x[4] > FLIP_DELTA]
-        if unexplained:
-            raise RuntimeError(f"{what}: utterance {u}: a bucket moved by more than float "
-                               f"order: {unexplained}")
-        moved.append(d_back)
-    TP_UTTERANCES["same"] += len(same)
-    TP_UTTERANCES["moved"] += len(moved)
-    return (f"{len(same)} utterance(s) with every bucket as on one device within {TP_TOL}: "
-            f"max|d| {max(same, default=0.0):.3e}; {len(moved)} with a moved bucket, within "
-            f"it of the one-device back end on the TP front: max|d| {max(moved, default=0.0):.3e}")
+    """TP answers held at the JAX TP gate by bucket_audit.hold_answers,
+    logged here, the utterances counted in TP_UTTERANCES."""
+    from zerovox_tpu_torch.parallel import bucket_audit
+    return bucket_audit.hold_answers(got, want, audit, what, key, bucket_audit.TP_TOL, log=log,
+                                     counts=TP_UTTERANCES)
 
 
 def tf32_probe(cfg, model, tp_front, rows, want):
@@ -2147,6 +2086,7 @@ def tf32_probe(cfg, model, tp_front, rows, want):
     TF32_GAPS; phase 9 fails unless that is beyond FLIP_DELTA and every
     f32 TP gap below it."""
     import torch
+    from zerovox_tpu_torch.parallel.bucket_audit import audit_fronts, variance_of
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
@@ -2154,7 +2094,7 @@ def tf32_probe(cfg, model, tp_front, rows, want):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     TF32_GAPS.update(pitch=0.0, energy=0.0, log_duration=0.0)
-    tp_audit(cfg, model, got, want, gaps=TF32_GAPS)
+    audit_fronts(cfg, model, got, want, gaps=TF32_GAPS)
 
 
 def sharded_regimes(cfg, params, meshes, precision):
@@ -2168,6 +2108,7 @@ def sharded_regimes(cfg, params, meshes, precision):
     from zerovox_tpu_torch.parallel import make_sharded_synthesize, param_partition_specs
     from zerovox_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
     from zerovox_tpu_torch.parallel.tp import front_tp, tp_view
+    from zerovox_tpu_torch.parallel.bucket_audit import audit_fronts, variance_of
     src, pun, style, lens = mixed_batch(cfg, 4, 90)
     launches = 0
     for name, mesh, kw in meshes:
@@ -2190,7 +2131,7 @@ def sharded_regimes(cfg, params, meshes, precision):
             got_v = sum((variance_of(cfg, tp_front[i], [r]) for i, r in enumerate(tp_rows)), [])
             want_v = variance_of(cfg, lambda *x: front(one.params, cfg, *x),
                                  [on(one.device, r) for r in rows])
-            audit = tp_audit(cfg, one, got_v, want_v)
+            audit = audit_fronts(cfg, one, got_v, want_v, TP_GAPS)
             if not TF32_GAPS:
                 tf32_probe(cfg, one, tp_front, tp_rows, want_v)
 
@@ -2223,37 +2164,6 @@ def sharded_regimes(cfg, params, meshes, precision):
     return launches
 
 
-def tp_engine_audit(cfg, model, engine, batch):
-    """tp_audit of a TPServingEngine's front against one device's (on
-    `model`, a LoadedModel) for `batch`, on the rows the engine runs it in
-    (ladder-padded, split over the data axis)."""
-    import numpy as np
-    import torch
-    from zerovox_tpu_torch.models.pipeline import front
-    from zerovox_tpu_torch.parallel import param_partition_specs
-    from zerovox_tpu_torch.parallel.mesh import DATA_AXIS
-    from zerovox_tpu_torch.parallel.tp import front_tp, tp_view
-    n = engine.mesh.shape[DATA_AXIS]
-    specs = param_partition_specs(model.params)
-    got, want = [], []
-    for padded, real in engine._ladder_chunks(range(len(batch[0]))):
-        # the ladder-padded rows (the first `real` are the request's), split
-        # over the data axis as the engine splits them
-        for i, pos in enumerate(np.array_split(np.arange(len(padded)), n)):
-            idx = np.asarray(padded)[pos]
-
-            def row(dev):
-                return [tuple(torch.as_tensor(a[idx], device=dev).to(t) for a, t in
-                              zip(batch, (torch.long, torch.long, torch.float32, torch.long)))]
-            view = tp_view([m.params for m in engine.params[i]], specs)
-            g = variance_of(cfg, lambda *r: front_tp(view, cfg, *r),
-                            row(engine.params[i, 0].device))
-            w = variance_of(cfg, lambda *r: front(model.params, cfg, *r), row(model.device))
-            got += [g[j] for j, p in enumerate(pos) if p < real]
-            want += [w[j] for j, p in enumerate(pos) if p < real]
-    return tp_audit(cfg, model, got, want)
-
-
 def multi_device_path(cfg, params, params16, tiny_model, seen, held):
     """Phase 9: every multi-device regime on meshes of the card repeated
     (and of distinct cards where the machine has them), each held against
@@ -2266,6 +2176,7 @@ def multi_device_path(cfg, params, params16, tiny_model, seen, held):
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
     from zerovox_tpu_torch.params import init_params, load_params, vocoder_stage_channels
     from zerovox_tpu_torch.parallel import PipelinedTTS, TimeParallelVocoder, make_mesh
+    from zerovox_tpu_torch.parallel.bucket_audit import FLIP_DELTA, engine_audit
     from zerovox_tpu_torch.runtime.client import TTSClient
     from zerovox_tpu_torch.runtime.engine import TTSEngine
     from zerovox_tpu_torch.runtime.server import TTSServer
@@ -2315,7 +2226,7 @@ def multi_device_path(cfg, params, params16, tiny_model, seen, held):
         f"{time.perf_counter() - t0:.2f} s")
     for B in (1, 3):
         batch = mixed_batch(cfg, B, 110 + B)
-        audit = tp_engine_audit(cfg, single.model, tpe, batch)
+        audit = engine_audit(cfg, tpe, single, batch, TP_GAPS)
         f32 += regime(f"float32 TPServingEngine((2,2)).synthesize B={B}",
                       lambda: tpe.synthesize(*batch), lambda: single.synthesize(*batch),
                       lambda got, want: hold_tp(got[0], want[0], audit, f"TP engine B={B}",
@@ -2324,7 +2235,7 @@ def multi_device_path(cfg, params, params16, tiny_model, seen, held):
     tpe.reload_params(other)
     single.reload_params(other)
     batch = mixed_batch(cfg, 2, 120)
-    audit = tp_engine_audit(cfg, single.model, tpe, batch)
+    audit = engine_audit(cfg, tpe, single, batch, TP_GAPS)
     f32 += regime("float32 TPServingEngine((2,2)) after reload_params, B=2",
                   lambda: tpe.synthesize(*batch), lambda: single.synthesize(*batch),
                   lambda got, want: hold_tp(got[0], want[0], audit, "TP engine after reload",
@@ -2409,8 +2320,8 @@ def multi_device_path(cfg, params, params16, tiny_model, seen, held):
             if m > 1:          # TP: the daemon against its engine, the engine against one device
                 direct, _ = server.engine.synthesize(src, pun, style, lens, pcm16=True)
                 d_syn = hold(answer, direct[0], PCM_LSB["float32"], f"({d},{m}) daemon")
-                audit = tp_engine_audit(cfg, single.model, server.engine,
-                                        (src, pun, style, lens))
+                audit = engine_audit(cfg, server.engine, single, (src, pun, style, lens),
+                                     TP_GAPS)
                 log("phase 9 " + hold_tp([server.engine.synthesize(src, pun, style, lens)[0][0]],
                                          [single.synthesize(src, pun, style, lens)[0][0]], audit,
                                          f"({d},{m}) TP daemon's engine", "wav"))
@@ -2976,10 +2887,7 @@ def staged_stages(cfg, params, gen, pk):
             del p_got, p_ref
             ms_k = cuda_ms(lambda: ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw), reps=5)
             ms_p = cuda_ms(lambda: ms.mrf_stage_ref(x, blocks, dils, kr, **kw), reps=3)
-            w_numel = sum(c[k].numel() for b in blocks for cs in ("convs1", "convs2")
-                          for c in b[cs] for k in ("w", "b"))
-            w_numel += kw["upsample"]["w"].numel() + kw["in_bias"].numel()
-            flops, nbytes = stage_work(x, C, got.shape[1], K_up, n_convs, kr, w_numel)
+            flops, nbytes = stage_work(x, C, got.shape[1], K_up, n_convs, kr, blocks, kw)
             # the least time: f16 operands on the dense f16 tensor cores (the
             # bf16 rate), f32 tensors in device memory
             bound = 1e3 * max(flops / f16, nbytes / bw)
@@ -3250,6 +3158,81 @@ def verify_path(cfg, params, model, tmp, card):
     return staged
 
 
+# --------------------------------------------------------------------------
+# phase 12: the examples
+# --------------------------------------------------------------------------
+
+EXAMPLES = ("01_synthesize", "02_stream", "03_serve_client", "04_train_export",
+            "05_sharded_serving", "06_verify_checkpoint")
+# `python3 chip_smoke.py --examples-only`: phases 1-3, then phase 12 alone,
+# and no result line
+EXAMPLES_ONLY = "--examples-only"
+
+
+def check_wav_files(paths, what):
+    """Each WAV file finite, in [-1, 1] and not silent."""
+    import numpy as np
+    from zerovox_tpu_torch.io.wav import read_wav
+    for path in paths:
+        wav, _ = read_wav(str(path))
+        if not len(wav) or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0 \
+                or not np.abs(wav).max() > 0:
+            raise RuntimeError(f"{what}: {path.name}: {len(wav)} samples, not finite, outside "
+                               f"[-1, 1] or silent")
+
+
+def examples_path(card, seen, held):
+    """Phase 12: each examples_torch/ script's main(["--out-dir", dir]) in
+    this process (so that record_launch_shapes sees every launch), on the
+    card at production geometry; an exception is the phase's failure.  Each
+    WAV it writes is checked (check_wav_files), 01-05 must each launch
+    mrf_stage (counted from 0 before each, read after), and every launched
+    shape must have been held by phase 3.  Returns the launches."""
+    import importlib.util
+    import torch
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    ex_dir = ROOT / "examples_torch"
+    scripts = sorted(ex_dir.glob("[0-9]*.py"))
+    if tuple(p.stem for p in scripts) != EXAMPLES:
+        raise RuntimeError(f"phase 12: examples {[p.name for p in scripts]}, want {EXAMPLES}")
+    t_phase = time.perf_counter()
+    walls, total = {}, 0
+    sys.path.insert(0, str(ex_dir))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for path in scripts:
+                out = Path(tmp) / path.stem
+                out.mkdir()
+                spec = importlib.util.spec_from_file_location("example_" + path.stem, path)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                log(f"phase 12 {path.name}:")
+                ms.mrf_stage.launches = 0
+                t0 = time.perf_counter()
+                rc = mod.main(["--out-dir", str(out)])
+                torch.cuda.synchronize()
+                walls[path.name] = time.perf_counter() - t0
+                launches = ms.mrf_stage.launches
+                wavs = sorted(out.glob("*.wav"))
+                check_wav_files(wavs, f"phase 12 {path.name}")
+                log(f"phase 12 {path.name}: rc {rc}, wall {walls[path.name]:.2f} s, {launches} "
+                    f"mrf_stage launches, wrote {sorted(f.name for f in out.iterdir())}"
+                    + (" (the WAVs finite, in [-1, 1], not silent)" if wavs else ""))
+                if rc != 0 or (path.stem != "06_verify_checkpoint" and not launches):
+                    raise RuntimeError(f"phase 12 {path.name}: rc {rc}, {launches} mrf_stage "
+                                       f"launches")
+                total += launches
+                torch.cuda.empty_cache()
+    finally:
+        sys.path.remove(str(ex_dir))
+        sys.modules.pop("_common", None)
+    hold_launched_shapes(seen, held, "phase 12")
+    log(f"phase 12 (the examples) {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; {total} mrf_stage launches [{card}]")
+    return total
+
+
 def run() -> int:
     try:
         import torch
@@ -3302,19 +3285,24 @@ def run() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             model = os.path.join(tmp, "model.gguf")
             save_params(model, params, cfg)
-            log(f"phase 11 alone ({VERIFY_ONLY}), after phase 3's f16 probe")
+            log(f"phase 11 alone ({VERIFY_ONLY}), after phase 3's f16 probe and its "
+                f"f16-staged unfolded entry")
             wgmma_probe_check(("f16_staged",))
+            staged_unfolded(cfg, params, gen, pk)
             staged_stages(cfg, params, gen, pk)
             verify_path(cfg, params, model, tmp, card)
-        log(f"{VERIFY_ONLY}: phases 1-2, the f16 probe and 11 passed in "
+        log(f"{VERIFY_ONLY}: phases 1-2, the f16 probe, the staged unfolded entry and 11 "
+            f"passed in "
             f"{time.perf_counter() - t_start:.1f} s; "
             "no result line")
         return 0
     wgmma_probe_check()
-    records, packs, held, shapes = check_stages(cfg, params, gen, pk, extra=phase9_shapes(cfg))
+    records, packs, held, shapes = check_stages(
+        cfg, params, gen, pk, extra=sorted(set(phase9_shapes(cfg)) | set(example_shapes(cfg))))
     records16, packs16, _, shapes16 = check_stages(cfg, params16, gen, pk)
     records.update(records16)
     shapes |= shapes16
+    records["mrf_stage_unfolded_f16_staged"] = staged_unfolded(cfg, params, gen, pk)
     if KERNEL_ONLY in sys.argv[1:]:
         time_variants(cfg, params, gen, packs)
         time_variants_bf16(cfg, params16, gen, packs16)
@@ -3334,6 +3322,13 @@ def run() -> int:
             mesh_training_path(cfg, params, model, tmp, card, seen, shapes)
         log(f"{MULTI_DEVICE_ONLY}: phases 1-3, 9 and 10 passed in "
             f"{time.perf_counter() - t_start:.1f} s; no result line (phases 4-8 did not run)")
+        return 0
+    if EXAMPLES_ONLY in sys.argv[1:]:
+        seen = record_launch_shapes()
+        log(f"phase 12 alone ({EXAMPLES_ONLY}): the examples on the card")
+        examples_path(card, seen, shapes)
+        log(f"{EXAMPLES_ONLY}: phases 1-3 and 12 passed in {time.perf_counter() - t_start:.1f} s; "
+            "no result line (phases 4-11 did not run)")
         return 0
     time_variants(cfg, params, gen, packs)
     time_variants_bf16(cfg, params16, gen, packs16)
@@ -3378,13 +3373,18 @@ def run() -> int:
             "f16-staged mode")
         t_phase = time.perf_counter()
         records["mrf_stage_f16_staged"] = staged_stages(cfg, params, gen, pk)
+        ms.mrf_stage_unfolded.staged_launches = 0
         launches["mrf_stage_f16_staged"] = verify_path(cfg, params, model, tmp, card)
+        launches["mrf_stage_unfolded_f16_staged"] = ms.mrf_stage_unfolded.staged_launches
         log(f"phase 11 (verification) {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log("phase 12: the examples (examples_torch/) on the card, production geometry")
+    launches["mrf_stage"] += examples_path(card, seen, shapes)
 
     replaces = {k: "zerovox_tpu/ops/pallas/folded_mrf.py:446"
                 for k in ("mrf_stage", "mrf_stage_bf16", "mrf_stage_f16_staged")}
     replaces.update({k: "zerovox_tpu/ops/pallas/folded_mrf.py:720"
-                     for k in ("mrf_stage_unfolded", "mrf_stage_unfolded_bf16")})
+                     for k in ("mrf_stage_unfolded", "mrf_stage_unfolded_bf16",
+                               "mrf_stage_unfolded_f16_staged")})
     kernels = [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": replaces[k], "launches": launches[k],
@@ -3400,8 +3400,9 @@ def run() -> int:
         "the engines they are held against), each counted from 0, for float32 those of "
         "phase 8's engine on the trained export, those of phase 9's regimes (each counted "
         "from 0 just before its timed run and read just after; the daemons' with their warm-ups) "
-        "and those of phase 10's engine on the export of the two-process training run; for "
-        "the f16-staged mode those of phase 11 (b)'s verify_checkpoint on the card")
+        "those of phase 10's engine on the export of the two-process training run and those "
+        "of phase 12's examples; for the f16-staged modes (mrf_stage and the unfolded entry) "
+        "those of phase 11 (b)'s verify_checkpoint on the card")
     log("e2e: " + "; ".join(f"{p} B=1 wall {w[1]:.2f} ms, B=8 wall {w[8]:.2f} ms"
                             for p, w in walls.items())
         + f"; smoke total {time.perf_counter() - t_start:.1f} s")

@@ -219,6 +219,56 @@ def test_tp_engine_warmup_and_reload(weights):
                                                  device="cpu"))
 
 
+def test_bucket_audit_names_moved_buckets(weights, dp, tp):
+    """parallel/bucket_audit.py, which 05_sharded_serving.py and chip_smoke.py
+    hold sharded answers with: the TP and the DP engine's fronts against one
+    device's move no bucket at TINY, and their answers hold at the JAX
+    gates; a pitch bucket moved by a gap within FLIP_DELTA is named and the
+    answer held against the one-device back end on the engine's front; a
+    move beyond FLIP_DELTA, or an answer beyond the gate where nothing
+    moved, raises."""
+    import copy
+    from zerovox_tpu_torch.parallel import bucket_audit as ba
+    one = TTSEngine(weights[1], CFG, device="cpu")
+    src, pun, style = _inputs(12, 1)
+    batch = (src, pun, style, np.full((1,), CFG.max_n_phonemes, np.int32))
+    want = one.synthesize(*batch, trim=False)[0][0]
+    for engine, gate in ((tp, ba.TP_TOL), (dp, dict(atol=5e-5, rtol=1e-7))):
+        moves, anchors = ba.engine_audit(CFG, engine, one, batch)
+        assert moves == [[]] and anchors == {}
+        got = engine.synthesize(*batch, trim=False)[0][0]
+        lines = []
+        assert "1 utterance(s) with every bucket" in ba.hold_answers(
+            [got], [want], (moves, anchors), "sharded", "wav", gate, log=lines.append)
+        assert not lines
+        with pytest.raises(RuntimeError, match="every bucket as there"):
+            ba.hold_answers([got + 1e-2], [want], (moves, anchors), "sharded", "wav", gate)
+
+    fronts = ba.engine_fronts(CFG, one, batch)
+    edge = (np.floor(fronts[0]["pitch"][0] * (CFG.ve_n_bins - 1)) + 0.5) / (CFG.ve_n_bins - 1)
+    lines = []
+    for gap, ok in ((2e-5, True), (2e-3, False)):
+        got = copy.copy(fronts[0])
+        got["pitch"] = fronts[0]["pitch"].copy()
+        got["pitch"][0] = edge + gap / 2
+        ref = dict(fronts[0], pitch=fronts[0]["pitch"].copy())
+        ref["pitch"][0] = edge - gap / 2
+        gaps = {"pitch": 0.0, "energy": 0.0, "log_duration": 0.0}
+        moves, anchors = ba.audit_fronts(CFG, one.model, [got], [ref], gaps)
+        assert moves[0][0][:2] == ("pitch", 0) and moves[0][0][3] == moves[0][0][2] + 1
+        assert abs(moves[0][0][4] - gap) < 1e-6 and gaps["pitch"] >= moves[0][0][4]
+        back = anchors[0]["wav"]
+        counts = {"same": 0, "moved": 0}
+        if ok:
+            ba.hold_answers([back], [want], (moves, anchors), "tp", "wav", ba.TP_TOL,
+                            log=lines.append, counts=counts)
+            assert counts == {"same": 0, "moved": 1}
+            assert "pitch of phoneme 0" in lines[-1]
+        else:
+            with pytest.raises(RuntimeError, match="more than float order"):
+                ba.hold_answers([back], [want], (moves, anchors), "tp", "wav", ba.TP_TOL)
+
+
 def _utt(seed):
     rng = np.random.default_rng(seed)
     P = CFG.max_n_phonemes

@@ -408,6 +408,34 @@ def test_stage_plan_staged_is_the_wgmma_geometry(monkeypatch):
     assert len(asked) == n
 
 
+def test_staged_unfolded_entry_at_stage_2(monkeypatch):
+    """mrf_stage_unfolded under f16_staging at stage 2's geometry and full
+    length (C=128, no upsample: chip_smoke.py phase 3's staged launch): the
+    staged mode takes it, its plan is the wgmma design's with no
+    pre-upsample rows, its weights pack staged with no upsample, and a
+    launch in the staged mode counts in the wrapper's launches and
+    staged_launches."""
+    from test_torch_mrf import _meta_vocoder
+    prod = ZeroVoxConfig()
+    monkeypatch.setattr(ms, "wave_clusters", lambda dev, n_rb, C, mode, mt: 44)
+    L = prod.max_seq_len * prod.upsample_scales[0] * prod.upsample_scales[1]
+    blocks = _meta_vocoder(prod)["vocoder"]["blocks"][prod.num_resblocks:2 * prod.num_resblocks]
+    with torch.no_grad(), tconv.f16_staging():
+        assert ms.kernel_takes(128, PROD_DILS, 3)
+        plan = ms.stage_plan(torch.device("cuda", 0), 128, PROD_DILS, 3, 1, L)
+        assert isinstance(plan, ms.Bf16Plan) and plan.np_rows == 0
+        assert plan == ms.bf16_plan(128, PROD_DILS, 3, B=1, L_out=L, wave=44)
+        assert plan.clusters * plan.tile >= L
+        packed = ms.pack_stage(blocks, PROD_DILS, 3)
+    assert packed.staged and packed.w_up is None and packed.w.dtype == torch.float16
+    assert tuple(packed.w.shape) == (18, 3, 16, 128, 8)
+    before = ms.mrf_stage_unfolded.launches, ms.mrf_stage_unfolded.staged_launches
+    ms._count_launch(ms.mrf_stage_unfolded, "f16_staged")
+    ms._count_launch(ms.mrf_stage_unfolded, "bf16")
+    assert (ms.mrf_stage_unfolded.launches, ms.mrf_stage_unfolded.staged_launches) == \
+        (before[0] + 2, before[1] + 1)
+
+
 def test_staged_vocoder_routes_a_wide_stage_to_the_plain_version(monkeypatch):
     """A vocoder whose first stage is 512 channels wide: outside the staging
     every stage takes the kernel (the f32 mode's widths); under it the wide

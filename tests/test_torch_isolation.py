@@ -2,6 +2,8 @@
 points default to the card and raise here rather than run on the CPU, and
 chip_smoke.py refuses to run without a card or outside a checkout."""
 
+import ast
+import importlib.util
 import os
 import shutil
 import socket
@@ -16,7 +18,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 sys.path.insert(0, {root!r})
 import zerovox_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(zerovox_tpu_torch.__path__,
@@ -24,6 +26,14 @@ mods = [m.name for m in pkgutil.walk_packages(zerovox_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+import os
+ex = os.path.join({root!r}, "examples_torch")
+sys.path.insert(0, ex)
+scripts = sorted(f for f in os.listdir(ex) if f[0].isdigit() and f.endswith(".py"))
+for f in scripts:
+    spec = importlib.util.spec_from_file_location("example_" + f[:2], os.path.join(ex, f))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert len(scripts) == 6, scripts
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
@@ -38,6 +48,22 @@ def test_port_imports_no_jax():
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip().endswith("[]")
+
+
+def test_port_sources_import_no_jax():
+    """No import statement of the port, its examples or chip_smoke.py, at
+    module level or inside a function, names jax, jaxlib or zerovox_tpu."""
+    files = [*(ROOT / "zerovox_tpu_torch").rglob("*.py"), *(ROOT / "examples_torch").glob("*.py"),
+             ROOT / "chip_smoke.py"]
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level
+                     else [])
+            bad += [f"{f.relative_to(ROOT)}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu")]
+    assert len(files) > 60 and not bad, bad
 
 
 def _no_cuda():
@@ -114,6 +140,25 @@ def test_entry_points_default_to_cuda():
     again = socket.socket()
     again.bind(("127.0.0.1", port))
     again.close()
+
+
+def test_examples_default_to_cuda(tmp_path):
+    """Each examples_torch/ script, run without --device cpu where there is
+    no card, raises through device.resolve_device before any work: nothing
+    runs on the CPU, and nothing is written."""
+    _no_cuda()
+    sys.path.insert(0, str(ROOT / "examples_torch"))
+    try:
+        for path in sorted((ROOT / "examples_torch").glob("[0-9]*.py")):
+            spec = importlib.util.spec_from_file_location("example_" + path.name[:2], path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                mod.main(["--out-dir", str(tmp_path)])
+    finally:
+        sys.path.remove(str(ROOT / "examples_torch"))
+        sys.modules.pop("_common", None)
+    assert not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):

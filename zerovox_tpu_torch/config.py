@@ -54,7 +54,7 @@ class ZeroVoxConfig:
 
     # ---- numerics ----
     # "float32": full parity with the ggml reference (its f32 accumulation path).
-    # "bfloat16": the bf16 serving path (not ported yet: the engine raises).
+    # "bfloat16": the bf16 serving path (TTSEngine(precision="bfloat16")).
     compute_dtype: str = "float32"
     layer_norm_eps: float = 1e-5
     instance_norm_eps: float = 1e-5

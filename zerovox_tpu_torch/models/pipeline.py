@@ -27,7 +27,8 @@ class SynthesisResult(NamedTuple):
 
 def synthesize(params: dict, cfg: ZeroVoxConfig,
                src_seq, puncts, style_embed,
-               num_phonemes=None, device="cuda") -> SynthesisResult:
+               num_phonemes=None, device="cuda",
+               packed: Optional[list] = None) -> SynthesisResult:
     """Full pipeline on batched inputs (tensors or numpy arrays).
 
     src_seq / puncts: (B, P) ids padded to max_n_phonemes
@@ -35,6 +36,9 @@ def synthesize(params: dict, cfg: ZeroVoxConfig,
     num_phonemes:     optional (B,) valid counts (default P, as the reference)
     device:           where it runs; params must already lie there
                       (load_params / init_params / params_to_device)
+    packed:           the vocoder's weights in the MRF kernel's layout
+                      (load_model's LoadedModel.packed), made once per
+                      model; omitted, each launch packs them anew
 
     cfg.compute_dtype "bfloat16" is the serving dtype: the style embedding
     is cast to it here, and params must have been cast with cast_params
@@ -48,7 +52,7 @@ def synthesize(params: dict, cfg: ZeroVoxConfig,
     if num_phonemes is not None:
         num_phonemes = torch.as_tensor(num_phonemes, device=dev).long()
     mel, mel_len, log_dur = front(params, cfg, src_seq, puncts, style_embed, num_phonemes)
-    wav = hifigan.vocode(params, cfg, mel)
+    wav = hifigan.vocode(params, cfg, mel, packed)
     return SynthesisResult(wav=wav, mel=mel, mel_len=mel_len, log_duration=log_dur)
 
 

@@ -1033,7 +1033,8 @@ def mrf_stage_unfolded(x: torch.Tensor,
                        kernel_size: int,
                        packed: Optional[PackedStage] = None) -> torch.Tensor:
     """The MRF stage on (B, L, C) with no fused options: the same kernel as
-    mrf_stage, counted in `mrf_stage_unfolded.launches`."""
+    mrf_stage, counted in `mrf_stage_unfolded.launches` (those in the
+    f16-staged mode also in `mrf_stage_unfolded.staged_launches`)."""
     if x.device.type == "cpu":
         return mrf_stage_ref(x, blocks, dilation_sets, kernel_size)
     refuse_autograd(x, blocks)
@@ -1042,3 +1043,4 @@ def mrf_stage_unfolded(x: torch.Tensor,
 
 
 mrf_stage_unfolded.launches = 0
+mrf_stage_unfolded.staged_launches = 0

@@ -149,6 +149,12 @@ def gguf_name_map(cfg: ZeroVoxConfig) -> Dict[tuple, tuple]:
     return m
 
 
+def conv_kernel_names(cfg: ZeroVoxConfig) -> set:
+    """GGUF names of the conv kernels (Conv1d and the pre-flipped
+    ConvTranspose1d weights): the tensors the reference exporter stores f16."""
+    return {name for name, kind in gguf_name_map(cfg).values() if kind == _CONV}
+
+
 def decoder_block_dims(cfg: ZeroVoxConfig) -> List[tuple]:
     """(dim_in, dim_out) of the five AdainResBlk1d stages."""
     d, b, r = cfg.d_model, cfg.bottleneck_dim, cfg.residual_dim
@@ -276,21 +282,22 @@ def save_params(path: str, params: dict, cfg: ZeroVoxConfig,
                 quantize: Optional[str] = None):
     """Write params + hparams to a reference-compatible GGUF file.
 
-    The same file the JAX package's save_params writes: conv kernels (the
-    3-d tensors) stored f16 as the reference exporter does, and with
+    The same file the JAX package's save_params writes: conv kernels
+    (conv_kernel_names) stored f16 as the reference exporter does, and with
     quantize="q8_0" the large matrix/conv weights as 8-bit blocks."""
     from .io.gguf import GGUFWriter, GGMLType
     w = GGUFWriter(arch=cfg.GGUF_ARCH)
     for key, val in cfg.to_gguf_kv().items():
         w.add_uint32(key, val)
     w.add_kv(cfg.GGUF_CONFIG_KEY, cfg.to_json())
+    convs = conv_kernel_names(cfg)
     for name, arr in params_to_arrays(params, cfg).items():
         quantizable = (arr.ndim >= 2 and arr.size % 32 == 0
                        and arr.size >= 4096 and "emb" not in name
                        and name != "sinusoid_encoding_table")
         if quantize == "q8_0" and quantizable:
             w.add_tensor(name, arr, ggml_type=GGMLType.Q8_0)
-        elif arr.ndim == 3:              # conv kernel -> f16 (reference cast)
+        elif name in convs:              # conv kernel -> f16 (reference cast)
             w.add_tensor(name, arr.astype(np.float16))
         else:
             w.add_tensor(name, arr)
