@@ -153,9 +153,27 @@ Phases (any failure exits non-zero and prints no result line):
      the card at production geometry (random weights from seed 0), its wall
      printed; every WAV they write finite, in [-1, 1] and not silent; 01-05
      each launch mrf_stage; every shape they launch it at held by phase 3;
- 13. print the kernels line, then the card line, then {"ok": true, ...}.
+ 13. the measurement tools (zerovox_tpu_torch/tools/: bench, bench_daemon,
+     measure_daemon_attrib, profile_trace, profile_mel, profile_breakdown),
+     each at production geometry in a subprocess of its own under its own
+     timeout, building nothing (they load the kernels phase 2 built):
+     bench with its defaults (bf16 B=1, B=8, TTFA, its daemon leg) and with
+     --f32; bench_daemon --reps 9 --load 8 --stream-load 8 at
+     --batch-window-ms 0 and 5; measure_daemon_attrib --reps 9;
+     profile_trace --attrib --runs 5;
+     profile_mel; profile_breakdown.  Each tool's last line is printed
+     beside the card line; the phase fails on a missing key of the JAX
+     counterpart's line (TOOL_KEYS), a number that is not finite and
+     positive (signed differences: finite; failure counts: 0), a trace that
+     does not name the MRF kernel, vocoder parts that exceed the full
+     vocoder by more than their readings' spread, and a launch at a shape
+     phase 3 did not hold (each tool's vocoder calls are recorded in its
+     process); each tool's own count of its MRF launches goes into the
+     kernels line;
+ 14. print the kernels line, then the card line, then {"ok": true, ...}.
 
-With --examples-only it runs phases 1-3 (without the variants) and 12 and
+With --bench-only it runs phases 1-3 (without the variants) and 13 and
+prints no result line.  With --examples-only it runs phases 1-3 (without the variants) and 12 and
 prints no result line.  With --multi-device-only it runs phases 1-3, 9 and 10 and prints no result
 line: the quick way to drive the distinct-card regimes on a machine with
 several cards.  With --verify-only it runs phases 1, 2, phase 3's f16 probe
@@ -3233,6 +3251,203 @@ def examples_path(card, seen, held):
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 13: the measurement tools
+# --------------------------------------------------------------------------
+
+# `python3 chip_smoke.py --bench-only`: phases 1-3, then phase 13 alone, and
+# no result line
+BENCH_ONLY = "--bench-only"
+# (label, tool, arguments, timeout s): each a subprocess of its own
+TOOL_RUNS = (
+    ("bench", "bench", [], 600),
+    ("bench --f32", "bench", ["--f32"], 300),
+    ("bench_daemon window 0", "bench_daemon",
+     ["--reps", "9", "--load", "8", "--stream-load", "8", "--batch-window-ms", "0"], 300),
+    ("bench_daemon window 5", "bench_daemon",
+     ["--reps", "9", "--load", "8", "--stream-load", "8", "--batch-window-ms", "5"], 300),
+    ("measure_daemon_attrib", "measure_daemon_attrib", ["--reps", "9"], 300),
+    ("profile_trace", "profile_trace", ["--attrib", "--runs", "5"], 300),
+    ("profile_mel", "profile_mel", [], 300),
+    ("profile_breakdown", "profile_breakdown", [], 300),
+)
+_DAEMON = ["synthesize_p50_ms", "synthesize_min_ms", "synthesize_binary_p50_ms",
+           "stream_header_ttfb_p50_ms", "stream_ttfa_p50_ms", "stream_ttfa_min_ms",
+           "stream_full_p50_ms", "stream_samples", "reps", "stall_dropped_reps", "precision",
+           "batch4_p50_ms", "load_clients", "load_completed", "load_failures", "load_req_s",
+           "load_p50_ms", "batch_window_ms", "stream_load_clients", "stream_load_completed",
+           "stream_load_failures", "stream_load_ttfa_p50_ms", "stream_load_audio_s_per_s"]
+_BENCH = ["metric", "value", "unit", "vs_baseline", "wall_ms", "spread_ms", "ttfa_p50_ms"]
+_STAGES = ["upsample0 512->256 (L=1500) + MRF stage0 C=256 (L=7500)",
+           "upsample1 256->128 (L=7500) + MRF stage1 C=128 (L=37500)",
+           "upsample2 128->64 (L=37500) + MRF stage2 C=64 (L=150000)",
+           "upsample3 64->32 (L=150000) + MRF stage3 C=32 (L=450000)"]
+# the keys of each run's JSON line: those the JAX counterpart writes for the
+# same flags (bench.py, scripts/bench_daemon.py, scripts/measure_daemon_attrib.py),
+# or the segments it prints (scripts/profile_mel.py, scripts/profile_breakdown.py;
+# a stage there is the upsample's segment and the MRF stage's), and the port's own
+TOOL_KEYS = {
+    "bench": _BENCH + ["b8_wall_ms", "b8_rtf_per_chip", "daemon_p50_ms", "stream_ttfa_p50_ms",
+                       "card", "single_ms"],
+    "bench --f32": _BENCH + ["card", "single_ms"],
+    "bench_daemon window 0": _DAEMON,
+    "bench_daemon window 5": _DAEMON + ["load_batcher"],
+    "measure_daemon_attrib": ["engine_ms", "client_json_p50_ms", "client_binary_p50_ms",
+                              "json_minus_binary_ms", "handler_p50_after_json_ms",
+                              "handler_p50_after_all_ms", "requests",
+                              "gap_client_minus_engine_ms"],
+    "profile_trace": ["total_ms", "kernel_ms", "memcpy_ms", "memset_ms", "mrf_kernel_ms",
+                      "mrf_kernel_names", "top"],
+    "profile_mel": ["encoder (FFT stack + variance)", "length regulator",
+                    "styletts decoder (full)", "2x ResBlk1d 528->1056", "asr_res branch",
+                    "5x AdainResBlk1d", "out conv -> mel"],
+    "profile_breakdown": ["full synthesize", "encoder+LR+decoder (mel)", "vocoder (full)",
+                          "mel-norm + input conv", *_STAGES, "output tail (out conv)",
+                          "sum of vocoder parts", "full - (mel + parts)"],
+}
+FAILURE_KEYS = ("stall_dropped_reps", "load_failures", "stream_load_failures")   # must be 0
+SIGNED_KEYS = ("json_minus_binary_ms", "full - (mel + parts)")                   # finite
+NONNEG_KEYS = ("batch_window_ms", "memcpy_ms", "memset_ms")                      # finite, >= 0
+# a tool's process, as `python -m zerovox_tpu_torch.tools.<tool>`, with each
+# of its vocoder's mrf_stage calls noted by (dtype, input shape), written out
+# at its exit
+_TOOL_RUNNER = r"""
+import atexit, json, runpy, sys, threading
+sys.path.insert(0, {root!r})
+from zerovox_tpu_torch.models import hifigan
+wrapper, seen, lock = hifigan.mrf_stage, {{}}, threading.Lock()
+
+
+def recording(x, *a, **kw):
+    if x.is_cuda:
+        key = str(x.dtype) + " " + json.dumps(list(x.shape))
+        with lock:
+            seen[key] = seen.get(key, 0) + 1
+    return wrapper(x, *a, **kw)
+
+
+hifigan.mrf_stage = recording
+atexit.register(lambda: open({out!r}, "w").write(json.dumps(seen)))
+sys.argv = [{tool!r}] + {args!r}
+runpy.run_module("zerovox_tpu_torch.tools." + {tool!r}, run_name="__main__", alter_sys=True)
+"""
+
+
+def run_tool(tool, args, timeout, out):
+    """(rc, stdout, stderr, wall s) of the tool in a process group of its own
+    (a timeout kills the group: bench's daemon leg is a grandchild)."""
+    code = _TOOL_RUNNER.format(root=str(ROOT), out=out, tool=tool, args=list(args))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        raise RuntimeError(f"phase 13 {tool} {args}: no end after {timeout} s: "
+                           f"{stdout[-500:]}{stderr[-1500:]}") from None
+    return proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+
+def check_tool_line(label, line):
+    """The run's JSON line against TOOL_KEYS and the rules of its numbers;
+    returns the problems found."""
+    import math
+    bad = [f"missing {k!r}" for k in TOOL_KEYS[label] if k not in line]
+
+    def number(k, v):
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                number(kk if k != "spread_ms" else "spread", vv)
+            return
+        if isinstance(v, bool) or not isinstance(v, (int, float, type(None))):
+            return
+        if v is None or not math.isfinite(v):
+            bad.append(f"{k} = {v} is not finite")
+        elif k in FAILURE_KEYS:
+            if v != 0:
+                bad.append(f"{k} = {v}, want 0")
+        elif k in NONNEG_KEYS or k == "spread":
+            if v < 0:
+                bad.append(f"{k} = {v} < 0")
+        elif k not in SIGNED_KEYS and v <= 0:
+            bad.append(f"{k} = {v} is not positive")
+
+    for k, v in line.items():
+        if k != "top":
+            number(k, v)
+    return bad
+
+
+def tools_path(card, held):
+    """Phase 13: each TOOL_RUNS tool at production geometry, in turn, each in
+    a process of its own; the checks of check_tool_line, the trace's MRF
+    kernel, the breakdown's parts against the full vocoder, and every
+    launched shape against phase 3's.  Returns the launches by kernels-line
+    name, each tool's own count (bench: with its daemon leg's)."""
+    import re
+    import torch
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    launches, seen, problems = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, (label, tool, args, timeout) in enumerate(TOOL_RUNS):
+            out = os.path.join(tmp, f"shapes_{n}.json")
+            rc, stdout, stderr, wall = run_tool(tool, args, timeout, out)
+            for text in (stdout, stderr):
+                for row in text.strip().splitlines():
+                    if not row.startswith("USDT:"):
+                        log(f"  {label}: {row}")
+            lines = stdout.strip().splitlines()
+            if rc != 0 or not lines:
+                raise RuntimeError(f"phase 13 {label}: rc {rc}: {stderr[-2000:]}")
+            line = json.loads(lines[-1])
+            log(f"phase 13 {label} ({wall:.1f} s): {lines[-1]} [{card}]")
+            bad = check_tool_line(label, line)
+            own = {}
+            for who, counts in re.findall(r"^(.*?)mrf_launches (\{.*\})$", stderr, re.M):
+                for k, v in json.loads(counts).items():
+                    launches[k] = launches.get(k, 0) + v
+                    if not who.startswith("bench: daemon leg"):
+                        own[k] = own.get(k, 0) + v
+            with open(out) as fh:
+                mine = json.load(fh)
+            for key, v in mine.items():
+                dtype, shape = key.split(" ", 1)
+                k = (getattr(torch, dtype.split(".")[-1]), tuple(json.loads(shape)))
+                seen[k] = seen.get(k, 0) + v
+            if sum(own.values()) != sum(mine.values()):
+                bad.append(f"it counted {own} launches, its vocoder calls {sum(mine.values())}")
+            if label == "profile_trace":
+                if not line.get("mrf_kernel_names") or not line["mrf_kernel_ms"] > 0:
+                    bad.append("the trace does not name the MRF kernel")
+                at = [i for i, row in enumerate(lines) if row.startswith("trace: ")][:1] or [-2]
+                head = lines[at[0]:at[0] + 2]
+                if not (re.match(r"^trace: \d+\.\d{3} ms total device time per run \(B=8\)$",
+                                 head[0]) and re.match(r"^ +\d+\.\d{3} ms  \S", head[1])):
+                    bad.append(f"not the JAX script's lines: {head}")
+            if label == "profile_breakdown":
+                # the spreads of the full vocoder and of its parts
+                slack = sum(v for k, v in line["spread_ms"].items()
+                            if k not in ("full synthesize", "encoder+LR+decoder (mel)"))
+                log(f"phase 13 {label}: the vocoder's parts {line['sum of vocoder parts']:.3f} ms "
+                    f"against the full vocoder {line['vocoder (full)']:.3f} ms, spread "
+                    f"{slack:.3f} ms")
+                if line["sum of vocoder parts"] > line["vocoder (full)"] + slack:
+                    bad.append("the vocoder's parts exceed the full vocoder by more than the "
+                               "readings' spread")
+            if label != "profile_mel" and not sum(own.values()):
+                bad.append("no mrf_stage launch")
+            problems += [f"{label}: {b}" for b in bad]
+    hold_launched_shapes(seen, held, "phase 13")
+    if problems:
+        raise RuntimeError("phase 13: " + "; ".join(problems))
+    log(f"phase 13 (the measurement tools) {time.perf_counter() - t_phase:.1f} s: mrf_stage "
+        f"launches counted in the tools' processes {launches} [{card}]")
+    return launches
+
+
 def run() -> int:
     try:
         import torch
@@ -3323,6 +3538,12 @@ def run() -> int:
         log(f"{MULTI_DEVICE_ONLY}: phases 1-3, 9 and 10 passed in "
             f"{time.perf_counter() - t_start:.1f} s; no result line (phases 4-8 did not run)")
         return 0
+    if BENCH_ONLY in sys.argv[1:]:
+        log(f"phase 13 alone ({BENCH_ONLY}): the measurement tools on the card")
+        tools_path(card, shapes)
+        log(f"{BENCH_ONLY}: phases 1-3 and 13 passed in {time.perf_counter() - t_start:.1f} s; "
+            "no result line (phases 4-12 did not run)")
+        return 0
     if EXAMPLES_ONLY in sys.argv[1:]:
         seen = record_launch_shapes()
         log(f"phase 12 alone ({EXAMPLES_ONLY}): the examples on the card")
@@ -3379,6 +3600,10 @@ def run() -> int:
         log(f"phase 11 (verification) {time.perf_counter() - t_phase:.1f} s [{card}]")
     log("phase 12: the examples (examples_torch/) on the card, production geometry")
     launches["mrf_stage"] += examples_path(card, seen, shapes)
+    log("phase 13: the measurement tools (zerovox_tpu_torch/tools/), production geometry, "
+        "each in a process of its own")
+    for k, v in tools_path(card, shapes).items():
+        launches[k] += v
 
     replaces = {k: "zerovox_tpu/ops/pallas/folded_mrf.py:446"
                 for k in ("mrf_stage", "mrf_stage_bf16", "mrf_stage_f16_staged")}
@@ -3400,8 +3625,11 @@ def run() -> int:
         "the engines they are held against), each counted from 0, for float32 those of "
         "phase 8's engine on the trained export, those of phase 9's regimes (each counted "
         "from 0 just before its timed run and read just after; the daemons' with their warm-ups) "
-        "those of phase 10's engine on the export of the two-process training run and those "
-        "of phase 12's examples; for the f16-staged modes (mrf_stage and the unfolded entry) "
+        "those of phase 10's engine on the export of the two-process training run, those "
+        "of phase 12's examples and those of phase 13's tools (bf16: bench with its daemon "
+        "leg, bench_daemon twice, measure_daemon_attrib, profile_trace, profile_breakdown; "
+        "f32: bench --f32), each counted in the tool's own process; for the f16-staged "
+        "modes (mrf_stage and the unfolded entry) "
         "those of phase 11 (b)'s verify_checkpoint on the card")
     log("e2e: " + "; ".join(f"{p} B=1 wall {w[1]:.2f} ms, B=8 wall {w[8]:.2f} ms"
                             for p, w in walls.items())

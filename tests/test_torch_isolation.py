@@ -38,7 +38,11 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 59, mods
+assert len(mods) >= 68, mods
+tools = {{"zerovox_tpu_torch.tools." + t for t in (
+    "measure", "bench", "bench_daemon", "measure_daemon_attrib", "profile_trace",
+    "profile_mel", "profile_breakdown")}}
+assert tools <= set(mods), tools - set(mods)
 """
 
 
@@ -130,6 +134,12 @@ def test_entry_points_default_to_cuda():
         parallel.initialize_distributed("127.0.0.1:1", 2, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--synthetic", "2", "--tiny", "--batch-size", "2", "--mesh", "1,1"])
+    from zerovox_tpu_torch.tools import (bench, bench_daemon, measure_daemon_attrib,
+                                         profile_breakdown, profile_mel, profile_trace)
+    for tool in (bench, bench_daemon, measure_daemon_attrib, profile_breakdown, profile_mel,
+                 profile_trace):                 # the measurement tools: --device cpu or a card
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tool.main(["--tiny"])
     # the daemon binds its socket first, then raises and gives the port back
     probe = socket.socket()
     probe.bind(("127.0.0.1", 0))

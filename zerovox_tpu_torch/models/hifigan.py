@@ -36,8 +36,8 @@ from ..ops.cuda.mrf_stage import (PackedStage, kernel_takes, mrf_stage, mrf_stag
                                   pack_stage, residual_block)
 from ..utils.debug import tap
 
-__all__ = ["vocode", "pack_vocoder", "stage_routes", "residual_block",
-           "receptive_field_frames"]
+__all__ = ["vocode", "pack_vocoder", "stage_routes", "vocoder_input", "vocode_stage",
+           "vocoder_output", "residual_block", "receptive_field_frames"]
 
 
 def receptive_field_frames(cfg: ZeroVoxConfig) -> int:
@@ -106,31 +106,50 @@ def vocode(params: dict, cfg: ZeroVoxConfig, mel: torch.Tensor,
     products = dict(conv=conv, conv_transpose=conv_transpose)
     conv = conv or conv1d
     voc = params["vocoder"]
+    c = vocoder_input(voc, cfg, mel, conv)
+    routes = [False] * len(cfg.upsample_scales) if plain else stage_routes(params, cfg)
+    for i, kernel in enumerate(routes):
+        c = vocode_stage(voc, cfg, i, c, kernel, None if packed is None else packed[i],
+                         products)
+    c = vocoder_output(voc, cfg, c, mel.shape[1] * cfg.hop_size, conv)
+    tap("dbg", c)                # the reference's permanent probe, (B, wav_len, 1)
+    return tap("wav", c[..., 0])
+
+
+def vocoder_input(voc: dict, cfg: ZeroVoxConfig, mel: torch.Tensor, conv=conv1d) -> torch.Tensor:
+    """The vocoder's first segment: mel normalisation and the input conv."""
     mel = mel.to(voc["input_conv_w"].dtype)
     x = (mel - voc["mean"]) / voc["scale"]
     pad = (cfg.hifigan_kernel_size - 1) // 2
-    c = conv(x, voc["input_conv_w"], voc["input_conv_b"], padding=pad)
+    return conv(x, voc["input_conv_w"], voc["input_conv_b"], padding=pad)
 
-    n_stages = len(cfg.upsample_scales)
-    routes = [False] * n_stages if plain else stage_routes(params, cfg)
-    for i, scale in enumerate(cfg.upsample_scales):
-        up = voc["upsamples"][i]
-        args = (_stage_blocks(voc, cfg, i), cfg.resblock_dilations, cfg.resblock_kernel_size)
-        opts = dict(upsample=dict(w=up["w"], stride=scale, padding=scale // 2 + scale % 2,
-                                  output_padding=scale % 2),
-                    in_bias=up["b"],
-                    # the input conv applies no activation; every later stage
-                    # already ends in the leaky the next upsample needs
-                    in_leaky=0.1 if i == 0 else None,
-                    out_leaky=0.01 if i == n_stages - 1 else 0.1)
-        if not routes[i]:
-            c = mrf_stage_ref(c, *args, **opts, **products)
-        else:
-            c = mrf_stage(c.contiguous(), *args, **opts,
-                          packed=None if packed is None else packed[i])
 
+def vocode_stage(voc: dict, cfg: ZeroVoxConfig, i: int, c: torch.Tensor, kernel: bool,
+                 packed: Optional[PackedStage] = None, products: Optional[dict] = None
+                 ) -> torch.Tensor:
+    """MRF stage i on its pre-upsample input c: the upsample, its bias and
+    the leaky-relus on either side fused into one mrf_stage call (kernel:
+    the route stage_routes gives it), else through mrf_stage_ref with
+    `products` (ops.conv's signatures; default ops.conv's own)."""
+    scale, last = cfg.upsample_scales[i], i == len(cfg.upsample_scales) - 1
+    up = voc["upsamples"][i]
+    args = (_stage_blocks(voc, cfg, i), cfg.resblock_dilations, cfg.resblock_kernel_size)
+    opts = dict(upsample=dict(w=up["w"], stride=scale, padding=scale // 2 + scale % 2,
+                              output_padding=scale % 2),
+                in_bias=up["b"],
+                # the input conv applies no activation; every later stage
+                # already ends in the leaky the next upsample needs
+                in_leaky=0.1 if i == 0 else None,
+                out_leaky=0.01 if last else 0.1)
+    if not kernel:
+        return mrf_stage_ref(c, *args, **opts, **(products or {}))
+    return mrf_stage(c.contiguous(), *args, **opts, packed=packed)
+
+
+def vocoder_output(voc: dict, cfg: ZeroVoxConfig, c: torch.Tensor, wav_len: int,
+                   conv=conv1d) -> torch.Tensor:
+    """The vocoder's tail after the last stage (which ends in its leaky):
+    the output conv and tanh, cut to wav_len samples, (B, wav_len, 1)."""
+    pad = (cfg.hifigan_kernel_size - 1) // 2
     c = torch.tanh(conv(c, voc["output_conv_w"], voc["output_conv_b"], padding=pad))
-    wav_len = mel.shape[1] * cfg.hop_size
-    c = c[:, :wav_len]           # nonstandard upsample kernels overshoot
-    tap("dbg", c)                # the reference's permanent probe, (B, wav_len, 1)
-    return tap("wav", c[..., 0])
+    return c[:, :wav_len]        # nonstandard upsample kernels overshoot

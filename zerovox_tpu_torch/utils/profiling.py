@@ -5,7 +5,8 @@ The port of zerovox_tpu/utils/profiling.py on PyTorch's tooling:
   - device_time(): the time of fn(*args) on the device, between two CUDA
     events around a run of calls (PyTorch returns before the card has
     finished, so a host clock without a synchronise times the enqueue).
-    For tensors on the CPU it is the host clock.
+    For tensors on the CPU it is the host clock.  device_times(): each
+    run's time, for a spread.
   - trace(): context manager around torch.profiler; writes a Chrome trace.
   - StageTimer: named wall-clock sections that end in a device synchronise.
 """
@@ -35,13 +36,20 @@ def _on_cuda(tree) -> bool:
 def device_time(fn: Callable, *args, iters: int = 10, reps: int = 3,
                 cuda: Optional[bool] = None) -> float:
     """Median milliseconds per fn(*args) call over `reps` runs of `iters`
-    calls each, after one warm-up call.
+    calls each, after one warm-up call (device_times).
 
     On a card (cuda=True, or by default when an argument holds a CUDA
     tensor) a run is timed between two CUDA events, so the time is the
     device's from the first launch to the last kernel's end: for work whose
     launches the host issues slower than the card runs them, that is the
     host's pace.  Otherwise a run is timed on the host clock."""
+    return statistics.median(device_times(fn, *args, iters=iters, reps=reps, cuda=cuda))
+
+
+def device_times(fn: Callable, *args, iters: int = 10, reps: int = 3,
+                 cuda: Optional[bool] = None) -> List[float]:
+    """Milliseconds per fn(*args) call in each of `reps` runs of `iters`
+    calls, after one warm-up call, timed as device_time says."""
     if iters < 1 or reps < 1:
         raise ValueError("iters and reps must be >= 1")
     if cuda is None:
@@ -63,20 +71,22 @@ def device_time(fn: Callable, *args, iters: int = 10, reps: int = 3,
             for _ in range(iters):
                 fn(*args)
             times.append(1e3 * (time.perf_counter() - t0) / iters)
-    return statistics.median(times)
+    return times
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: str, with_stack: bool = False):
     """torch.profiler over the block (host and, where there is a card, CUDA
     activity); yields the profiler, and on exit writes
-    <logdir>/trace.json, a Chrome trace (chrome://tracing, Perfetto)."""
+    <logdir>/trace.json, a Chrome trace (chrome://tracing, Perfetto).
+    with_stack: the Python frames of the host lanes too, so that an
+    operator (and the kernels it launched) can be traced to its source line."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, with_stack=with_stack) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
