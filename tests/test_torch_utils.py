@@ -8,6 +8,7 @@ atol 5e-3 rtol 1e-3; wav atol 1e-3 rtol 1e-3).  Converter: equal tensors and
 files equal byte for byte.
 """
 
+import json
 import threading
 import time
 
@@ -29,7 +30,7 @@ from zerovox_tpu_torch.models.pipeline import synthesize
 from zerovox_tpu_torch.utils import convert as tconvert
 from zerovox_tpu_torch.utils import debug as tdebug
 from zerovox_tpu_torch.utils.debug import capture_run, print_taps, summarize, tap
-from zerovox_tpu_torch.utils.profiling import StageTimer, device_time, trace
+from zerovox_tpu_torch.utils.profiling import device_time, trace
 
 from oracles import torch_ref
 from oracles.synthetic import meldec_state_dict, upstream_state_dict
@@ -269,16 +270,9 @@ def test_device_time_on_cpu_tensors():
 
 
 def test_stage_timer_and_trace(tmp_path):
-    t = StageTimer()
-    with t.section("front"):
-        time.sleep(0.02)
-    with t.section("vocoder"):
-        time.sleep(0.01)
-    assert [n for n, _ in t.records] == ["front", "vocoder"]
-    assert t.records[0][1] >= 0.02 and t.records[1][1] >= 0.01
-    lines = t.report().splitlines()
-    assert len(lines) == 2 and lines[0].startswith("front") and lines[0].endswith("%")
+    """trace(): a Chrome trace of the block, and the profiler's operations."""
     with trace(str(tmp_path / "prof")) as prof:
         torch.ones(8).sum()
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::sum" for e in events)
     assert any("sum" in e.key for e in prof.key_averages())

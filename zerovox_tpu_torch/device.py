@@ -28,6 +28,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from .utils import profiling
+
 _issuers: Dict[torch.device, ThreadPoolExecutor] = {}
 _issuer_guard = threading.Lock()
 _issuer_thread = threading.local()
@@ -42,11 +44,19 @@ def issuing_key(device) -> torch.device:
     return dev
 
 
-def submit_on_issuing_thread(device, fn: Callable, *args, **kwargs) -> Future:
+def submit_on_issuing_thread(device, fn: Callable, *args, span: Optional[str] = None,
+                             **kwargs) -> Future:
     """fn(*args, **kwargs) on the issuing thread of `device`, without waiting:
     a Future of its result.  Called from that thread, fn runs inline (the
     Future is done when this returns).  A caller reads the result of every
-    Future it gets: the exception of fn is raised there."""
+    Future it gets: the exception of fn is raised there.
+
+    span: the name under which the span recorder (utils.profiling) records
+    fn's run on the issuing thread ("issue.front", "issue.vocode",
+    "issue.stream"), after an "issue.wait" span on the calling thread from
+    now until fn starts; None records nothing."""
+    if span is not None:
+        fn = profiling.issued(span, fn)
     key = issuing_key(device)
     if getattr(_issuer_thread, "device", None) == key:
         done: Future = Future()
@@ -61,13 +71,15 @@ def submit_on_issuing_thread(device, fn: Callable, *args, **kwargs) -> Future:
             pool = _issuers[key] = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix=f"zv-launch-{key}",
                 initializer=lambda: setattr(_issuer_thread, "device", key))
-    # in the caller's context: a debug capture (utils.debug) sees the taps made there
+    # in the caller's context: a debug capture (utils.debug) sees the taps made
+    # there, and the spans recorded there name the caller's request and span
     return pool.submit(contextvars.copy_context().run, fn, *args, **kwargs)
 
 
-def on_issuing_thread(device, fn: Callable, *args, **kwargs):
+def on_issuing_thread(device, fn: Callable, *args, span: Optional[str] = None, **kwargs):
     """fn(*args, **kwargs) on the issuing thread of `device`; returns its
     result or raises its exception.  Called from that thread, fn runs inline.
+    span: as submit_on_issuing_thread's.
 
     The serving engine and the streaming synthesizer issue their launches
     through here and wait for the device on their own threads, so that one
@@ -91,7 +103,7 @@ def on_issuing_thread(device, fn: Callable, *args, **kwargs):
     A device's thread is started by the first call for it and lives as long
     as the process; PyTorch's thread-local switches (inference mode, the
     current device) are fn's to set."""
-    return submit_on_issuing_thread(device, fn, *args, **kwargs).result()
+    return submit_on_issuing_thread(device, fn, *args, span=span, **kwargs).result()
 
 
 def full_precision_products():

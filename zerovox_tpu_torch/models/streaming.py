@@ -181,7 +181,7 @@ class StreamingSynthesizer:
         def run(model: LoadedModel, mel_window: torch.Tensor) -> torch.Tensor:
             if mel_window.shape[1] != window:
                 raise ValueError(f"window of {mel_window.shape[1]} frames, want {window}")
-            return on_issuing_thread(model.device, launch, model, mel_window)
+            return on_issuing_thread(model.device, launch, model, mel_window, span="issue.stream")
 
         return run
 
@@ -204,9 +204,10 @@ class StreamingSynthesizer:
     def _prefix(self, model: LoadedModel, src_seq, puncts, style_embed, num_phonemes):
         """Request arrays -> device (mel, mel_len, max mel_len), no host
         sync; launched on the process's issuing thread
-        (device.on_issuing_thread)."""
+        (device.on_issuing_thread), recorded as "issue.stream" as the
+        windows are."""
         return on_issuing_thread(model.device, self._issue_prefix, model, src_seq, puncts,
-                                 style_embed, num_phonemes)
+                                 style_embed, num_phonemes, span="issue.stream")
 
     @torch.inference_mode()
     def _issue_prefix(self, model: LoadedModel, src_seq, puncts, style_embed, num_phonemes):

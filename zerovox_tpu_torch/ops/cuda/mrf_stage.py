@@ -583,7 +583,9 @@ def library() -> Library:
     if _library is None:
         with _build_lock:
             if _library is None:
-                _library = _build_library()
+                from ...utils.profiling import span
+                with span("kernel.build"):      # nvcc, or the load of the built libraries
+                    _library = _build_library()
     return _library
 
 

@@ -39,6 +39,12 @@ its queue, and a client that asks again at once then waits out the window.
 Off by default; enable with `TTSServer(batch_window_ms=...)` / the CLI's
 `--batch-window-ms`.  Requests are grouped by their (trim, pcm16) flags:
 only compatible requests share a dispatch.
+
+Spans (utils.profiling): each request's wait in the queue ("batcher.queue",
+on its caller's thread, caused by the dispatch that took it), the fill
+window ("batcher.window"), the dispatcher's wait on max_inflight
+("batcher.inflight"), the dispatch ("batcher.dispatch", under the ids of
+the requests it serves) and the completion worker's fetch ("batcher.fetch").
 """
 
 from __future__ import annotations
@@ -50,14 +56,19 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import profiling
+
 
 class _Pending:
     __slots__ = ("src", "pun", "style", "n", "key",
-                 "done", "wav", "mel_len", "size", "error")
+                 "done", "wav", "mel_len", "size", "error", "rid", "thread", "t_enq")
 
     def __init__(self, src, pun, style, n, key):
         self.src, self.pun, self.style, self.n = src, pun, style, n
         self.key = key
+        # for the "batcher.queue" span: whose request, on which thread, since when
+        self.rid, self.thread = profiling.request_id(), profiling.thread_id()
+        self.t_enq = 0
         self.done = threading.Event()
         self.wav: Optional[np.ndarray] = None
         self.mel_len: Optional[int] = None
@@ -115,6 +126,7 @@ class DynamicBatcher:
         with self._cond:
             if self._stop:
                 raise RuntimeError("batcher is shut down")
+            item.t_enq = profiling.now()
             self._queue.append(item)
             self._cond.notify_all()
         if not item.done.wait(timeout=self.request_timeout_s):
@@ -152,12 +164,13 @@ class DynamicBatcher:
             key = self._queue[0].key
             if not was_idle:
                 deadline = time.monotonic() + self.window_s
-                while not self._stop:
-                    n_match = sum(1 for q in self._queue if q.key == key)
-                    left = deadline - time.monotonic()
-                    if n_match >= self.max_batch or left <= 0:
-                        break
-                    self._cond.wait(timeout=left)
+                with profiling.span("batcher.window"):
+                    while not self._stop:
+                        n_match = sum(1 for q in self._queue if q.key == key)
+                        left = deadline - time.monotonic()
+                        if n_match >= self.max_batch or left <= 0:
+                            break
+                        self._cond.wait(timeout=left)
             batch = [q for q in self._queue if q.key == key][: self.max_batch]
             for q in batch:
                 self._queue.remove(q)
@@ -166,6 +179,7 @@ class DynamicBatcher:
     def _loop(self):
         while True:
             batch = self._take_batch()
+            t_take = profiling.now()
             if not batch:
                 # An empty batch is NOT always shutdown: the windowing
                 # cond.wait releases the lock, so a request that hits its
@@ -180,32 +194,39 @@ class DynamicBatcher:
                 # stopped and drained; wait for in-flight completions
                 self._pool.shutdown(wait=True)
                 return
-            self._inflight.acquire()
+            with profiling.span("batcher.inflight"):
+                self._inflight.acquire()
             trim, pcm16 = batch[0].key
             # synthesize_async splits at the ladder top and pads each chunk
             top = self.engine.batch_ladder[-1]
             for i, q in enumerate(batch):
                 q.size = self.engine.ladder_size(min(top, len(batch) - i // top * top))
+            rids = tuple(q.rid for q in batch if q.rid is not None) or None
             try:
-                fetch = self.engine.synthesize_async(
-                    np.concatenate([q.src for q in batch]),
-                    np.concatenate([q.pun for q in batch]),
-                    np.concatenate([q.style for q in batch]),
-                    np.concatenate([q.n for q in batch]),
-                    trim=trim, pcm16=pcm16)
+                with profiling.span("batcher.dispatch", rid=rids) as dispatch:
+                    for q in batch:
+                        profiling.record("batcher.queue", q.t_enq, t_take, q.rid, dispatch.id,
+                                         q.thread)
+                    fetch = self.engine.synthesize_async(
+                        np.concatenate([q.src for q in batch]),
+                        np.concatenate([q.pun for q in batch]),
+                        np.concatenate([q.style for q in batch]),
+                        np.concatenate([q.n for q in batch]),
+                        trim=trim, pcm16=pcm16)
             except BaseException as e:     # dispatch failed: deliver now
                 self._inflight.release()
                 self._finish(batch, error=e)
                 if not isinstance(e, Exception):
                     raise                  # interrupt / exit: not ours to keep
                 continue
-            self._pool.submit(self._complete, batch, fetch)
+            self._pool.submit(self._complete, batch, fetch, rids, dispatch.id)
 
-    def _complete(self, batch: List[_Pending], fetch):
+    def _complete(self, batch: List[_Pending], fetch, rids, dispatch_id):
         """Completion-pool worker: block on the fetch, deliver results."""
         error = None
         try:
-            wavs, mel_len = fetch()
+            with profiling.span("batcher.fetch", rid=rids, cause=dispatch_id):
+                wavs, mel_len = fetch()
             for i, q in enumerate(batch):
                 q.wav, q.mel_len = wavs[i], int(mel_len[i])
         except BaseException as e:         # deliver failures to the waiters

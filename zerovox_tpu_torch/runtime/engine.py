@@ -20,6 +20,11 @@ thread, with no exchange between devices; the slices are gathered on the
 mesh's first device.  The batch ladder scales by the data size so that
 every call splits evenly.  Tensor-parallel serving is
 runtime.tp_engine.TPServingEngine.
+
+The engine records (utils.profiling) its launches on the issuing thread
+("issue.front", "issue.vocode"), the calling thread's waits for the card
+("engine.sync") and, for each vocoder call, a "vocoder.frames" counter: the
+frames its real rows need and the frames it vocodes.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..io.wav import float_to_pcm16_device
 from ..models import hifigan
 from ..models.pipeline import (LoadedModel, compute_dtype, front, load_model, pack_model,
                                place_params, replicate_model, request_tensors)
+from ..utils import profiling
 
 
 def _leaves(tree, path=""):
@@ -48,6 +54,19 @@ def _leaves(tree, path=""):
             yield from _leaves(v, f"{path}[{i}]")
     else:
         yield path, tree
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """t on the host: the calling thread waits for the card ("engine.sync")."""
+    with profiling.span("engine.sync"):
+        return t.cpu().numpy()
+
+
+def _count_frames(mel_len: np.ndarray, rows: int, bucket: int):
+    """The "vocoder.frames" counter of one vocoder call: the frames its real
+    rows need (their mel lengths) and the frames it vocodes (every row,
+    ladder padding included, at the bucket's length)."""
+    profiling.count("vocoder.frames", int(np.sum(mel_len)), rows * bucket)
 
 
 class TTSEngine:
@@ -158,16 +177,17 @@ class TTSEngine:
                                          for k, bs, bd, as_, ad in bad[:3]))
 
     # ------------------------------------------------------------ programs
-    def _split(self, issue, models: Tuple[LoadedModel, ...], *args):
+    def _split(self, span: str, issue, models: Tuple[LoadedModel, ...], *args):
         """issue(*args, model) on the issuing thread of each model's device
-        (device.on_issuing_thread), whatever thread calls: on the whole
-        batch with one device, else on each data device's slice of the rows,
-        the outputs gathered on the engine's device.  No host sync."""
+        (device.on_issuing_thread; recorded as the span `span`), whatever
+        thread calls: on the whole batch with one device, else on each data
+        device's slice of the rows, the outputs gathered on the engine's
+        device.  No host sync."""
         if len(models) == 1:
-            return on_issuing_thread(models[0].device, issue, *args, models[0])
+            return on_issuing_thread(models[0].device, issue, *args, models[0], span=span)
         parts = [a.tensor_split(len(models)) for a in args]
         futures = [submit_on_issuing_thread(m.device, issue,
-                                            *(p[i].to(m.device) for p in parts), m)
+                                            *(p[i].to(m.device) for p in parts), m, span=span)
                    for i, m in enumerate(models)]
         outs = [f.result() for f in futures]
         if isinstance(outs[0], tuple):
@@ -179,7 +199,7 @@ class TTSEngine:
                models: Optional[Tuple[LoadedModel, ...]] = None):
         """Encoder + length regulator + decoder at full max_seq_len, on
         device tensors; no host sync."""
-        return self._split(self._issue_front, models or self._models,
+        return self._split("issue.front", self._issue_front, models or self._models,
                            src_seq, puncts, style_embed, num_phonemes)
 
     @torch.inference_mode()
@@ -195,7 +215,7 @@ class TTSEngine:
         else float32 (a bf16 waveform is widened for the caller).  Issued as
         _front."""
         issue = self._issue_vocode_pcm16 if pcm16 else self._issue_vocode
-        return self._split(issue, models or self._models, mel_b)
+        return self._split("issue.vocode", issue, models or self._models, mel_b)
 
     @torch.inference_mode()
     def _issue_vocode(self, mel_b: torch.Tensor, model: LoadedModel) -> torch.Tensor:
@@ -209,7 +229,7 @@ class TTSEngine:
     def _back(self, mel_b: torch.Tensor, pcm16: bool,
               models: Optional[Tuple[LoadedModel, ...]] = None) -> np.ndarray:
         """_vocode fetched to the host."""
-        return self._vocode(mel_b, pcm16, models).cpu().numpy()
+        return _to_host(self._vocode(mel_b, pcm16, models))
 
     # ------------------------------------------------------------- geometry
     def pick_bucket(self, mel_len: int) -> int:
@@ -292,6 +312,7 @@ class TTSEngine:
         outs = []
         for padded, n in self._ladder_chunks(range(mel.shape[0])):
             outs.append(self._back(self._take(mel, padded)[:, :bucket], pcm16, models)[:n])
+            _count_frames(mel_len_h[padded[:n]], len(padded), bucket)
         return self._trim(np.concatenate(outs, axis=0), mel_len_h, trim), mel_len_h
 
     def synthesize_async(self, src_seq, puncts, style_embed, num_phonemes=None,
@@ -315,14 +336,17 @@ class TTSEngine:
             mel, mel_len = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
                                        models)
             wav = self._vocode(mel[:, :bucket], pcm16, models)
-            chunks.append((to_host_async(wav), to_host_async(mel_len), n))
+            chunks.append((to_host_async(wav), to_host_async(mel_len), n, len(padded)))
 
         def fetch() -> Tuple[List[np.ndarray], np.ndarray]:
             wavs: List[np.ndarray] = []
             lens = []
-            for wav_p, len_p, n in chunks:
-                len_n = wait_host(len_p).numpy()[:n]
-                wavs.extend(self._trim(wait_host(wav_p).numpy()[:n], len_n, trim))
+            for wav_p, len_p, n, size in chunks:
+                with profiling.span("engine.sync"):
+                    len_n = wait_host(len_p).numpy()[:n]
+                    wav_h = wait_host(wav_p).numpy()[:n]
+                _count_frames(len_n, size, bucket)
+                wavs.extend(self._trim(wav_h, len_n, trim))
                 lens.append(len_n)
             return wavs, np.concatenate(lens)
 
@@ -345,6 +369,7 @@ class TTSEngine:
         for bucket, idxs in groups.items():
             for padded, n in self._ladder_chunks(idxs):
                 wav_h = self._back(self._take(mel, padded)[:, :bucket], pcm16, models)
+                _count_frames(mel_len_h[padded[:n]], len(padded), bucket)
                 for k, i in enumerate(padded[:n]):
                     wavs[i] = wav_h[k, : int(mel_len_h[i]) * hop] if trim else wav_h[k]
         return wavs, mel_len_h
@@ -372,7 +397,7 @@ class TTSEngine:
             mels.append(mel_c[:n])
             lens.append(len_c[:n])
         mel = mels[0] if len(mels) == 1 else torch.cat(mels, dim=0)
-        return mel, torch.cat(lens).cpu().numpy()
+        return mel, _to_host(torch.cat(lens))
 
     def _trim(self, wav_h: np.ndarray, mel_len_h: np.ndarray, trim: bool
               ) -> List[np.ndarray]:

@@ -27,6 +27,13 @@ Endpoints (all JSON bodies use the CLI's utterance schema:
                         p50/p95/max latency over the last 512 requests;
                         the device's name and memory; the batcher's counts
                         (?format=prometheus: the same as exposition text)
+  GET  /trace        -> the span recorder (utils.profiling), port only:
+                        the clock its stamps are on (torch.profiler's),
+                        per span and counter name the count, total and
+                        summed values since start with p50/p95 over the
+                        ring, and the ring's entries (?format=chrome:
+                        Chrome trace events on the profiler's clock, to
+                        lay beside a utils.profiling.trace() file)
   POST /synthesize   -> complete WAV (query: ?trim=0 keeps the padded
                         buffer); with batch_window_ms > 0, concurrent
                         requests coalesce into packed dispatches
@@ -50,6 +57,17 @@ Endpoints (all JSON bodies use the CLI's utterance schema:
 /synthesize and /stream also accept Content-Type:
 application/octet-stream with the raw-binary utterance body
 (runtime/utterance.py: utterance_to_binary).
+
+The daemon turns the span recorder on when it is built, so that its
+warm-up is recorded: "daemon.warmup" (with "warmup.engine",
+"warmup.stream" and the kernel's "kernel.build" under it), and for each
+POST a "daemon.request" span (its endpoint; /metrics' latency is its
+duration) with "daemon.read" (body read and parse), "daemon.encode" (the
+answer's bytes: tobytes, base64, JSON) and "daemon.write" (the socket
+writes) on the handler's thread, beside what the batcher, the issuing
+thread and the engine record for the same request id.  Admission never
+waits (a refused request is a 503 and an error row of /metrics), so it has
+no span.
 """
 
 from __future__ import annotations
@@ -70,6 +88,7 @@ import torch
 from ..config import ZeroVoxConfig
 from ..device import resolve_device
 from ..io.wav import _wav_header
+from ..utils import profiling
 from .utterance import (parse_utterance_arrays, utterance_from_binary,
                         utterance_from_dict)
 
@@ -223,6 +242,7 @@ class TTSServer:
         from ..models.streaming import StreamingSynthesizer
         from .engine import TTSEngine
 
+        profiling.enable()          # first: the warm-up is recorded too
         # input caps: a single oversized request must not exhaust host
         # memory or mint unbounded device work on a production server
         self.max_body_bytes = int(max_body_bytes)
@@ -273,9 +293,12 @@ class TTSServer:
                 # shape any /batch mix can hit has run once (the kernel is
                 # built, cuDNN has made its plans on the issuing thread)
                 # before the first request.
-                self.engine.warmup(batch=self.engine.batch_ladder[-1],
-                                   pcm16=True)
-                self.stream.warmup()
+                with profiling.span("daemon.warmup"):
+                    with profiling.span("warmup.engine"):
+                        self.engine.warmup(batch=self.engine.batch_ladder[-1],
+                                           pcm16=True)
+                    with profiling.span("warmup.stream"):
+                        self.stream.warmup()
 
             # dynamic batching (off by default): concurrent /synthesize
             # requests arriving within the window share one packed
@@ -310,13 +333,22 @@ class TTSServer:
                 pass
 
             def _json(self, code: int, obj: dict):
+                with profiling.span("daemon.encode"):
+                    body = json.dumps(obj).encode()
+                self._send(code, "application/json", body)
+
+            def _send(self, code: int, ctype: str, *parts: bytes, headers=()):
+                """The answer: status, headers and body parts, written."""
                 self._status = code
-                body = json.dumps(obj).encode()
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+                with profiling.span("daemon.write"):
+                    self.send_response(code)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(sum(len(p) for p in parts)))
+                    for k, v in headers:
+                        self.send_header(k, v)
+                    self.end_headers()
+                    for p in parts:
+                        self.wfile.write(p)
 
             def _read_body(self) -> bytes:
                 length = int(self.headers.get("Content-Length", 0))
@@ -355,17 +387,13 @@ class TTSServer:
                     snap["device"] = _device_stats(server.device)
                     fmt = parse_qs(url.query).get("format", [""])[0]
                     if fmt == "prometheus":
-                        body = prometheus_text(snap).encode()
-                        self._status = 200
-                        self.send_response(200)
-                        self.send_header(
-                            "Content-Type",
-                            "text/plain; version=0.0.4; charset=utf-8")
-                        self.send_header("Content-Length", str(len(body)))
-                        self.end_headers()
-                        self.wfile.write(body)
-                        return
+                        return self._send(200, "text/plain; version=0.0.4; charset=utf-8",
+                                          prometheus_text(snap).encode())
                     return self._json(200, snap)
+                if path == "/trace":
+                    fmt = parse_qs(url.query).get("format", [""])[0]
+                    return self._json(200, profiling.chrome_trace() if fmt == "chrome"
+                                      else profiling.summary())
                 if path != "/healthz":
                     return self._json(404, {"error": "unknown endpoint"})
                 cfg = server.engine.cfg
@@ -388,12 +416,14 @@ class TTSServer:
                 url = urlparse(self.path)
                 endpoint = (url.path if url.path in self.KNOWN_ENDPOINTS
                             else "other")
-                t0 = time.perf_counter()
+                # one timer: the span's two stamps give /metrics its latency
+                request = profiling.Span("daemon.request", rid=profiling.new_request(),
+                                         a=endpoint)
                 try:
-                    return self._route(url)
+                    with request:
+                        return self._route(url)
                 finally:
-                    server.metrics.record(endpoint, self._status,
-                                          time.perf_counter() - t0)
+                    server.metrics.record(endpoint, self._status, request.seconds)
 
             def _route(self, url):
                 self._body_started = False
@@ -481,8 +511,9 @@ class TTSServer:
                     # (runtime/longform.py); split implies trim: the
                     # windows' padded tails cannot meaningfully concat
                     from .longform import synthesize_long
-                    ph, pu, style = parse_utterance_arrays(
-                        self._read_json(), server.engine.cfg)
+                    with profiling.span("daemon.read"):
+                        ph, pu, style = parse_utterance_arrays(
+                            self._read_json(), server.engine.cfg)
                     if len(ph) == 0:
                         raise ValueError("empty phoneme sequence")
                     # each split window is one utterance of device work:
@@ -493,7 +524,8 @@ class TTSServer:
                                              pcm16=True,
                                              max_windows=server.max_batch)
                 else:
-                    src, pun, style, n = self._read_utterance()
+                    with profiling.span("daemon.read"):
+                        src, pun, style, n = self._read_utterance()
                     trim = q.get("trim", ["1"])[0] != "0"
                     if server.batcher is not None:
                         wav, _, batch_size = server.batcher.synthesize_sized(
@@ -502,17 +534,13 @@ class TTSServer:
                         wavs, _ = server.engine.synthesize(
                             src, pun, style, n, trim=trim, pcm16=True)
                         wav = wavs[0]
-                pcm = wav.tobytes()
-                sr = server.engine.cfg.sampling_rate
-                self.send_response(200)
-                self.send_header("Content-Type", "audio/wav")
-                self.send_header("Content-Length", str(44 + len(pcm)))
-                if batch_size is not None:
-                    # the batch size the batcher computed this answer at
-                    self.send_header("X-Batch-Size", str(batch_size))
-                self.end_headers()
-                self.wfile.write(_wav_header(sr, len(pcm)))
-                self.wfile.write(pcm)
+                with profiling.span("daemon.encode"):
+                    pcm = wav.tobytes()
+                # the batch size the batcher computed this answer at
+                self._send(200, "audio/wav", _wav_header(server.engine.cfg.sampling_rate,
+                                                         len(pcm)), pcm,
+                           headers=() if batch_size is None
+                           else (("X-Batch-Size", str(batch_size)),))
 
             def _reload(self, url):
                 """Hot-swap weights from a new GGUF of the same geometry:
@@ -522,7 +550,8 @@ class TTSServer:
                     return self._json(
                         403, {"error": "reload disabled; start the "
                                        "daemon with --allow-reload"})
-                body = self._read_json()
+                with profiling.span("daemon.read"):
+                    body = self._read_json()
                 path = body.get("model")
                 if not isinstance(path, str) or not path:
                     raise ValueError("need {'model': '/path/to.gguf'}")
@@ -552,29 +581,32 @@ class TTSServer:
                 self._json(200, {"status": "reloaded", "model": path})
 
             def _batch(self, url):
-                utts = self._read_json().get("utterances")
-                if not isinstance(utts, list) or not utts:
-                    raise ValueError("need a non-empty 'utterances' list")
-                if len(utts) > server.max_batch:
-                    raise ValueError(
-                        f"{len(utts)} utterances exceeds the per-request "
-                        f"cap of {server.max_batch}")
                 cfg = server.engine.cfg
-                parsed = [utterance_from_dict(u, cfg) for u in utts]
-                src = np.concatenate([p[0] for p in parsed])
-                pun = np.concatenate([p[1] for p in parsed])
-                sty = np.concatenate([p[2] for p in parsed])
-                n = np.concatenate([p[3] for p in parsed])
+                with profiling.span("daemon.read"):
+                    utts = self._read_json().get("utterances")
+                    if not isinstance(utts, list) or not utts:
+                        raise ValueError("need a non-empty 'utterances' list")
+                    if len(utts) > server.max_batch:
+                        raise ValueError(
+                            f"{len(utts)} utterances exceeds the per-request "
+                            f"cap of {server.max_batch}")
+                    parsed = [utterance_from_dict(u, cfg) for u in utts]
+                    src = np.concatenate([p[0] for p in parsed])
+                    pun = np.concatenate([p[1] for p in parsed])
+                    sty = np.concatenate([p[2] for p in parsed])
+                    n = np.concatenate([p[3] for p in parsed])
                 trim = parse_qs(url.query).get("trim", ["1"])[0] != "0"
                 wavs, mel_len = server.engine.synthesize_packed(
                     src, pun, sty, n, trim=trim, pcm16=True)
                 sr = cfg.sampling_rate
-                out = [base64.b64encode(
-                           _wav_header(sr, 2 * len(w))
-                           + w.tobytes()).decode()
-                       for w in wavs]
-                self._json(200, {"wavs": out,
-                                 "mel_len": [int(m) for m in mel_len]})
+                with profiling.span("daemon.encode"):
+                    out = [base64.b64encode(
+                               _wav_header(sr, 2 * len(w))
+                               + w.tobytes()).decode()
+                           for w in wavs]
+                    body = json.dumps({"wavs": out,
+                                       "mel_len": [int(m) for m in mel_len]}).encode()
+                self._send(200, "application/json", body)
 
             def _stream(self, url):
                 q = parse_qs(url.query)
@@ -583,8 +615,9 @@ class TTSServer:
                     # streams in turn into the same chunked response
                     from .longform import split_utterance
                     cfg = server.engine.cfg
-                    ph, pu, style = parse_utterance_arrays(
-                        self._read_json(), cfg)
+                    with profiling.span("daemon.read"):
+                        ph, pu, style = parse_utterance_arrays(
+                            self._read_json(), cfg)
                     if len(ph) == 0:
                         raise ValueError("empty phoneme sequence")
                     srcs, puns, lens = split_utterance(
@@ -597,7 +630,8 @@ class TTSServer:
                     windows = [(srcs[i:i + 1], puns[i:i + 1], style,
                                 lens[i:i + 1]) for i in range(len(lens))]
                 else:
-                    windows = [self._read_utterance()]
+                    with profiling.span("daemon.read"):
+                        windows = [self._read_utterance()]
                 sr = server.engine.cfg.sampling_rate
                 self.send_response(200)
                 self.send_header("Content-Type", "audio/wav")
@@ -606,10 +640,11 @@ class TTSServer:
                 self._body_started = True
 
                 def chunk(b: bytes):
-                    self.wfile.write(f"{len(b):X}\r\n".encode())
-                    self.wfile.write(b)
-                    self.wfile.write(b"\r\n")
-                    self.wfile.flush()
+                    with profiling.span("daemon.write"):
+                        self.wfile.write(f"{len(b):X}\r\n".encode())
+                        self.wfile.write(b)
+                        self.wfile.write(b"\r\n")
+                        self.wfile.flush()
 
                 # streaming-WAV convention: unknown-length sizes; players
                 # read until the stream ends
