@@ -1068,7 +1068,7 @@ def engine_remainder(cfg, engine):
     err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
     same = all(np.array_equal(a, b) for a, b in zip(got, one))
     log(f"{precision} synthesize_async + fetch vs synthesize (B=3, mixed lengths): wav "
-        f"max|d| {err:.3e} (atol {atol}: the vocoder runs at another bucket); equal to "
+        f"max|d| {err:.3e} (atol {atol}; both vocode at the bucket of the longest row); equal to "
         f"single_rtt=True bit for bit: {same}")
     if not err <= atol or not same:
         raise RuntimeError(f"synthesize_async differs: {err:.3e}, single_rtt equal {same}")
@@ -1343,10 +1343,11 @@ def daemon_latency(engine, client, precision, request, want):
 
 def ladder_answers(engine, request):
     """The engine's PCM16 answer to `request` at every ladder size, as a
-    batched dispatch gives it (synthesize_async: the largest bucket; a batch
-    of k equal requests padded to ladder size L is L equal rows).  Each is
-    held against the plain pipeline (every stage through mrf_stage_ref) at
-    the same batch size and bucket, at the pipeline gate of the dtype."""
+    batched dispatch gives it (synthesize_async: the bucket of the
+    dispatch's longest row; a batch of k equal requests padded to ladder
+    size L is L equal rows).  Each is held against the plain pipeline (every
+    stage through mrf_stage_ref) at the same batch size and bucket, at the
+    pipeline gate of the dtype."""
     import numpy as np
     ph, st, pu = request
     precision = engine.cfg.compute_dtype
@@ -1356,16 +1357,18 @@ def ladder_answers(engine, request):
     def answers():
         return {L: engine.synthesize_async(np.repeat(ph[None], L, 0), np.repeat(pu[None], L, 0),
                                            np.repeat(st[None], L, 0), np.repeat(n, L),
-                                           pcm16=True)()[0][0]
+                                           pcm16=True)()
                 for L in engine.batch_ladder}
 
-    got = answers()
+    runs = answers()
+    got = {L: wavs[0] for L, (wavs, _) in runs.items()}
+    buckets = {L: engine.pick_bucket(int(lens.max())) for L, (_, lens) in runs.items()}
     with plain_vocoder():
-        plain = answers()
+        plain = {L: wavs[0] for L, (wavs, _) in answers().items()}
     worst = {L: hold(got[L], plain[L], gate, f"the batched answer at B={L}, bucket "
-                     f"{engine.mel_buckets[-1]}, against the plain pipeline at that shape")
+                     f"{buckets[L]}, against the plain pipeline at that shape")
              for L in got}
-    log(f"{precision} engine.synthesize_async at B={list(got)}, bucket {engine.mel_buckets[-1]}: "
+    log(f"{precision} engine.synthesize_async at B={list(got)}, buckets {buckets}: "
         f"kernel pipeline vs plain pipeline at the same shape, PCM16 LSB {worst} (gate {gate:g})")
     return got
 
@@ -1374,7 +1377,8 @@ def daemon_load(server, precision, request, want, label, batched=None):
     """LOAD_CLIENTS closed-loop client threads, LOAD_ROUNDS requests each.
     Past the batcher every answer is held against the direct one (`want`:
     B=1, its own bucket).  Through the batcher a request runs at another
-    batch size and at the largest bucket; the daemon says at which size
+    batch size and at the bucket of its dispatch's longest request (here all
+    requests are one, so the bucket is its own); the daemon says at which size
     (X-Batch-Size), and the answer is held to 1 LSB against the engine's own
     at that size (`batched`: ladder_answers, each held against the plain
     pipeline).  In float32 it is also held against the direct answer; in
@@ -1685,7 +1689,8 @@ def daemon_path(cfg, params, engine, models, tmp, precision, subprocess_too):
                 TTSClient(*batching.address, timeout=120).synthesize(*request)
                 lat.append(1e3 * (time.perf_counter() - t1))
             log(f"{precision} daemon, a lone request through the batcher (vocodes at bucket "
-                f"{batching.engine.mel_buckets[-1]}): p50 {statistics.median(lat):.2f} ms of 10; "
+                f"{batching.engine.pick_bucket(len(lone) // cfg.hop_size)}): p50 "
+                f"{statistics.median(lat):.2f} ms of 10; "
                 f"load: batching / off = {on / off:.2f}")
         finally:
             batching.shutdown()

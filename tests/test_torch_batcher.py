@@ -24,6 +24,7 @@ from zerovox_tpu_torch.runtime.batcher import DynamicBatcher
 from zerovox_tpu_torch.runtime.client import parse_wav_bytes
 from zerovox_tpu_torch.runtime.engine import TTSEngine
 from zerovox_tpu_torch.runtime.server import TTSServer
+from zerovox_tpu_torch.utils import profiling
 
 CFG = TINY_CONFIG
 JSON = {"Content-Type": "application/json"}
@@ -57,6 +58,24 @@ def _utt(rng, n=None):
             rng.integers(0, CFG.num_puncts, size=(1, P)).astype(np.int32),
             rng.normal(scale=0.1, size=(1, CFG.d_model)).astype(np.float32),
             np.asarray([P if n is None else n], np.int32))
+
+
+@pytest.fixture
+def rec(monkeypatch):
+    """A fresh span recorder in the process recorder's place, on."""
+    r = profiling.SpanRecorder(size=1 << 12)
+    monkeypatch.setattr(profiling, "RECORDER", r)
+    r.on = True
+    return r
+
+
+def _rows(rng, lengths):
+    """One batch of utterances with these phoneme counts."""
+    return [np.concatenate(a) for a in zip(*(_utt(rng, n) for n in lengths))]
+
+
+def _named(rec, name):
+    return [e for e in rec.entries() if e.name == name]
 
 
 class _Wrapped:
@@ -179,6 +198,76 @@ def test_batched_bf16_matches_direct(params):
         assert b.snapshot()["max_batch"] >= 2
     finally:
         b.stop()
+
+
+# 10 rows: a ladder-top chunk of 8 short rows (mel_len <= 8, bucket 16 at the
+# TINY engine's grid 16, 32, 64) and a chunk of 2 longer ones (bucket 32)
+SPLIT_LENGTHS = (4, 3, 2, 1, 4, 3, 2, 1, 11, 7)
+
+
+def test_async_issues_the_vocoder_in_fetch(engine, rec):
+    """synthesize_async issues the fronts alone and waits for nothing:
+    no "issue.vocode" span and no "engine.sync" before fetch() is called;
+    fetch() issues one vocoder per ladder chunk."""
+    src, pun, sty, n = _rows(np.random.default_rng(11), SPLIT_LENGTHS)
+    fetch = engine.synthesize_async(src, pun, sty, n)
+    assert len(_named(rec, "issue.front")) == 2
+    assert _named(rec, "issue.vocode") == [] and _named(rec, "engine.sync") == []
+    wavs, lens = fetch()
+    assert len(_named(rec, "issue.vocode")) == 2 and len(wavs) == len(lens) == 10
+
+
+@pytest.mark.parametrize("pcm16", [False, True])
+def test_async_vocodes_each_chunk_at_its_bucket(engine, rec, pcm16):
+    """Each ladder chunk vocodes at pick_bucket of its longest row, read from
+    the "vocoder.frames" counters (b == rows x bucket), not at max_seq_len;
+    the answers equal synthesize()'s (f32 within 1e-6, PCM16 within 1 LSB)."""
+    src, pun, sty, n = _rows(np.random.default_rng(12), SPLIT_LENGTHS)
+    want, want_len = engine.synthesize(src, pun, sty, n, pcm16=pcm16)
+    before = len(_named(rec, "vocoder.frames"))
+    got, got_len = engine.synthesize_async(src, pun, sty, n, pcm16=pcm16)()
+    np.testing.assert_array_equal(got_len, want_len)
+    frames = _named(rec, "vocoder.frames")[before:]
+    chunks = (got_len[:8], got_len[8:])
+    buckets = [engine.pick_bucket(int(c.max())) for c in chunks]
+    assert buckets == [16, 32]
+    assert [(f.a, f.b) for f in frames] == [(int(c.sum()), len(c) * b)
+                                            for c, b in zip(chunks, buckets)]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, rtol=0, atol=1 if pcm16 else 1e-6)
+
+
+def test_async_untrimmed_vocodes_at_the_largest_bucket(engine, rec):
+    """trim=False promises the full padded buffer: every chunk still vocodes
+    at mel_buckets[-1], and the answers equal synthesize(trim=False)'s."""
+    src, pun, sty, n = _rows(np.random.default_rng(13), SPLIT_LENGTHS)
+    got, got_len = engine.synthesize_async(src, pun, sty, n, trim=False)()
+    frames = _named(rec, "vocoder.frames")
+    assert [f.b for f in frames] == [8 * CFG.max_seq_len, 2 * CFG.max_seq_len]
+    want, want_len = engine.synthesize(src, pun, sty, n, trim=False)
+    np.testing.assert_array_equal(got_len, want_len)
+    for a, b in zip(got, want):
+        assert a.shape == (CFG.wav_len,)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_batcher_vocodes_on_the_completion_pool(engine, rec):
+    """Through the batcher the dispatch issues fronts only: every
+    "issue.vocode" is caused by a "batcher.fetch", none by a dispatch, and
+    the dispatcher thread records no "engine.sync"."""
+    b = DynamicBatcher(engine, window_ms=1.0)
+    try:
+        rng = np.random.default_rng(14)
+        _run_threads(lambda i: b.synthesize(*_utt(rng, 2 + i)), 3)
+    finally:
+        b.stop()
+    dispatches = _named(rec, "batcher.dispatch")
+    fetches = {f.id for f in _named(rec, "batcher.fetch")}
+    vocodes = _named(rec, "issue.vocode")
+    assert dispatches and vocodes and {v.cause for v in vocodes} <= fetches
+    dispatcher = {d.thread for d in dispatches}
+    assert not [s for s in _named(rec, "engine.sync") if s.thread in dispatcher]
 
 
 def test_idle_request_dispatches_immediately(engine):

@@ -178,12 +178,12 @@ def test_reload_params(rng, model):
 
 @pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 def test_synthesize_async_and_single_rtt(rng, model, precision):
-    """synthesize_async launches everything and fetch() collects it: the
-    same mel_len and waveforms as synthesize (the vocoder runs at the largest
-    bucket instead of the request's, which leaves the trimmed part equal to
-    atol 2e-5 in f32 and 2 bf16 ulps in bf16), for a batch larger than the
-    ladder top too; single_rtt=True is that path bit for bit, and is off by
-    default."""
+    """synthesize_async launches the fronts and fetch() vocodes and collects:
+    the same mel_len and waveforms as synthesize (each ladder chunk vocodes
+    at the bucket of its own longest row, synthesize at the whole batch's,
+    which leaves the trimmed part equal to atol 2e-5 in f32 and 2 bf16 ulps
+    in bf16), for a batch larger than the ladder top too; single_rtt=True is
+    that path bit for bit, and is off by default."""
     pj, pt = model
     te = TTSEngine(pt, TINY_CONFIG, mel_buckets=(24, 40), batch_ladder=(1, 2),
                    precision=precision, device="cpu")

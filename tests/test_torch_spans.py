@@ -205,10 +205,11 @@ def test_request_ids_cross_the_batcher(rec, params):
     engine = TTSEngine(params, CFG, mel_buckets=(16, 32), device="cpu")
     engine.warmup(batch=engine.batch_ladder[-1])
     b = DynamicBatcher(engine, window_ms=1.0)
+    lens = {}
     try:
         def one(k):
             with profiling.span("daemon.request", rid=100 + k):
-                return b.synthesize(*_utt(k, n=6 + k))
+                _, lens[100 + k] = b.synthesize(*_utt(k, n=6 + k))
 
         threads = [threading.Thread(target=one, args=(k,)) for k in range(3)]
         for t in threads:
@@ -230,12 +231,14 @@ def test_request_ids_cross_the_batcher(rec, params):
     fetches = {f.id: f for f in e["batcher.fetch"]}
     for c in e["vocoder.frames"]:
         if c.cause in fetches:                 # counted in fetch(), for the dispatch's requests
-            assert c.rid == fetches[c.cause].rid and c.b == engine.ladder_size(len(c.rid)) * \
-                CFG.max_seq_len
-    for name in ("issue.front", "issue.vocode"):
+            bucket = engine.pick_bucket(max(lens[r] for r in c.rid))
+            assert c.rid == fetches[c.cause].rid and c.a == sum(lens[r] for r in c.rid)
+            assert c.b == engine.ladder_size(len(c.rid)) * bucket
+    # the fronts are issued by the dispatch, the vocoders by the fetch that read mel_len
+    for name, causes in (("issue.front", dispatches), ("issue.vocode", fetches)):
         issued = [x for x in e[name] if x.rid is not None]          # not the warm-up's
-        assert issued and {x.cause for x in issued} <= set(dispatches)
-        assert all(x.rid == dispatches[x.cause].rid for x in issued)
+        assert issued and {x.cause for x in issued} <= set(causes)
+        assert all(x.rid == causes[x.cause].rid for x in issued)
 
 
 # ------------------------------------------------------------------ the daemon

@@ -28,10 +28,12 @@ interpreter lock.  `max_inflight` dispatches may be in flight at once; the
 semaphore doubles as backpressure: when the card is saturated the
 dispatcher blocks, the queue fills, and the next batch forms larger.
 
-`synthesize_async` vocodes at the largest bucket (it launches before
-mel_len is known), so a request through the batcher costs more card time
-than one past it (a 240-frame request is vocoded as 1500 frames); measured
-times are in PERF.md.  "Idle" above means that the dispatcher found its
+The dispatcher thread issues only the fronts and never waits for the
+card: the fetch() on the completion pool waits for the dispatch's mel
+lengths, then issues its vocoder at the bucket of its longest request (as
+`synthesize` does), so a request through the batcher pays for the padding
+up to its dispatch's longest row, not up to max_seq_len; measured times
+are in PERF.md.  "Idle" above means that the dispatcher found its
 queue empty and slept: on the CPU, where a dispatch computes before it
 returns, an answer can reach its client before the dispatcher is back at
 its queue, and a client that asks again at once then waits out the window.

@@ -293,13 +293,15 @@ class TTSEngine:
         Returns (per-utterance waveforms, trimmed to mel_len*hop when
         trim=True, else the full padded buffer; mel_len array).
 
-        single_rtt=True delegates to synthesize_async() + fetch: the
+        single_rtt=True delegates to synthesize_async() + fetch: the same
+        host waits (mel_len, then the waveforms) and the same buckets, each
+        ladder chunk vocoded at the bucket of its own longest row.  It is off
+        by default, where the JAX package turns it on for B == 1: there the
         vocoder runs at the largest bucket, launched before mel_len is read,
-        so the call waits on the device once instead of twice.  It is off
-        by default, where the JAX package turns it on for B == 1: there a
-        host sync is a round trip to a remote device and costs more than
-        vocoding 1500 frames instead of 256; on a local card a sync costs
-        microseconds and the longer vocode milliseconds (PERF.md)."""
+        because a host sync is a round trip to a remote device and costs
+        more than vocoding 1500 frames instead of 256; on a local card a
+        sync costs microseconds and the longer vocode milliseconds
+        (PERF.md)."""
         if single_rtt:
             return self.synthesize_async(src_seq, puncts, style_embed,
                                          num_phonemes=num_phonemes, trim=trim, pcm16=pcm16)()
@@ -319,36 +321,39 @@ class TTSEngine:
                          trim: bool = True, pcm16: bool = False
                          ) -> Callable[[], Tuple[List[np.ndarray], np.ndarray]]:
         """Launch synthesis without waiting for the device; returns a
-        fetch() closure.
+        fetch() closure that finishes it.
 
-        The front and a vocoder at the largest bucket (which covers every
-        mel length, so nothing is ever redone) are launched with no host
-        sync, ladder chunk by ladder chunk, and each chunk's waveform and
-        mel_len start their copy into pinned host memory behind it.
-        fetch() waits for each chunk's copies and trims on the host.  A
-        caller can launch batch k+1 while batch k is still computing or
-        being fetched."""
+        The front is launched with no host sync, ladder chunk by ladder
+        chunk, and each chunk's mel_len starts its copy into pinned host
+        memory behind it.  fetch() waits for each chunk's mel_len, vocodes
+        the chunk at the bucket of its longest row (trim=False: at the
+        largest bucket), as synthesize() does, and waits for the waveforms'
+        copies and trims on the host.  The calling thread never waits for
+        the device, so a caller can launch batch k+1 while batch k is still
+        computing or being fetched on another thread."""
         models = self._models
         src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
-        bucket = self.mel_buckets[-1]
-        chunks = []
+        fronts = []
         for padded, n in self._ladder_chunks(range(src.shape[0])):
             mel, mel_len = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
                                        models)
-            wav = self._vocode(mel[:, :bucket], pcm16, models)
-            chunks.append((to_host_async(wav), to_host_async(mel_len), n, len(padded)))
+            fronts.append((mel, to_host_async(mel_len), n, len(padded)))
 
         def fetch() -> Tuple[List[np.ndarray], np.ndarray]:
-            wavs: List[np.ndarray] = []
-            lens = []
-            for wav_p, len_p, n, size in chunks:
+            vocoded = []
+            for mel, len_p, n, size in fronts:
                 with profiling.span("engine.sync"):
                     len_n = wait_host(len_p).numpy()[:n]
+                bucket = self.pick_bucket(int(len_n.max())) if trim else self.mel_buckets[-1]
+                wav = self._vocode(mel[:, :bucket], pcm16, models)
+                vocoded.append((to_host_async(wav), len_n, n, size, bucket))
+            wavs: List[np.ndarray] = []
+            for wav_p, len_n, n, size, bucket in vocoded:
+                with profiling.span("engine.sync"):
                     wav_h = wait_host(wav_p).numpy()[:n]
                 _count_frames(len_n, size, bucket)
                 wavs.extend(self._trim(wav_h, len_n, trim))
-                lens.append(len_n)
-            return wavs, np.concatenate(lens)
+            return wavs, np.concatenate([v[1] for v in vocoded])
 
         return fetch
 
