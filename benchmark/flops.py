@@ -9,7 +9,10 @@ written once (activations and weights), whatever the kernel reads again.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from numbers import Integral
+from typing import Optional, Sequence, Union
+
+from benchmark.reference.geometry import resblock_kernel_sizes
 
 # One NVIDIA H100 SXM (NVIDIA's data sheet, dense, at 700 W).  float32 is
 # served through 3xTF32 products (three TF32 tensor-core products each), so
@@ -20,21 +23,27 @@ ELEM_BYTES = {"bfloat16": 2, "float32": 4}
 
 
 def mrf_stage(B: int, L_in: int, C_in: int, L_out: int, C: int,
-              dilation_sets: Sequence[Sequence[int]], kernel_size: int,
+              dilation_sets: Sequence[Sequence[int]], kernel_size: Union[int, Sequence[int]],
               up_k: Optional[int], up_stride: Optional[int], elem: int):
     """(operations, bytes) of one MRF stage call: the optional transposed-conv
     upsample (C_in -> C, kernel up_k, stride up_stride; each output row
     takes up_k / up_stride taps), then len(dilation_sets) resblocks of two
-    C -> C convs of `kernel_size` taps per dilation, on B x L_out rows."""
+    C -> C convs per dilation, on B x L_out rows.  `kernel_size` is every
+    resblock's taps, or a sequence of each resblock's, one per dilation set."""
     rows = B * L_out
     ops = 0.0
     w = 0
     if up_k is not None:
         ops += 2.0 * rows * C * C_in * up_k / up_stride
         w += C * C_in * up_k + C
-    n_convs = 2 * sum(len(d) for d in dilation_sets)
-    ops += n_convs * 2.0 * rows * C * C * kernel_size
-    w += n_convs * (C * C * kernel_size + C)
+    if isinstance(kernel_size, Integral):
+        kernel_size = [kernel_size] * len(dilation_sets)
+    if len(kernel_size) != len(dilation_sets):
+        raise ValueError(f"{len(kernel_size)} kernel sizes for {len(dilation_sets)} resblocks")
+    for dils, k in zip(dilation_sets, kernel_size):
+        n_convs = 2 * len(dils)
+        ops += n_convs * 2.0 * rows * C * C * k
+        w += n_convs * (C * C * k + C)
     nbytes = elem * (B * L_in * C_in + rows * C + w)
     return ops, nbytes
 
@@ -80,7 +89,7 @@ def vocoder_ops(m: dict, frames: int) -> float:
         L *= s
         c_in, c_out = c >> i, c >> (i + 1)
         ops += mrf_stage(1, L // s, c_in, L, c_out, m["resblock_dilations"][:m["num_resblocks"]],
-                         m["resblock_kernel_size"], uk, s, 0)[0]
+                         resblock_kernel_sizes(m), uk, s, 0)[0]
     ops += 2.0 * L * (c >> len(m["upsample_scales"])) * k
     return ops
 

@@ -1,9 +1,10 @@
 """batcher.mean_batch (requests): layer Batcher (runtime/batcher.py
 DynamicBatcher); moves card_ms_per_audio_s: a fuller dispatch spreads the
-fixed-shape front and the 1500-frame vocode over more speech.  Requests
-packed per dispatch over the traced sub-window: the change of the batcher's
-own counters (server.batcher.snapshot(): requests, dispatches) across it.  Nothing to
-read where the daemon runs no batcher or dispatched nothing."""
+fixed-shape front and each vocode (at the dispatch's bucket) over more
+speech.  Requests packed per dispatch over the traced sub-window: the
+change of the batcher's own counters (server.batcher.snapshot():
+requests, dispatches) across it.  Nothing to read where the daemon runs
+no batcher or dispatched nothing."""
 
 
 def read(ctx):

@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .geometry import resblock_kernel_sizes
+
 FP8_MAX = 448.0
 
 
@@ -214,12 +216,13 @@ class Reference:
         k = m["hifigan_kernel_size"]
         x = (mel - self.w["hifigan.mean"][:, None]) / self.w["hifigan.scale"][:, None]
         x = self.conv(x, "_meldec.input_conv", padding=(k - 1) // 2)
-        nrb, rk = m["num_resblocks"], m["resblock_kernel_size"]
+        rks = resblock_kernel_sizes(m)
+        nrb = len(rks)
         n_st = len(m["upsample_scales"])
         for i in range(n_st):
             x = self.upsample(F.leaky_relu(x, 0.1), i)
             acc = 0
-            for j in range(nrb):
+            for j, rk in enumerate(rks):
                 r = x
                 for dd, dil in enumerate(m["resblock_dilations"][j]):
                     pre = f"_meldec.blocks.{i * nrb + j}"

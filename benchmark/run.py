@@ -82,8 +82,10 @@ class Recorder:
             y = orig(x, blocks, dilation_sets, kernel_size, **kw)
             if self.on:
                 up = kw.get("upsample")
+                ks = (tuple(kernel_size[:len(blocks)]) if isinstance(kernel_size, (list, tuple))
+                      else kernel_size)
                 self.calls.append((x.shape[0], x.shape[1], x.shape[2], y.shape[1], y.shape[2],
-                                   [tuple(d) for d in dilation_sets[:len(blocks)]], kernel_size,
+                                   [tuple(d) for d in dilation_sets[:len(blocks)]], ks,
                                    None if up is None else up["w"].shape[2],
                                    None if up is None else up["stride"], x.element_size()))
             return y
@@ -101,6 +103,26 @@ def model_config(config: dict):
 
 def counters(server) -> dict:
     return {} if server.batcher is None else {"batcher": server.batcher.snapshot()}
+
+
+def window_counts(server) -> dict:
+    """The batcher's counters and the vocoder's summed frames (needed,
+    vocoded) from the program's recorder, read at the window's start and
+    after its last answer: what the whole window packed and padded."""
+    from zerovox_tpu_torch.utils import profiling
+    t = profiling.RECORDER.totals().get("vocoder.frames", {})
+    return {**counters(server), "frames": (t.get("a", 0), t.get("b", 0))}
+
+
+def window_packing(w0: dict, w1: dict) -> dict:
+    """Requests per dispatch and frames needed over frames vocoded (%) over
+    the window, from two window_counts; None where nothing was counted."""
+    b0, b1 = w0.get("batcher"), w1.get("batcher")
+    dispatches = None if b0 is None else b1["dispatches"] - b0["dispatches"]
+    need, done = (w1["frames"][0] - w0["frames"][0], w1["frames"][1] - w0["frames"][1])
+    return {"dispatches": dispatches,
+            "mean_batch": (b1["requests"] - b0["requests"]) / dispatches if dispatches else None,
+            "vocoder_fill": 100.0 * need / done if done > 0 else None}
 
 
 def audio_rate(records, t0: float, t1: float, sampling_rate: int):
@@ -180,6 +202,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: s
     try:
         child = start_clients(cell, seed, seconds, server.address[1], work, model)
         setup_s = time.perf_counter() - T_START
+        w0 = window_counts(server)
         if collector is not None:
             collector.start()
         child.stdin.write("GO\n")
@@ -212,6 +235,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: s
         if child.wait(timeout=seconds + 600) != 0:
             raise RuntimeError(f"load generator exited {child.returncode}")
         child = None
+        w1 = window_counts(server)
         log = json.loads((work / "log.json").read_text())
         t_end = max((r["t_done"] for r in log["records"]), default=log["t_go"])
         with np.load(work / "sample.npz") as z:
@@ -292,6 +316,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device: s
                       "audio_s_per_s": audio_rate(records, log["t_go"], t_end + 1e-6,
                                                   model["sampling_rate"]),
                       "card_busy_share": None if busy is None or span <= 0 else busy / span,
+                      "window": window_packing(w0, w1),
                       "cupti": None if collector is None else {
                           "records": collector.records, "error": collector.error,
                           "read_s": t_read,

@@ -28,6 +28,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from benchmark.reference.geometry import resblock_kernel_sizes
+
 Leaf = Tuple[str, Tuple[int, ...], tuple]      # (GGUF name, shape, init)
 
 
@@ -136,11 +138,11 @@ def leaves(m: dict, assumed: dict) -> List[Leaf]:
     conv("_meldec.input_conv", m["num_mels"], c, m["hifigan_kernel_size"])
     c_last = m["stage_channels"][-1][1]
     conv("_meldec.output_conv.1", c_last, 1, m["hifigan_kernel_size"])
-    nrb = m["num_resblocks"]
-    rk = m["resblock_kernel_size"]
+    rks = resblock_kernel_sizes(m)
+    nrb = len(rks)
     for i, (ci, co) in enumerate(m["stage_channels"]):
         conv(f"_meldec.upsamples.{i}.1", ci, co, m["upsample_kernel_sizes"][i])
-        for j in range(nrb):
+        for j, rk in enumerate(rks):
             bidx = i * nrb + j
             for dd in range(len(m["resblock_dilations"][j])):
                 for cset in ("convs1", "convs2"):
