@@ -18,8 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
      kernel against its plain PyTorch version (mrf_stage_ref) on
      the four production MRF stages (the options vocode gives them) and
      the mrf_stage_unfolded entry, TF32 off, in float32 and in bfloat16, at
-     every shape a serving process launches: each batch size of the
-     engine's ladder (1, 2, 4, 8) at each mel bucket (256, 512, 1024, 1500)
+     every shape a serving process launches: each batch size 1-8 (the
+     engine's ladder 1, 2, 4, 8, and the real rows every engine path
+     vocodes) at each mel bucket (256, 512, 1024, 1500)
      and every window size of the streaming chunk plan (80, 96 and 44 mel
      frames: the first chunk, an interior one, the tail), and in float32
      phase 9's windows (phase9_shapes: the time-sharded TP windows of 786
@@ -27,7 +28,11 @@ Phases (any failure exits non-zero and prints no result line):
      vocoder's 76 and 92 at B = 1; and example_shapes: 05's TP windows at
      B = 1); the unfolded entry also in the f16-staged mode (under
      f16_staging, stage 2's geometry at B=1 and full length, against staged
-     mrf_stage_ref at phase 11's ulp gate, timed beside its bound); at three of them
+     mrf_stage_ref at phase 11's ulp gate, timed beside its bound); HiFi-GAN
+     V1's stages in bfloat16 (resblock kernels 3/7/11, each CTA at its own;
+     every stage in the kernel, stage 1 in one launch per dilation slot:
+     all four at B = 1 and 8 over 1500 frames, stage 1 also at every batch
+     size 1-8 and bucket; check_v1_stages); at three of them
      (B=1 full length, B=1 and B=8 at bucket 256) and at the windows, time
      every launch with CUDA events next to the plain version and its bounds (f32: f32 FMA and
      3xTF32 tensor cores; bf16: dense bf16 tensor cores); print each
@@ -228,6 +233,9 @@ PCM_LSB_STREAM = {"float32": 1, "bfloat16": STREAM_ATOL_BF16 * 32767}
 # the engine's batch ladder and mel buckets (its defaults; the last bucket is
 # max_seq_len): every (batch size, bucket) a serving process can vocode at
 LADDER, BUCKETS = (1, 2, 4, 8), (256, 512, 1024, 1500)
+# the batch sizes the vocoder runs at: every real row count up to the
+# ladder's top (each engine path vocodes a chunk's real rows)
+VOCODE_ROWS = tuple(range(1, LADDER[-1] + 1))
 LOAD_CLIENTS, LOAD_ROUNDS = 8, 10              # closed-loop client threads x requests each
 LATENCY_REQUESTS = 30
 # `python3 chip_smoke.py --multi-device-only`: phases 1-3, then phase 9 alone
@@ -369,7 +377,7 @@ def check_one(ms, name, i, x, blocks, kw, cfg, packed):
     plus one ulp of max|ref|."""
     import torch
     fn = getattr(ms, name)
-    dils, kr = cfg.resblock_dilations, cfg.resblock_kernel_size
+    dils, kr = cfg.resblock_dilations, cfg.resblock_kernels
     got = fn(x, blocks, dils, kr, packed=packed, **kw)
     ref = ms.mrf_stage_ref(x, blocks, dils, kr, **kw)
     torch.cuda.synchronize()
@@ -463,7 +471,7 @@ def launch_plan(ms, cfg, x, C, K_up, kw, L_out, **change):
     """The geometry mrf_stage launches this call with (`change`: another
     chunk or ring depth, for a variant)."""
     up = kw.get("upsample")
-    return ms.stage_plan(x.device, C, cfg.resblock_dilations, cfg.resblock_kernel_size,
+    return ms.stage_plan(x.device, C, cfg.resblock_dilations, cfg.resblock_kernels,
                          x.shape[0], L_out, x.shape[2] if up else 0, K_up,
                          up["stride"] if up else 1, x.dtype, **change)
 
@@ -492,9 +500,9 @@ def check_stages(cfg, params, gen, pk, extra=()):
     frames for the first chunk, 64 + 16 of overlap on one side; 96 for an
     interior chunk; 44 for the tail of a 1500-frame plan, 28 + 16), where a
     stage is less than one wave of clusters.  Held and not timed: every
-    other batch size of LADDER at every bucket of BUCKETS (what the
-    batcher, /batch, ?split=1 and the warm-ups vocode at: tile_plan depends
-    on B, L and the wave, so each is another launch geometry), and every
+    other batch size of VOCODE_ROWS (1-8) at every bucket of BUCKETS (what
+    the batcher, /batch, ?split=1 and the warm-ups vocode at: tile_plan
+    depends on B, L and the wave, so each is another launch geometry), and every
     (B, mel frames) of `extra` (phase 9's windows).  Each launch runs on
     weights packed beforehand, as the engine packs them."""
     import torch
@@ -516,7 +524,7 @@ def check_stages(cfg, params, gen, pk, extra=()):
         raise RuntimeError(f"the last bucket is {BUCKETS[-1]}, max_seq_len {cfg.max_seq_len}")
     timed = [("B=1 full", 1, cfg.max_seq_len), ("B=1 bucket 256", 1, 256),
              ("B=8 bucket 256", 8, 256)] + [(f"B=1 window {w}", 1, w) for w in windows]
-    for B, L0 in [(B, L0) for B in LADDER for L0 in BUCKETS] + list(extra):
+    for B, L0 in [(B, L0) for B in VOCODE_ROWS for L0 in BUCKETS] + list(extra):
         if (B, L0) in {t[1:] for t in timed}:
             continue
         worst, clusters = [], []
@@ -583,6 +591,86 @@ def check_stages(cfg, params, gen, pk, extra=()):
                if tot["fma"] else "bf16 tensor cores ")
             + f"{tot['tc']:.3f} ms ({100 * tot['tc'] / tot['ms']:.0f} %)")
     return records, packs, windows, held
+
+
+# HiFi-GAN V1's vocoder (jik876/hifi-gan config_v1.json) behind zerovox
+# medium's front: benchmark/configs/zerovox-hifiganv1-bf16.json's geometry
+V1_VOCODER = dict(hop_size=256, sampling_rate=22050, upsample_scales=(8, 8, 2, 2),
+                  upsample_kernel_sizes=(16, 16, 4, 4), resblock_kernel_sizes=(3, 7, 11))
+
+
+def check_v1_stages(gen, pk):
+    """HiFi-GAN V1's four stages in bfloat16 (resblock kernels 3/7/11,
+    upsample 8-8-2-2): the route sends every stage to the kernel, each CTA
+    at its own resblock's size, and stage 1 (C=256, whose 60-row halo no
+    window holds) runs in one launch per dilation slot (ms.stage_segments).
+    Every stage held against mrf_stage_ref at the bf16 gate (check_one) at
+    B=1 and B=8 over 1500 mel frames, stage 1 also at every batch size of
+    VOCODE_ROWS at every bucket of BUCKETS (each launch's tile follows B
+    and L); at B=1 each stage timed beside the plain version and its
+    bound, its launches described."""
+    import torch
+    from zerovox_tpu_torch.config import ZeroVoxConfig
+    from zerovox_tpu_torch.models.hifigan import pack_vocoder, stage_routes
+    from zerovox_tpu_torch.models.pipeline import cast_params
+    from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
+    from zerovox_tpu_torch.params import init_params
+
+    cfg = ZeroVoxConfig(**V1_VOCODER)
+    params = cast_params(init_params(cfg, seed=0, device="cuda"), torch.bfloat16)
+    routes = stage_routes(params, cfg)
+    if routes != [True] * 4:
+        raise RuntimeError(f"HiFi-GAN V1 bf16 routes {routes}, want every stage in the kernel")
+    packs = pack_vocoder(params, cfg)
+    dils, kr = cfg.resblock_dilations, cfg.resblock_kernels
+    # every conv's taps (stage_work counts n_convs x kr of them)
+    taps = sum(2 * len(d) * k for d, k in zip(dils, kr))
+    segments = ms.stage_segments(cfg.hifigan_channels // 2, dils, kr)
+    log(f"HiFi-GAN V1 bf16 (resblocks {kr}, upsample {cfg.upsample_scales}): every stage in "
+        f"the kernel, stage 1 in {len(segments)} launches (dilation slots {segments})")
+
+    def plans(x, C, K_up, kw, L_out):
+        up = kw["upsample"]
+        segs = ms.stage_segments(C, dils, kr)
+        return [ms.stage_plan(x.device, C, ms.segment_dilations(dils, seg), kr, x.shape[0], L_out,
+                              *((x.shape[2], K_up, up["stride"]) if n == 0 else (0, 0, 1)),
+                              x.dtype) for n, seg in enumerate(segs)]
+
+    for B in (1, 8):
+        worst, tot = [], dict(ms=0.0, tc=0.0)
+        for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, B, cfg.max_seq_len):
+            got, err, tol = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
+            worst.append(err / tol)
+            if B == 1:
+                ms_k = cuda_ms(lambda: ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw),
+                               reps=5)
+                ms_p = cuda_ms(lambda: ms.mrf_stage_ref(x, blocks, dils, kr, **kw), reps=3)
+                flops, nbytes, bounds, _ = bounds_of(x, got, blocks, kw, C, K_up, taps, 1, pk)
+                tot["ms"] += ms_k
+                tot["tc"] += bounds["tc"]
+                log(f"v1 bf16 B=1 full stage {i + 1}: in {tuple(x.shape)} -> out "
+                    f"{tuple(got.shape)}  max|d| {err:.3e} (tol at max|out| {tol:.3e})  kernel "
+                    f"{ms_k:.3f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms  "
+                    f"bound {bounds['tc']:.3f} ms ({flops / 1e9:.1f} GFLOP)")
+                for plan in plans(x, C, K_up, kw, got.shape[1]):
+                    log(f"    launch: {describe_plan(ms, plan, len(kr))}")
+            del got
+        log(f"v1 bf16 B={B} at {cfg.max_seq_len} mel frames held against the plain version, "
+            f"stages 1-4: max|d| at " + ", ".join(f"{w:.2f}" for w in worst)
+            + " of the tolerance at max|out|"
+            + (f"; kernel {tot['ms']:.3f} ms, bound {tot['tc']:.3f} ms "
+               f"({100 * tot['tc'] / tot['ms']:.1f} %)" if B == 1 else ""))
+    worst = []
+    for B in VOCODE_ROWS:
+        for L0 in BUCKETS:
+            name, i, x, blocks, kw, C, K_up = stage_calls(cfg, params, gen, B, L0)[0]
+            got, err, tol = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
+            worst.append(err / tol)
+            del got
+    log(f"v1 bf16 stage 1 at B {VOCODE_ROWS} x buckets {BUCKETS} held against the plain "
+        f"version: max|d| at most {max(worst):.2f} of the tolerance at max|out|")
+    del params, packs
+    torch.cuda.empty_cache()
 
 
 def staged_unfolded(cfg, params, gen, pk):
@@ -3523,6 +3611,7 @@ def run() -> int:
     records.update(records16)
     shapes |= shapes16
     records["mrf_stage_unfolded_f16_staged"] = staged_unfolded(cfg, params, gen, pk)
+    check_v1_stages(gen, pk)
     if KERNEL_ONLY in sys.argv[1:]:
         time_variants(cfg, params, gen, packs)
         time_variants_bf16(cfg, params16, gen, packs16)

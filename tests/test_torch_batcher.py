@@ -238,6 +238,63 @@ def test_async_vocodes_each_chunk_at_its_bucket(engine, rec, pcm16):
         np.testing.assert_allclose(a, b, rtol=0, atol=1 if pcm16 else 1e-6)
 
 
+def _vocoder_rows(monkeypatch):
+    """The (rows, frames, mels) of every vocode from here on."""
+    from zerovox_tpu_torch.models import hifigan
+    shapes = []
+    vocode = hifigan.vocode
+    monkeypatch.setattr(hifigan, "vocode",
+                        lambda p, c, mel, *a, **kw: shapes.append(tuple(mel.shape)) or
+                        vocode(p, c, mel, *a, **kw))
+    return shapes
+
+
+def test_async_vocodes_the_real_rows(engine, rec, monkeypatch):
+    """A chunk of 3 requests runs its front at the ladder's 4 rows and its
+    vocoder at its 3 real rows ("vocoder.frames" b == 3 x bucket, the
+    vocoder's input 3 rows); the answers equal synthesize()'s (f32 within
+    1e-6: the same per-row arithmetic); warmup() ran that shape."""
+    shapes = _vocoder_rows(monkeypatch)
+    engine.warmup(batch=engine.batch_ladder[-1])
+    warmed = set(shapes)
+    src, pun, sty, n = _rows(np.random.default_rng(15), (5, 3, 9))
+    want, want_len = engine.synthesize(src, pun, sty, n)
+    del shapes[:]
+    got, got_len = engine.synthesize_async(src, pun, sty, n)()
+    (frames,) = _named(rec, "vocoder.frames")[-1:]
+    bucket = engine.pick_bucket(int(got_len.max()))
+    assert shapes == [(3, bucket, CFG.num_mels)] and set(shapes) <= warmed
+    assert (frames.a, frames.b) == (int(got_len.sum()), 3 * bucket)
+    np.testing.assert_array_equal(got_len, want_len)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_warmup_runs_every_vocoder_row_count(engine, monkeypatch):
+    """warmup() vocodes once at every row count up to the ladder top at
+    every bucket (both output types from one vocode), and no shape twice."""
+    shapes = _vocoder_rows(monkeypatch)
+    engine.warmup(batch=engine.batch_ladder[-1], pcm16=True)
+    top = engine.batch_ladder[-1]
+    assert sorted(shapes) == sorted((r, b, CFG.num_mels) for r in range(1, top + 1)
+                                    for b in engine.mel_buckets)
+
+
+@pytest.mark.parametrize("path", ["synthesize", "synthesize_packed"])
+def test_every_path_vocodes_the_real_rows(engine, rec, monkeypatch, path):
+    """synthesize and synthesize_packed vocode a chunk's real rows too (5
+    requests: fronts at the ladder's 8, vocoders at 5, or per bucket group
+    at its own count), as "vocoder.frames" counts them."""
+    shapes = _vocoder_rows(monkeypatch)
+    src, pun, sty, n = _rows(np.random.default_rng(16), (5, 3, 9, 4, 12))
+    _, lens = getattr(engine, path)(src, pun, sty, n)
+    groups = ({engine.pick_bucket(int(lens.max())): 5} if path == "synthesize" else
+              {b: len(ix) for b, ix in engine.group_by_bucket(lens).items()})
+    assert sorted(s[:2] for s in shapes) == sorted((r, b) for b, r in groups.items())
+    frames = _named(rec, "vocoder.frames")[-len(groups):]
+    assert sorted(f.b for f in frames) == sorted(b * r for b, r in groups.items())
+
+
 def test_async_untrimmed_vocodes_at_the_largest_bucket(engine, rec):
     """trim=False promises the full padded buffer: every chunk still vocodes
     at mel_buckets[-1], and the answers equal synthesize(trim=False)'s."""

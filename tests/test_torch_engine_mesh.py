@@ -137,9 +137,11 @@ def test_dp_packed_mixed_batch_matches_jax(dp, jax_dp):
 
 
 def test_dp_warmup_covers_mesh_ladder(dp, monkeypatch):
-    """warm-up at the ladder top runs every (per-device batch, bucket) a
-    request can vocode at, on every data device's slice: a later packed
-    batch of a non-ladder size vocodes no new shape."""
+    """warm-up at the ladder top runs every (per-device rows, bucket) a
+    request can vocode at, on every data device's slice (a chunk's real
+    rows rounded up to a whole row per device: 1-8 of the ladder top's 32
+    over 4 devices): a later packed batch of a non-ladder size vocodes no
+    new shape."""
     shapes = set()
     vocode = hifigan.vocode
 
@@ -150,7 +152,7 @@ def test_dp_warmup_covers_mesh_ladder(dp, monkeypatch):
     monkeypatch.setattr(hifigan, "vocode", recording)
     dp.warmup(batch=dp.batch_ladder[-1], pcm16=True)
     warmed = set(shapes)
-    assert {s[0] for s in warmed} == {1, 2, 4, 8}          # per-device rows of each rung
+    assert {s[0] for s in warmed} == set(range(1, 9))      # per-device rows up to the top's
     assert {s[1] for s in warmed} == set(dp.mel_buckets)
     src, pun, style = _inputs(2, dp.batch_ladder[0] + 1)
     dp.synthesize_packed(src, pun, style)

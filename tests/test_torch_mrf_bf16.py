@@ -296,14 +296,20 @@ def plane_write(mem, plane_bytes, row0, rows, values):
     mem[((c // 8) * plane_bytes + r * 16 + (c % 8) * 2) // 2] = values
 
 
-def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, checks):
+def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, checks,
+                 h_in=None, h_out=None):
     """csrc/mrf_stage_bf16.cu's launch on the CPU: per cluster (batch row,
     time tile) and CTA (resblock), the weight stream, the descriptors, the
     epilogues and the resblock sum as the kernel runs them, with float64
     sums.  The operands are of the packed weights' type (bf16, or f16 in the
     f16-staged mode), the input and output of x's (bf16, or float32: read
-    as it is, written unrounded).  `checks` counts the operand views held
-    against round(leaky(.)) of the window."""
+    as it is, written unrounded).  kr: one kernel size, or one per resblock
+    (each CTA streams its own resblock's taps from the ragged pack).
+    `checks` counts the operand views held against round(leaky(.)) of the
+    window.  h_in, h_out: (n_rb, B, L, C) float64 chain states of a stage
+    split into launches (ms.stage_segments): each CTA starts from its
+    resblock's h_in rows instead of the input, and writes its tile's h into
+    h_out instead of taking the resblock sum."""
     B, L_in, Cin = x.shape
     C = packed.b.shape[1]
     op = packed.w.dtype
@@ -311,8 +317,8 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
     def rb(v):
         return _round_bits(v, op)
 
-    n_rb, half = len(dils), (kr - 1) // 2
-    halo = ms.stage_halo(dils, kr)
+    n_rb, ks = len(dils), ms.resblock_sizes(kr, len(dils))
+    halo = ms.stage_halo(dils, ks)
     kb, mt, W, tile, margin = plan.kb, plan.mt, plan.window, plan.tile, plan.margin
     chunk = kb * C
     pb = plan.plane_rows * 16
@@ -328,6 +334,7 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
     else:
         L_out = L_in
     conv_base = np.cumsum([0] + [2 * len(d) for d in dils])
+    tap_base = np.cumsum([0] + [2 * len(d) * k for d, k in zip(dils, ks)])   # chunk_src's
     y = np.zeros((B, L_out, C))
 
     def gemm(mem, a_of, n_chunks, weights, src_of, act, n_tiles, plane_bytes, rows_in_plane):
@@ -400,6 +407,11 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                             v[~valid[r]] = 0.0
                             for hh in H:
                                 hh[hidx(r[:, None], cols[None, :], C)] = v
+            elif h_in is not None:
+                for rank, hh in enumerate(H):
+                    h0 = np.zeros((W, C))
+                    h0[valid] = h_in[rank, bi, t_base + rows[valid]]
+                    hh[hsw] = h0
             else:
                 h0 = np.zeros((W, C))
                 h0[valid] = xv[bi, t_base + rows[valid]] + ib
@@ -407,6 +419,8 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                     hh[hsw] = h0
             for rank in range(n_rb):
                 buf, h = bufs[rank], H[rank]
+                kr_r = ks[rank]
+                half = (kr_r - 1) // 2
                 operand = rb(_leaky(h[hsw], 0.1))
                 plane_write(buf, pb, margin, rows, operand)
                 lo, hi, q = 0, W, conv_base[rank]
@@ -417,7 +431,7 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                         act = [jj for jj in range(2 * mt) if 64 * jj < hi and 64 * jj + 64 > lo]
                         nb = C // kb
                         if not residual:                 # each tap's operand view, conv1
-                            for tap in range(kr):
+                            for tap in range(kr_r):
                                 for jj in act:
                                     sh = (tap - half) * dd
                                     v = desc_view(buf, (margin + 64 * jj + sh) * 16, pb, 128, 64)
@@ -430,8 +444,9 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                         acc = gemm(buf,
                                    lambda c: margin * 16 + ((c % nb) * kb // 8) * pb
                                    + ((c // nb) - half) * dd * 16,
-                                   kr * nb, w_flat,
-                                   lambda c: (((q * kr) + c // nb) * C + (c % nb) * kb) * C,
+                                   kr_r * nb, w_flat,
+                                   lambda c: ((tap_base[rank] + (q - conv_base[rank]) * kr_r
+                                               + c // nb) * C + (c % nb) * kb) * C,
                                    act, _cdiv(W, 64), pb, plan.plane_rows)
                         b = bias[q]
                         for jj, a in acc.items():
@@ -451,6 +466,10 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
             for r in range(tile):
                 tg = t0 + r
                 if tg >= L_out:
+                    continue
+                if h_out is not None:
+                    for rank, hh in enumerate(H):
+                        h_out[rank, bi, tg] = hh[hsw[halo + r]]
                     continue
                 v = H[0][hsw[halo + r]]
                 for hh in H[1:]:
@@ -485,9 +504,10 @@ def _run_model(rng, C, cin, s, k, dils, kr, L_pre, B, wave, in_leaky, out_leaky,
     """The model against mrf_stage_ref on one stage with an upsample: bf16
     tensors, or (staged) float32 ones with both sides under f16_staging;
     the worst fraction of the mode's gate."""
-    blocks = [{cs: [{"w": _weights(rng, C, C, kr, scale=0.05, staged=staged),
+    blocks = [{cs: [{"w": _weights(rng, C, C, kj, scale=0.05, staged=staged),
                      "b": _weights(rng, C, scale=0.1, staged=staged)}
-                    for _ in ds] for cs in ("convs1", "convs2")} for ds in dils]
+                    for _ in ds] for cs in ("convs1", "convs2")}
+              for ds, kj in zip(dils, ms.resblock_sizes(kr, len(dils)))]
     upw = _weights(rng, C, cin, k, scale=0.05, staged=staged)
     up = dict(w=upw, stride=s, padding=s // 2 + s % 2, output_padding=s % 2)
     x = _weights(rng, B, L_pre, cin, scale=2.0 if staged else 1.0, staged=staged)
@@ -523,6 +543,63 @@ def test_model_matches_plain_production(rng, C, cin, s, k, L_pre):
     worst = _run_model(rng, C, cin, s, k, PROD_DILS, 3, L_pre, 1, 2,
                        0.1 if C == 256 else None, out_leaky)
     assert worst <= 1.0
+
+
+V1_DILS = ((1, 3, 5),) * 3
+
+
+@pytest.mark.parametrize("C,cin,s,k,L_pre", [(32, 64, 2, 4, 50), (128, 256, 8, 16, 10)])
+def test_model_matches_plain_v1_kernel_sizes(rng, C, cin, s, k, L_pre):
+    """HiFi-GAN V1's resblocks (kernels 3/7/11, dilations (1, 3, 5) each;
+    a 60-row halo) at its stages 4 and 2: each CTA streams its own
+    resblock's taps from the ragged pack and shifts them by its own half
+    width, held against mrf_stage_ref at phase 3's bf16 gate; B=1, two
+    clusters."""
+    worst = _run_model(rng, C, cin, s, k, V1_DILS, (3, 7, 11), L_pre, 1, 2, 0.1 if C == 128
+                       else None, 0.1 if C == 128 else 0.01)
+    assert worst <= 1.0
+
+
+@pytest.mark.parametrize("B,L_pre", [(1, 4), (2, 3)])
+def test_model_matches_plain_v1_first_stage(rng, B, L_pre):
+    """HiFi-GAN V1's first stage (C=256, 3/7/11; no window holds its 60-row
+    halo) in three launches, one per dilation slot (halos 10, 20, 30): the
+    first upsamples and hands each resblock's f32 chain state on, the next
+    start from it, the last takes the resblock sum; each launch's weights
+    the views _launch takes (segment_weights), held against mrf_stage_ref
+    at phase 3's bf16 gate, every launch over two time tiles or more."""
+    C, cin, s, k = 256, 512, 8, 16
+    kr = (3, 7, 11)
+    segments = ms.stage_segments(C, V1_DILS, kr)
+    assert segments == ((0, 1), (1, 2), (2, 3))
+    blocks = [{cs: [{"w": _weights(rng, C, C, kj, scale=0.05), "b": _weights(rng, C, scale=0.1)}
+                    for _ in ds] for cs in ("convs1", "convs2")} for ds, kj in zip(V1_DILS, kr)]
+    upw = _weights(rng, C, cin, k, scale=0.05)
+    up = dict(w=upw, stride=s, padding=s // 2 + s % 2, output_padding=s % 2)
+    x = _weights(rng, B, L_pre, cin)
+    in_bias = _weights(rng, C, scale=0.1)
+    packed = ms.pack_stage(blocks, V1_DILS, kr, upw)
+    ref = ms.mrf_stage_ref(x, blocks, V1_DILS, kr, upsample=up, in_bias=in_bias,
+                           in_leaky=0.1, out_leaky=0.1)
+    L_out = transpose_out_len(L_pre, s, k, up["padding"], up["output_padding"])
+    checks = {"conv": 0, "upsample": 0}
+    h, got = None, None
+    launches = list(ms.segment_weights(packed.w, packed.b, V1_DILS, kr, segments))
+    for si, (sd, w_s, b_s) in enumerate(launches):
+        first, last = si == 0, si == len(launches) - 1
+        plan = ms.bf16_plan(C, sd, kr, *((cin, k, s) if first else (0, 0, 1)), B=B,
+                            L_out=L_out, wave=2 * B)
+        assert _cdiv(L_out, plan.tile) > 1 and plan.window == plan.tile + 2 * ms.stage_halo(sd, kr)
+        h_out = None if last else np.zeros((3, B, L_out, C))
+        got = kernel_model(x if first else torch.zeros(B, L_out, C, dtype=torch.bfloat16),
+                           ms.PackedStage(w_s, b_s, packed.w_up if first else None), sd, kr,
+                           up if first else None, in_bias if first else None,
+                           0.1 if first else None, 0.1 if last else None, plan, checks,
+                           h_in=h, h_out=h_out)
+        h = h_out
+    assert checks["conv"] > 0 and checks["upsample"] > 0
+    assert got.shape == ref.shape == (B, L_out, C)
+    assert _gate(got, ref) <= 1.0
 
 
 def test_model_matches_plain_unfolded(rng):

@@ -51,6 +51,10 @@ class ZeroVoxConfig:
     num_resblocks: int = 3
     resblock_kernel_size: int = 3
     resblock_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    # HiFi-GAN's own per-resblock sizes (V1: 3, 7, 11); empty: every resblock
+    # at resblock_kernel_size.  Port-only (the JAX package has one size): to_json
+    # leaves it out when empty, so zerovox's configs serialise as before.
+    resblock_kernel_sizes: Tuple[int, ...] = ()
 
     # ---- numerics ----
     # "float32": full parity with the ggml reference (its f32 accumulation path).
@@ -96,6 +100,12 @@ class ZeroVoxConfig:
         return p
 
     @property
+    def resblock_kernels(self) -> Tuple[int, ...]:
+        """The kernel size of each resblock of an MRF stage: resblock_kernel_sizes
+        where given, else resblock_kernel_size for every resblock."""
+        return self.resblock_kernel_sizes or (self.resblock_kernel_size,) * self.num_resblocks
+
+    @property
     def wav_len(self) -> int:
         return self.max_seq_len * self.hop_size
 
@@ -112,15 +122,23 @@ class ZeroVoxConfig:
                 f"prod(upsample_scales)={self.total_upsample} != hop_size={self.hop_size}")
         if len(self.upsample_scales) != len(self.upsample_kernel_sizes):
             raise ValueError("upsample_scales / upsample_kernel_sizes length mismatch")
+        ks = self.resblock_kernels
+        if len(ks) != self.num_resblocks or any(k < 1 or k % 2 != 1 for k in ks):
+            raise ValueError(f"resblock kernel sizes {ks}: one odd size per resblock "
+                             f"({self.num_resblocks})")
 
     # ------------------------------------------------------------- serialisation
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        d = dataclasses.asdict(self)
+        if not d["resblock_kernel_sizes"]:
+            del d["resblock_kernel_sizes"]
+        return json.dumps(d, indent=2)
 
     @classmethod
     def from_json(cls, s: str) -> "ZeroVoxConfig":
         d = json.loads(s)
-        for k in ("conv_kernel_size", "upsample_scales", "upsample_kernel_sizes"):
+        for k in ("conv_kernel_size", "upsample_scales", "upsample_kernel_sizes",
+                  "resblock_kernel_sizes"):
             if k in d:
                 d[k] = tuple(d[k])
         if "resblock_dilations" in d:

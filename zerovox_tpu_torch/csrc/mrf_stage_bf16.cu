@@ -81,6 +81,16 @@
 //   * one resblock per CTA, the n_rb CTAs of a time tile in one cluster: the
 //     resblock sum reads the cluster's h windows in rank order; the
 //     receptive-field halo is recomputed, so clusters run in any order.
+//     Each resblock has its own kernel size (HiFi-GAN V1: 3, 7, 11), so each
+//     CTA streams and runs its own resblock's taps; the halo and the operand
+//     margin are the largest any resblock of the stage needs.
+//   * a stage whose whole chain's halo leaves no time tile (V1's first stage:
+//     60 rows a side at C=256, where a window holds at most 128 rows) runs
+//     as one launch per dilation slot, each with the halo of its own conv
+//     pair (10, 20 and 30 rows): each CTA hands its resblock's f32 chain
+//     state h on to the next launch through device memory (h_out, h_in),
+//     and the last launch takes the resblock sum.  h is the f32 state the
+//     single launch keeps in shared memory, so the result is the same.
 //
 // The f16-staged mode (-DZV_MRF_F16_STAGED=1) computes what the reference's
 // ggml graph computes (f16 conv weights and an f16 im2col, f32
@@ -154,16 +164,21 @@ struct Params {
   const io_t* x;          // (B, L_in, Cin) stage input (pre-upsample when w_up)
   const op_t* w_up;       // (K_up, Cin/8, C, 8) upsample taps as planes, or nullptr
   const float* in_bias;   // (C,) or nullptr
-  const op_t* w;          // (n_conv, kr, C/8, C, 8) conv taps as planes, chain order
+  const op_t* w;          // every conv's kr[j] taps as planes (C/8, C, 8), chain order
   const float* b;         // (n_conv, C)
   io_t* y;                // (B, L_out, C)
+  const float* h_in;      // (n_rb, B, L_out, C) each resblock's f32 chain state from the
+                          // stage's previous launch, or nullptr (the stage input)
+  float* h_out;           // (n_rb, B, L_out, C) the chain state for the next launch, or
+                          // nullptr (the resblock sum into y)
   int L_in, Cin, L_out;
   int K_up, stride, pad;
   int has_in_leaky;
   float in_leaky;
   int has_out_leaky;
   float out_leaky;
-  int n_rb, kr;
+  int n_rb;
+  int kr[kMaxRB];           // each resblock's kernel size (odd)
   int dils[kMaxRB][kMaxD];  // 0 = no conv pair at this slot
   int halo, tile, window;   // window = tile + 2 * halo rows
   int margin;               // operand plane rows before window row 0 (the largest tap shift)
@@ -188,6 +203,8 @@ struct Smem {
 
 struct Stream {
   int conv_base;   // first conv of this CTA's resblock in the packed chain
+  int tap_base;    // first tap of that conv in the packed chain (every conv before at its size)
+  int kr;          // this CTA's resblock's kernel size
   int nb;          // chunks per conv tap (C / KB)
   int cpc;         // chunks per conv (kr * nb)
   int nb_up;       // chunks per upsample tap (Cin / KB)
@@ -487,7 +504,7 @@ __device__ __forceinline__ const op_t* chunk_src(const Params& p, const Stream& 
   const int nn = n - st.n_up;
   const int rem = nn % st.cpc;
   const int tap = rem / st.nb, ci0 = (rem % st.nb) * G::KB;
-  return p.w + (((size_t)(st.conv_base + nn / st.cpc) * p.kr + tap) * C + ci0) * C;
+  return p.w + (((size_t)st.tap_base + (size_t)(nn / st.cpc) * st.kr + tap) * C + ci0) * C;
 }
 
 // One bulk copy of the TMA unit brings chunk n into ring slot n % stages,
@@ -584,7 +601,7 @@ __device__ __forceinline__ void conv_pass(const Params& p, const Smem& sm, const
   using G = Geo<C, KB, MT>;
   const int wg = threadIdx.x >> 7, wq = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int half = (p.kr - 1) / 2;
+  const int half = (st.kr - 1) / 2;
   const uint32_t plane_bytes = (uint32_t)p.plane_rows * 16;
   bool act[G::MT];
 #pragma unroll
@@ -749,12 +766,15 @@ __device__ __forceinline__ void stage_pre_rows_f32(const Params& p, const Smem& 
   }
 }
 
-// The f16-staged mode's stage input (+ in_bias) into the h window as it is:
-// f32 rows, unrounded (no upsample: mrf_stage_unfolded's call).
+#endif
+
+// f32 rows into the h window as they are (+ bias where given), zero outside
+// [0, L_out): a resblock's chain state from the stage's previous launch
+// (h_in), or in the f16-staged mode the stage input of mrf_stage_unfolded's
+// call (f32 rows, unrounded).
 template <int C>
-__device__ __forceinline__ void widen_input_f32(const Params& p, const Smem& sm, int batch,
-                                                int t_base) {
-  const float* xb = p.x + (size_t)batch * p.L_in * C;
+__device__ __forceinline__ void widen_rows_f32(const Params& p, const Smem& sm, const float* xb,
+                                               const float* bias, int t_base) {
   const int n = p.window * (C / 8);
   for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kThreads) {
     float4 v[kBatch][2];
@@ -776,9 +796,9 @@ __device__ __forceinline__ void widen_input_f32(const Params& p, const Smem& sm,
       const int r = e / (C / 8), g8 = e % (C / 8), tg = t_base + r;
       float f[8] = {v[u][0].x, v[u][0].y, v[u][0].z, v[u][0].w,
                     v[u][1].x, v[u][1].y, v[u][1].z, v[u][1].w};
-      if (p.in_bias != nullptr && tg >= 0 && tg < p.L_out) {
+      if (bias != nullptr && tg >= 0 && tg < p.L_out) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) f[i] += __ldg(p.in_bias + g8 * 8 + i);
+        for (int i = 0; i < 8; ++i) f[i] += __ldg(bias + g8 * 8 + i);
       }
       const uint32_t ha = sm.h_addr + 4u * (uint32_t)hidx<C>(r, 8 * g8);
       sts_f4(ha, make_float4(f[0], f[1], f[2], f[3]));
@@ -786,7 +806,6 @@ __device__ __forceinline__ void widen_input_f32(const Params& p, const Smem& sm,
     }
   }
 }
-#endif
 
 template <int C, int KB, int MT>
 __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kernel(const Params p) {
@@ -809,17 +828,22 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
   const int t0 = (blockIdx.x / p.n_rb) * p.tile;
   const int t_base = t0 - p.halo;
 
-  int n_d = 0, conv_base = 0;
+  int n_d = 0, conv_base = 0, tap_base = 0;
   for (int j = 0; j < p.n_rb; ++j) {
     int nj = 0;
     while (nj < kMaxD && p.dils[j][nj] != 0) ++nj;
-    if (j < rank) conv_base += 2 * nj;
+    if (j < rank) {
+      conv_base += 2 * nj;
+      tap_base += 2 * nj * p.kr[j];
+    }
     if (j == rank) n_d = nj;
   }
   Stream st;
   st.conv_base = conv_base;
+  st.tap_base = tap_base;
+  st.kr = p.kr[rank];
   st.nb = C / G::KB;
-  st.cpc = p.kr * st.nb;
+  st.cpc = st.kr * st.nb;
   st.nb_up = p.Cin / G::KB;
   st.up_cpc = p.w_up != nullptr ? (p.K_up / p.stride) * st.nb_up : 0;
   st.n_up = p.w_up != nullptr && rank < p.stride
@@ -839,11 +863,16 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
   cluster.sync();                                    // every CTA of the cluster runs
 
   const int jlo = p.w_up != nullptr ? floordiv(t_base + p.pad - (p.K_up - 1), p.stride) : 0;
+  if (p.h_in != nullptr) {
+    // this resblock's chain state, where the stage's previous launch left it
+    widen_rows_f32<C>(p, sm, p.h_in + ((size_t)rank * gridDim.y + batch) * p.L_out * C, nullptr,
+                      t_base);
+  }
 #if ZV_MRF_F16_STAGED
-  if (p.w_up != nullptr) stage_pre_rows_f32(p, sm, batch, jlo);
-  else widen_input_f32<C>(p, sm, batch, t_base);
+  else if (p.w_up != nullptr) stage_pre_rows_f32(p, sm, batch, jlo);
+  else widen_rows_f32<C>(p, sm, p.x + (size_t)batch * p.L_in * C, p.in_bias, t_base);
 #else
-  if (p.w_up != nullptr) {
+  else if (p.w_up != nullptr) {
     // the pre-upsample rows jlo .. jlo + np_rows - 1 as planes of round(leaky_in(x)),
     // kBatch 16-byte loads in flight per thread
     const bf16* xb = p.x + (size_t)batch * p.L_in * p.Cin;
@@ -932,7 +961,7 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
                         pack_op2(leaky01(b.z), leaky01(b.w))));
     }
   }
-  const int half = (p.kr - 1) / 2;
+  const int half = (st.kr - 1) / 2;
   int lo = 0, hi = W;
   for (int di = 0; di < n_d; ++di) {
     const int d = p.dils[rank][di];
@@ -950,6 +979,21 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
     lo += half;
     hi -= half;
     conv_pass<C, KB, MT, true>(p, sm, st, rank, lag, acc, q, lo, hi, 1, b2, t_base, di + 1 < n_d);
+  }
+  if (p.h_out != nullptr) {
+    // this resblock's chain state over the tile, for the stage's next launch.
+    // No CTA reads another's shared memory after the upsample's sync, so
+    // the cluster's CTAs leave on their own (every CTA takes this branch).
+    float* hb = p.h_out + ((size_t)rank * gridDim.y + batch) * p.L_out * C;
+    for (int e = threadIdx.x; e < p.tile * (C / 8); e += kThreads) {
+      const int r = e / (C / 8), g8 = e % (C / 8), tg = t0 + r;
+      if (tg >= p.L_out) continue;
+      const uint32_t ha = sm.h_addr + 4u * (uint32_t)hidx<C>(p.halo + r, 8 * g8);
+      float4* dst = reinterpret_cast<float4*>(hb + (size_t)tg * C + g8 * 8);
+      dst[0] = lds_f4(ha);
+      dst[1] = lds_f4(ha + 16);
+    }
+    return;
   }
   cluster.sync();                                    // every resblock's h is final
 
@@ -1088,17 +1132,22 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 #define ZV_PROBE_ENTRY zv_wgmma_probe
 #endif
 
-// kb: the instance's chunk channels (checked); in_bias and b are f32; x and
-// y bf16 (f32 in the f16-staged mode), w_up and w bf16 (f16) planes.
+// kb: the instance's chunk channels (checked); kr: n_rb kernel sizes, one a
+// resblock; in_bias and b are f32; x and y bf16 (f32 in the f16-staged mode),
+// w_up and w bf16 (f16) planes.  A stage of several launches (its dilation
+// slots split between them) hands each resblock's f32 chain state on through
+// h_out and h_in, (n_rb, B, L_out, C): a launch with h_in reads no x and
+// runs no upsample, one with h_out writes no y.
 extern "C" int ZV_STAGE_ENTRY(
     const io_t* x, const op_t* w_up, const float* in_bias, const op_t* w, const float* b, io_t* y,
-    int B, int L_in, int Cin, int C, int L_out, int K_up, int stride, int pad, int has_in_leaky,
-    float in_leaky, int has_out_leaky, float out_leaky, int n_rb, int n_dmax, int kr,
-    const int* dils, int halo, int tile, int window, int margin, int plane_rows, int np_rows,
-    int buf_bytes, int kb, int mt, int stages, int smem_bytes, void* stream) {
+    const float* h_in, float* h_out, int B, int L_in, int Cin, int C, int L_out, int K_up,
+    int stride, int pad, int has_in_leaky, float in_leaky, int has_out_leaky, float out_leaky,
+    int n_rb, int n_dmax, const int* kr, const int* dils, int halo, int tile, int window,
+    int margin, int plane_rows, int np_rows, int buf_bytes, int kb, int mt, int stages,
+    int smem_bytes, void* stream) {
   const KernelFn kernel = pick_kernel(C, kb, mt);
   if (kernel == nullptr || n_rb < 1 || n_rb > kMaxRB || n_dmax < 1 ||
-      n_dmax > kMaxD || tile < 1 || kr < 1 || kr % 2 != 1 || halo < 0 ||
+      n_dmax > kMaxD || tile < 1 || kr == nullptr || halo < 0 ||
       window != tile + 2 * halo || window > 128 * mt || stages < 2 || stages > kMaxStages ||
       B < 1 || L_out < 1 || margin < 0 || buf_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -1106,11 +1155,11 @@ extern "C" int ZV_STAGE_ENTRY(
   // resblock's reach, the margin its largest tap shift, the operand planes
   // every M-tile's shifted rows, the pre-upsample planes every phase's rows,
   // and the buffers fit the shared memory asked for.
-  const int half = (kr - 1) / 2;
   const int n_mt = (window + 63) / 64;
   for (int i = 0; i < n_rb; ++i) {
     const int* d = dils + i * n_dmax;
-    if (d[0] < 1) return (int)cudaErrorInvalidValue;
+    if (d[0] < 1 || kr[i] < 1 || kr[i] % 2 != 1) return (int)cudaErrorInvalidValue;
+    const int half = (kr[i] - 1) / 2;
     int reach = 0;
     for (int j = 0; j < n_dmax && d[j] != 0; ++j) {
       if (d[j] < 1 || half * d[j] > margin) return (int)cudaErrorInvalidValue;
@@ -1125,25 +1174,29 @@ extern "C" int ZV_STAGE_ENTRY(
         np_rows < K_up / stride + 1 + 64 * (((window + stride - 1) / stride + 63) / 64) ||
         (long long)np_rows * Cin * 2 > buf_bytes)
       return (int)cudaErrorInvalidValue;
+    if (h_in != nullptr) return (int)cudaErrorInvalidValue;
   } else if (Cin != C || L_in != L_out) {
     return (int)cudaErrorInvalidValue;
   }
   const long long need = (long long)stages * kb * C * 2 + buf_bytes + 4LL * window * C +
                          4LL * C + 16LL * stages;
   if (smem_bytes < need || smem_bytes > kSmemMax) return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {x, w_up, in_bias, w, b, y};
+  const void* ptrs[] = {x, w_up, in_bias, w, b, y, h_in, h_out};
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.w_up = w_up; p.in_bias = in_bias; p.w = w; p.b = b; p.y = y;
+  p.h_in = h_in; p.h_out = h_out;
   p.L_in = L_in; p.Cin = Cin; p.L_out = L_out;
   p.K_up = K_up; p.stride = stride; p.pad = pad;
   p.has_in_leaky = has_in_leaky; p.in_leaky = in_leaky;
   p.has_out_leaky = has_out_leaky; p.out_leaky = out_leaky;
-  p.n_rb = n_rb; p.kr = kr;
-  for (int i = 0; i < kMaxRB; ++i)
+  p.n_rb = n_rb;
+  for (int i = 0; i < kMaxRB; ++i) {
+    p.kr[i] = i < n_rb ? kr[i] : 0;
     for (int j = 0; j < kMaxD; ++j)
       p.dils[i][j] = (i < n_rb && j < n_dmax) ? dils[i * n_dmax + j] : 0;
+  }
   p.halo = halo; p.tile = tile; p.window = window;
   p.margin = margin; p.plane_rows = plane_rows; p.np_rows = np_rows; p.buf_bytes = buf_bytes;
   p.stages = stages;

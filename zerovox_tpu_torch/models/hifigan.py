@@ -10,8 +10,11 @@ layout once per model; a serving caller passes the result to `vocode`.
 A stage whose geometry the kernel does not take (`stage_routes`, from
 ops.cuda.mrf_stage.kernel_takes: a width outside 32-512 in float32, or
 32-256 in bfloat16 and under f16_staging, say, as every stage of
-TINY_CONFIG) runs the kernel's plain version on every device, as
-the JAX vocoder runs such stages through XLA convs.
+TINY_CONFIG; or resblocks of different kernel sizes outside bfloat16)
+runs the kernel's plain version on every device, as
+the JAX vocoder runs such stages through XLA convs.  Each resblock runs
+at its own kernel size (cfg.resblock_kernels: zerovox's 3 for all, V1's
+3/7/11).
 Everything runs in the params' dtype: float32, or bfloat16 after
 cast_params (the MRF stages then take the kernel's bf16 mode).  Under
 ops.conv.f16_staging (`--verify`) every conv of a float32 vocoder takes f16
@@ -45,11 +48,11 @@ def receptive_field_frames(cfg: ZeroVoxConfig) -> int:
     change earlier output samples (the serving engine's bucket margin).
     ConvTranspose(stride s, kernel k) maps an input halo h to s*h + k output
     samples; an MRF stage adds the max over resblocks of its summed conv
-    halos."""
+    halos, each resblock at its own kernel size (9 frames for zerovox
+    medium, 15 for HiFi-GAN V1)."""
     k_half = (cfg.hifigan_kernel_size - 1) // 2
-    rk_half = (cfg.resblock_kernel_size - 1) // 2
-    mrf = max(sum(d * rk_half + rk_half for d in dil)
-              for dil in cfg.resblock_dilations)
+    mrf = max(sum((k - 1) // 2 * (d + 1) for d in dil)
+              for dil, k in zip(cfg.resblock_dilations, cfg.resblock_kernels))
     h = k_half
     for scale, k in zip(cfg.upsample_scales, cfg.upsample_kernel_sizes):
         h = h * scale + k + mrf
@@ -65,11 +68,11 @@ def stage_routes(params: dict, cfg: ZeroVoxConfig) -> List[bool]:
     """Per MRF stage, whether the kernel takes it (kernel_takes on the
     stage's widths, upsample and resblocks, in the params' dtype and the
     calling context's f16_staging): True for
-    every stage of the production geometry, False for every stage of
-    TINY_CONFIG (C = 16, 8, 4)."""
+    every stage of zerovox medium and, in bfloat16, of HiFi-GAN V1, False
+    for every stage of TINY_CONFIG (C = 16, 8, 4)."""
     ups = params["vocoder"]["upsamples"]
     return [kernel_takes(up["w"].shape[0], cfg.resblock_dilations[:cfg.num_resblocks],
-                         cfg.resblock_kernel_size, up["w"].shape[1], up["w"].shape[2], scale,
+                         cfg.resblock_kernels, up["w"].shape[1], up["w"].shape[2], scale,
                          up["w"].dtype)
             for up, scale in zip(ups, cfg.upsample_scales)]
 
@@ -81,7 +84,7 @@ def pack_vocoder(params: dict, cfg: ZeroVoxConfig) -> List[Optional[PackedStage]
     (stage_routes)."""
     voc = params["vocoder"]
     return [pack_stage(_stage_blocks(voc, cfg, i), cfg.resblock_dilations,
-                       cfg.resblock_kernel_size, voc["upsamples"][i]["w"]) if takes else None
+                       cfg.resblock_kernels, voc["upsamples"][i]["w"]) if takes else None
             for i, takes in enumerate(stage_routes(params, cfg))]
 
 
@@ -133,7 +136,7 @@ def vocode_stage(voc: dict, cfg: ZeroVoxConfig, i: int, c: torch.Tensor, kernel:
     `products` (ops.conv's signatures; default ops.conv's own)."""
     scale, last = cfg.upsample_scales[i], i == len(cfg.upsample_scales) - 1
     up = voc["upsamples"][i]
-    args = (_stage_blocks(voc, cfg, i), cfg.resblock_dilations, cfg.resblock_kernel_size)
+    args = (_stage_blocks(voc, cfg, i), cfg.resblock_dilations, cfg.resblock_kernels)
     opts = dict(upsample=dict(w=up["w"], stride=scale, padding=scale // 2 + scale % 2,
                               output_padding=scale % 2),
                 in_bias=up["b"],

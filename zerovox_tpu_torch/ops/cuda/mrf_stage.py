@@ -36,7 +36,11 @@ input's dtype and ops.conv's f16_staging:
             operands are rounded to bf16 (after the leaky) once per conv, and
             the accumulators, the biases, the residual and the resblock sum
             are f32; the result is rounded once, on the store.  C in
-            32/64/128/256, an upsample of k = t * s.  `mrf_stage_ref`
+            32/64/128/256, an upsample of k = t * s, and the only mode whose
+            resblocks may differ in kernel size (HiFi-GAN V1's 3/7/11: each
+            CTA runs its own resblock's taps), and the only one that splits
+            a stage whose halo no window holds into one launch per dilation
+            slot (`stage_segments`: V1's first stage).  `mrf_stage_ref`
             computes the same for bf16 tensors (`round_bf16` on each conv's
             operand, f32 convs on exactly representable products).
   f16-staged  float32 under f16_staging (`--verify`'s simulation of the
@@ -86,8 +90,9 @@ import subprocess
 import tempfile
 import threading
 import time
+from numbers import Integral
 from pathlib import Path
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -122,6 +127,30 @@ _BF16_KB = {256: (16, 64), 128: (32, 128), 64: (64,), 32: (32,)}
 _BF16_MT = {256: 1, 128: 2, 64: 4, 32: 4}
 _BF16_STAGES = 16
 _SMEM_2 = 115712          # dynamic shared memory each of two CTAs of an SM may use (bytes)
+
+
+KernelSizes = Union[int, Sequence[int]]
+
+
+def resblock_sizes(kernel_size: KernelSizes, n: int) -> Tuple[int, ...]:
+    """The kernel size of each of n resblocks: `kernel_size` is one size for
+    every resblock, or a sequence of one per resblock (HiFi-GAN V1: 3, 7,
+    11), of which the first n are taken."""
+    if isinstance(kernel_size, Integral):
+        return (int(kernel_size),) * n
+    ks = tuple(int(k) for k in kernel_size)
+    if len(ks) < n:
+        raise ValueError(f"{len(ks)} resblock kernel sizes for {n} resblocks")
+    return ks[:n]
+
+
+def _one_size(ks: Tuple[int, ...], mode: str) -> int:
+    """The one kernel size of a stage in a mode that takes no other (float32,
+    f16-staged): raises for resblocks of different sizes."""
+    if len(set(ks)) > 1:
+        raise ValueError(f"mrf_stage kernel ({mode}): resblocks of kernel sizes {ks}; only "
+                         f"the bf16 mode takes a size per resblock")
+    return ks[0]
 
 
 # --------------------------------------------------------------------------
@@ -163,7 +192,7 @@ def residual_block(x: torch.Tensor, p: dict, dilations, kernel_size: int,
 def mrf_stage_ref(x: torch.Tensor,
                   blocks: Sequence[dict],
                   dilation_sets: Sequence[Sequence[int]],
-                  kernel_size: int,
+                  kernel_size: KernelSizes,
                   upsample: Optional[dict] = None,
                   in_bias: Optional[torch.Tensor] = None,
                   in_leaky: Optional[float] = None,
@@ -194,9 +223,10 @@ def mrf_stage_ref(x: torch.Tensor,
             padding=upsample["padding"], output_padding=upsample["output_padding"])
     if in_bias is not None:
         x = x + in_bias.to(chain)
+    ks = resblock_sizes(kernel_size, len(blocks))
     acc = None
     for j, blk in enumerate(blocks):
-        r = residual_block(x, blk, dilation_sets[j], kernel_size, conv)
+        r = residual_block(x, blk, dilation_sets[j], ks[j], conv)
         acc = r if acc is None else acc + r
     out = acc * (1.0 / len(blocks))
     if out_leaky is not None:
@@ -231,11 +261,17 @@ def _check_dtypes(dtype, blocks, upsample, plain: bool = False):
 # launch geometry (plain Python, so the CPU tests reach it)
 # --------------------------------------------------------------------------
 
-def stage_halo(dilation_sets: Sequence[Sequence[int]], kernel_size: int) -> int:
+def stage_halo(dilation_sets: Sequence[Sequence[int]], kernel_size: KernelSizes) -> int:
     """Per-side receptive field (rows) of the worst resblock of one stage:
-    12 at k=3 and dilations (1, 3, 5)."""
-    half = (kernel_size - 1) // 2
-    return max(sum(half * (d + 1) for d in dils) for dils in dilation_sets)
+    12 at k=3 and dilations (1, 3, 5), 60 at HiFi-GAN V1's 3/7/11."""
+    ks = resblock_sizes(kernel_size, len(dilation_sets))
+    return max(sum((k - 1) // 2 * (d + 1) for d in dils)
+               for dils, k in zip(dilation_sets, ks))
+
+
+def _margin(dilation_sets, ks) -> int:
+    """The largest tap shift of any resblock's convs (rows)."""
+    return max((k - 1) // 2 * max(d) for d, k in zip(dilation_sets, ks))
 
 
 def split_tf32(v: torch.Tensor):
@@ -337,7 +373,7 @@ def _plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave
     return [p for p in plans if 1.1 * p.tile >= longest][-1]
 
 
-def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
+def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: KernelSizes = 3,
               up_cin: int = 0, up_k: int = 0, up_stride: int = 1, B: int = 1,
               L_out: Optional[int] = None, wave: Optional[int] = None,
               kc: Optional[int] = None, stages: Optional[int] = None,
@@ -360,15 +396,17 @@ def tile_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
     channels, at most 8192 floats) is the largest of the kernel instance's
     whose tile is within a tenth of the longest tile any of them gives.  kc
     and stages replace the chunk and the ring depth (3), to measure
-    variants.  Raises ValueError for a stage the kernel cannot hold."""
+    variants.  Raises ValueError for a stage the kernel cannot hold (in
+    float32, resblocks of different kernel sizes among them)."""
     if elem == 2:
         return bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out,
                          wave, stages=stages)
     if elem != 4:
         raise ValueError(f"mrf_stage kernel: 2-byte (bf16) or 4-byte (f32) tensors, got {elem}")
     dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    k = _one_size(resblock_sizes(kernel_size, len(dils)), "float32")
     wave = wave or max(1, _SMS // len(dils))
-    return _plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, kc, stages)
+    return _plan(C, dils, k, up_cin, up_k, up_stride, B, L_out, wave, kc, stages)
 
 
 class Bf16Plan(NamedTuple):
@@ -386,15 +424,16 @@ class Bf16Plan(NamedTuple):
     smem: int          # dynamic shared memory per CTA (bytes)
 
 
-def _bf16_geometry(C, dils, kernel_size, up_cin, up_k, up_stride, window, stages, kb):
-    """The plan of one window with chunks of kb input channels."""
+def _bf16_geometry(C, dils, ks, up_cin, up_k, up_stride, window, stages, kb):
+    """The plan of one window with chunks of kb input channels (ks: each
+    resblock's kernel size)."""
     mt = _BF16_MT[C]
     if kb not in _BF16_KB[C] or (up_cin and up_cin % kb) or window > 128 * mt:
         raise ValueError(f"mrf_stage kernel (bf16): chunks of {kb} channels (one of "
                          f"{_BF16_KB[C]} at C={C}, dividing the upsample's {up_cin}) for "
                          f"{window} rows (at most {128 * mt})")
-    halo = stage_halo(dils, kernel_size)
-    margin = (kernel_size - 1) // 2 * max(max(d) for d in dils)
+    halo = stage_halo(dils, ks)
+    margin = _margin(dils, ks)
     smem_max = _SMEM_MAX if mt * C > 128 else _SMEM_2
     chunk = kb * C * 2
     plane_rows = 64 * _cdiv(window, 64) + 2 * margin
@@ -411,30 +450,29 @@ def _bf16_geometry(C, dils, kernel_size, up_cin, up_k, up_stride, window, stages
 
 
 @functools.lru_cache(maxsize=256)
-def _bf16_plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, window, stages,
-               kb):
+def _bf16_plan(C, dils, ks, up_cin, up_k, up_stride, B, L_out, wave, window, stages, kb):
     if C not in _BF16_KB:
         raise ValueError(f"mrf_stage kernel takes C in 32/64/128/256 in bfloat16, got C={C}")
-    if kernel_size % 2 != 1:
-        raise ValueError(f"resblock kernel size must be odd, got {kernel_size}")
+    if any(k % 2 != 1 for k in ks):
+        raise ValueError(f"resblock kernel sizes must be odd, got {ks}")
     if up_cin and (up_cin % min(_BF16_KB[C]) or up_k < up_stride or up_k % up_stride):
         raise ValueError(f"mrf_stage kernel (bf16): an upsample of {up_cin} input channels "
                          f"(a multiple of {min(_BF16_KB[C])}) and a kernel of a multiple of its "
                          f"stride, got k={up_k}, s={up_stride}")
-    halo = stage_halo(dils, kernel_size)
+    halo = stage_halo(dils, ks)
     mt = _BF16_MT[C]
-    longest = None
-    # the largest chunk of the instances that leaves a window (the weight
-    # stream from L2 moves larger copies faster, PERF.md), at its longest
+    # each chunk of the instances at its longest window
+    fits = []
     for k in [kb] if kb else sorted((k for k in _BF16_KB[C] if not up_cin or up_cin % k == 0),
                                     reverse=True):
         for w in range(min(window or 128 * mt, 128 * mt), 2 * halo, -1):
             with contextlib.suppress(ValueError):
-                longest = _bf16_geometry(C, dils, kernel_size, up_cin, up_k, up_stride, w,
-                                         stages, k)
+                fits.append(_bf16_geometry(C, dils, ks, up_cin, up_k, up_stride, w, stages, k))
                 break
-        if longest is not None:
-            break
+    # the largest chunk (the weight stream from L2 moves larger copies
+    # faster, PERF.md) whose tile is at least half the longest any chunk
+    # leaves
+    longest = next((g for g in fits if 2 * g.tile >= max(f.tile for f in fits)), None)
     if longest is None:
         raise ValueError(f"mrf_stage kernel (bf16): C={C} with halo {halo} leaves no room for "
                          f"a time tile")
@@ -443,12 +481,12 @@ def _bf16_plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, wi
     # the waves the longest tile needs, then the shortest tile that needs no more
     waves = _cdiv(B * _cdiv(L_out, longest.tile), wave)
     tile = max(1, min(longest.tile, _cdiv(L_out, max(1, waves * wave // B))))
-    plan = _bf16_geometry(C, dils, kernel_size, up_cin, up_k, up_stride, tile + 2 * halo,
-                          stages, longest.kb)
+    plan = _bf16_geometry(C, dils, ks, up_cin, up_k, up_stride, tile + 2 * halo, stages,
+                          longest.kb)
     return plan._replace(clusters=B * _cdiv(L_out, tile))
 
 
-def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
+def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: KernelSizes = 3,
               up_cin: int = 0, up_k: int = 0, up_stride: int = 1, B: int = 1,
               L_out: Optional[int] = None, wave: Optional[int] = None,
               window: Optional[int] = None, stages: Optional[int] = None,
@@ -458,7 +496,9 @@ def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
     operand planes and f32 h window take the same shared memory).
 
     A cluster of len(dilation_sets) CTAs takes one time tile, a CTA per
-    resblock.  Its two warpgroups hold every 64-row M-tile of the window
+    resblock, each at its own kernel size (kernel_size: one for all, or one
+    per resblock; the halo and the operand margin are the largest any
+    resblock needs).  Its two warpgroups hold every 64-row M-tile of the window
     (tile + 2*halo rows) in registers, mt tiles each (_BF16_MT), so a window
     has at most 128 * mt rows: 32768 / C with 128 f32 accumulators a thread
     and one CTA an SM, or at C=32 512 rows with 64 accumulators and two CTAs
@@ -481,11 +521,54 @@ def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int =
     stride."""
     dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
     wave = wave or max(1, _SMS // len(dils))
-    return _bf16_plan(C, dils, kernel_size, up_cin, up_k, up_stride, B, L_out, wave, window,
-                      stages, kb)
+    return _bf16_plan(C, dils, resblock_sizes(kernel_size, len(dils)), up_cin, up_k, up_stride,
+                      B, L_out, wave, window, stages, kb)
 
 
-def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: int = 3,
+def stage_segments(C: int, dilation_sets: Sequence[Sequence[int]],
+                   kernel_size: KernelSizes = 3) -> Tuple[Tuple[int, int], ...]:
+    """The launches of a stage on the wgmma design, as ranges [lo, hi) of
+    dilation slots: a launch runs every resblock's conv pairs of its slots
+    (the bfloat16 mode runs them; the f16-staged mode takes a stage of one
+    launch only, kernel_takes).  One launch, ((0, n),), where a window holds the whole
+    chain's halo or no split helps.  Where it holds none and every resblock
+    has n > 1 dilations, one launch per slot, each at the halo of its own
+    pair: HiFi-GAN V1's first stage (C=256, 3/7/11) runs 10, 20 and 30 rows
+    a side in three launches against 60 in one, which no window of 128 rows
+    holds.  The launches hand each resblock's f32 chain state on through
+    device memory (_launch), so the split computes what one launch would.
+    The upsample is left out here (it joins the first launch; kernel_takes
+    asks whether it fits there).  Plain Python, cached."""
+    dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    return _segments(C, dils, resblock_sizes(kernel_size, len(dils)))
+
+
+@functools.lru_cache(maxsize=256)
+def _segments(C, dils, ks) -> Tuple[Tuple[int, int], ...]:
+    n = max(len(d) for d in dils)
+    whole = ((0, n),)
+    try:
+        bf16_plan(C, dils, ks)
+        return whole
+    except ValueError:
+        pass
+    if n < 2 or any(len(d) != n for d in dils):
+        return whole
+    try:
+        for i in range(n):
+            bf16_plan(C, segment_dilations(dils, (i, i + 1)), ks)
+    except ValueError:
+        return whole
+    return tuple((i, i + 1) for i in range(n))
+
+
+def segment_dilations(dilation_sets: Sequence[Sequence[int]], segment: Tuple[int, int]):
+    """Each resblock's dilations of one launch's slots (stage_segments)."""
+    lo, hi = segment
+    return tuple(tuple(ds[lo:hi]) for ds in dilation_sets)
+
+
+def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: KernelSizes = 3,
                  up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
                  dtype: torch.dtype = torch.float32) -> bool:
     """Whether the kernel takes a stage of this geometry in the mode a stage
@@ -496,34 +579,44 @@ def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: in
     stride up_stride.  Plain Python, so the CPU tests reach it; the vocoder
     runs a stage it does not take through the plain version
     (mrf_stage_ref), on the card too.  It asks what _launch and the mode's
-    plan ask: an odd kernel size, 1-8 resblocks of 1-8 dilations >= 1, a
-    width and chunk the mode's instances hold (float32: 32-512; bfloat16
-    and f16-staged: 32-256), upsample input channels in 16-byte groups
+    plan ask: an odd kernel size (kernel_size: one, or one per resblock;
+    sizes that differ between resblocks in the bfloat16 mode only), 1-8
+    resblocks of 1-8 dilations >= 1, a width and chunk the mode's instances
+    hold (float32: 32-512; bfloat16 and f16-staged: 32-256), upsample input
+    channels in 16-byte groups
     (bfloat16 and f16-staged: in whole weight chunks, and an upsample kernel
     that is a multiple of its stride), and (float32) a tile plan whose
     pre-upsample rows fit at every tile length a launch can choose (1 up to
     the longest).  The answer is cached per mode."""
     if dtype not in (torch.float32, torch.bfloat16):
         return False
-    return _takes(C, tuple(tuple(int(d) for d in ds) for ds in dilation_sets), kernel_size,
-                  up_cin, up_k, up_stride, kernel_mode(dtype))
+    dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    return _takes(C, dils, resblock_sizes(kernel_size, len(dils)), up_cin, up_k, up_stride,
+                  kernel_mode(dtype))
 
 
 @functools.lru_cache(maxsize=256)
-def _takes(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, mode) -> bool:
+def _takes(C, dilation_sets, ks, up_cin, up_k, up_stride, mode) -> bool:
     wgmma = mode in _WGMMA_MODES
-    if kernel_size % 2 != 1 or not 1 <= len(dilation_sets) <= _MAX_RB \
+    if any(k % 2 != 1 for k in ks) or (mode != "bf16" and len(set(ks)) > 1) \
+            or not 1 <= len(dilation_sets) <= _MAX_RB \
             or any(not 1 <= len(d) <= _MAX_D or min(d) < 1 for d in dilation_sets) \
             or (up_cin and up_cin % (8 if wgmma else 4)):
         return False
     try:
         if wgmma:
-            bf16_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride)
+            # the upsample runs in the first launch; a split stage's later
+            # launches fit (stage_segments); f16-staged: one launch only
+            segments = stage_segments(C, dilation_sets, ks)
+            if mode != "bf16" and len(segments) > 1:
+                return False
+            bf16_plan(C, segment_dilations(dilation_sets, segments[0]), ks, up_cin, up_k,
+                      up_stride)
             return True        # a shorter window needs less of every buffer
-        plan = tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride)
+        plan = tile_plan(C, dilation_sets, ks, up_cin, up_k, up_stride)
     except ValueError:
         return False
-    halo = stage_halo(dilation_sets, kernel_size)
+    halo = stage_halo(dilation_sets, ks)
     return all(_upsample_fits(t, halo, up_cin, up_k, up_stride, plan.ss)
                for t in range(1, plan.tile + 1))
 
@@ -646,10 +739,11 @@ def _build_library() -> Library:
         fn = getattr(lib, stage_name)
         if tag in _WGMMA_MODES:
             fn.argtypes = [p, p, p, p, p, p,    # x w_up in_bias w b y
+                           p, p,                # h_in h_out (a stage of several launches)
                            i, i, i, i, i,       # B L_in Cin C L_out
                            i, i, i,             # K_up stride pad
                            i, f, i, f,          # in/out leaky
-                           i, i, i, p,          # n_rb n_dmax kr dils
+                           i, i, p, p,          # n_rb n_dmax krs (one a resblock) dils
                            i, i, i, i, i, i,    # halo tile window margin plane_rows np_rows
                            i, i, i, i,          # buf kb mt stages
                            i, p]                # smem stream
@@ -753,7 +847,10 @@ class PackedStage(NamedTuple):
     """A stage's weights in the kernel's layout (pack_stage)."""
     w: torch.Tensor                  # f32: (n_conv, K, C, C) [k][ci][swizzled co], chain
     #                                  order; bf16 and f16-staged (f16 values): (n_conv, K,
-    #                                  C/8, C, 8) [k][ci/8][co][ci%8], planes of 8 input channels
+    #                                  C/8, C, 8) [k][ci/8][co][ci%8], planes of 8 input channels;
+    #                                  bf16 with a size per resblock: every conv's taps in
+    #                                  chain order, (sum of the convs' K, C/8, C, 8); a stage
+    #                                  of several launches: launch by launch (pack_stage)
     b: torch.Tensor                  # (n_conv, C) float32 in every mode
     w_up: Optional[torch.Tensor]     # ConvTranspose1d taps: f32 (K_up, C_pre, C) [k][ci][co];
     #                                  bf16 and f16-staged (K_up, C_pre/8, C, 8) [k][ci/8][co][ci%8]
@@ -776,7 +873,8 @@ def from_planes(w: torch.Tensor) -> torch.Tensor:
 
 
 def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
-               kernel_size: int, upsample_w: Optional[torch.Tensor] = None) -> PackedStage:
+               kernel_size: KernelSizes, upsample_w: Optional[torch.Tensor] = None
+               ) -> PackedStage:
     """The kernel's weight layout for one stage, made once per model.
 
     blocks' (Cout, Cin, K) convs go to [k][ci][co ^ 8 * (ci % 4)] in chain
@@ -792,7 +890,12 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     upsample taps [k][ci/8][co][ci%8], so a chunk of the bf16 kernel's
     weight stream (one tap, consecutive input channels) is one contiguous
     copy already in the layout its wgmma descriptors read.  The biases are
-    widened to float32 (exact): the kernel adds them in f32.
+    widened to float32 (exact): the kernel adds them in f32.  Resblocks of
+    different kernel sizes (kernel_size one a resblock; the bf16 mode only)
+    pack ragged: every conv's taps one after the other in chain order, each
+    resblock's convs at their own size.  A stage that runs in several
+    launches (stage_segments; the bf16 mode) packs launch by launch: each
+    launch's convs (every resblock's, in chain order) one contiguous run.
 
     Under f16_staging, float32 weights are packed for the f16-staged mode,
     whose kernel has the bf16 mode's design: the convs' and the upsample's
@@ -809,15 +912,19 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     if planes and (C % 8 or (upsample_w is not None and upsample_w.shape[1] % 8)):
         raise ValueError(f"{mode} weights pack planes of 8 input channels: C={C}"
                          + ("" if upsample_w is None else f", upsample {upsample_w.shape[1]}"))
+    ks = resblock_sizes(kernel_size, len(blocks))
+    if mode != "bf16":
+        _one_size(ks, mode)
     op = torch.float16 if staged else dtype
+    segments = _launch_segments(C, dilation_sets[:len(blocks)], ks, mode)
     ws, bs = [], []
-    for j, blk in enumerate(blocks):
-        for di in range(len(dilation_sets[j])):
+    for (lo, hi), j in ((seg, j) for seg in segments for j in range(len(blocks))):
+        for di in range(lo, min(hi, len(dilation_sets[j]))):
             for cset in ("convs1", "convs2"):
-                conv = blk[cset][di]
-                if tuple(conv["w"].shape) != (C, C, kernel_size):
+                conv = blocks[j][cset][di]
+                if tuple(conv["w"].shape) != (C, C, ks[j]):
                     raise ValueError(f"block {j} {cset}[{di}] weight has shape "
-                                     f"{tuple(conv['w'].shape)}, want {(C, C, kernel_size)}")
+                                     f"{tuple(conv['w'].shape)}, want {(C, C, ks[j])}")
                 if conv["w"].device != dev or conv["b"].device != dev:
                     raise ValueError(f"block {j} {cset}[{di}] lies on {conv['w'].device}, "
                                      f"block 0 on {dev}")
@@ -828,11 +935,19 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
             else unflip_transpose_weight(upsample_w).permute(2, 0, 1).contiguous())
     if planes and w_up is not None:
         w_up = to_planes(w_up.to(op))
-    return PackedStage(torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_up,
-                       staged)
+    w = torch.stack(ws) if len(set(ks)) == 1 else torch.cat(ws)
+    return PackedStage(w.contiguous(), torch.stack(bs).contiguous(), w_up, staged)
 
 
-def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: int, B: int,
+def _launch_segments(C, dilation_sets, ks, mode) -> Tuple[Tuple[int, int], ...]:
+    """The launches of a stage in `mode` (stage_segments in the bf16 mode,
+    where C is one of its widths; else one)."""
+    if mode == "bf16" and C in _BF16_KB:
+        return stage_segments(C, dilation_sets, ks)
+    return ((0, max(len(d) for d in dilation_sets)),)
+
+
+def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: KernelSizes, B: int,
                L_out: int, up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
                dtype: torch.dtype = torch.float32, mode: Optional[str] = None,
                **change) -> TilePlan:
@@ -871,8 +986,11 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     wgmma = mode in _WGMMA_MODES
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("mrf_stage kernel takes a contiguous (B, L, C) tensor")
-    if kernel_size % 2 != 1:
-        raise ValueError(f"resblock kernel size must be odd, got {kernel_size}")
+    ks = resblock_sizes(kernel_size, len(blocks))
+    if any(k % 2 != 1 for k in ks):
+        raise ValueError(f"resblock kernel sizes must be odd, got {ks}")
+    if mode != "bf16":
+        _one_size(ks, mode)
     if not 1 <= len(blocks) <= _MAX_RB or len(dilation_sets) < len(blocks) \
             or any(not 1 <= len(d) <= _MAX_D for d in dilation_sets[:len(blocks)]):
         raise ValueError("mrf_stage kernel takes 1-8 resblocks of 1-8 dilations")
@@ -880,8 +998,7 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     if any(d < 1 for ds in dilation_sets for d in ds):
         raise ValueError("dilations must be >= 1")
     if packed is None:
-        packed = pack_stage(blocks, dilation_sets, kernel_size,
-                            None if upsample is None else upsample["w"])
+        packed = pack_stage(blocks, dilation_sets, ks, None if upsample is None else upsample["w"])
     if packed.staged != staged:
         raise ValueError(f"mrf_stage: weights packed {'with' if packed.staged else 'without'} "
                          f"f16 staging for a launch {'under' if staged else 'outside'} "
@@ -890,9 +1007,10 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
     B, L_in, Cin = x.shape
     C = blocks[0]["convs1"][0]["w"].shape[0]
     n_conv = sum(2 * len(ds) for ds in dilation_sets)
-    halo = stage_halo(dilation_sets, kernel_size)
-    w_shape = ((n_conv, kernel_size, C // 8, C, 8) if wgmma
-               else (n_conv, kernel_size, C, C))
+    if len(set(ks)) > 1:           # ragged: every conv's taps in chain order
+        w_shape = (sum(2 * len(ds) * k for ds, k in zip(dilation_sets, ks)), C // 8, C, 8)
+    else:
+        w_shape = (n_conv, ks[0], C // 8, C, 8) if wgmma else (n_conv, ks[0], C, C)
     if tuple(packed.w.shape) != w_shape or tuple(packed.b.shape) != (n_conv, C):
         raise ValueError(f"packed weights {tuple(packed.w.shape)} / {tuple(packed.b.shape)} "
                          f"do not match {n_conv} convs of {C} channels")
@@ -921,9 +1039,6 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
         L_out = L_in
     if L_out < 1 or B < 1:
         raise ValueError(f"empty stage: B={B}, L_out={L_out}")
-    if plan is None:
-        plan = stage_plan(dev, C, dilation_sets, kernel_size, B, L_out,
-                          Cin if upsample is not None else 0, K_up, stride, dtype, mode)
     ib = None if in_bias is None else _aligned(in_bias.to(dev, torch.float32).contiguous())
     if ib is not None and ib.shape != (C,):
         raise ValueError(f"in_bias has shape {tuple(ib.shape)}, want ({C},)")
@@ -936,30 +1051,111 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
             raise TypeError(f"mrf_stage kernel: packed weights must be contiguous {op} "
                             f"(biases float32) on the input's device")
 
-    n_dmax = max(len(d) for d in dilation_sets)
-    dils = (ctypes.c_int * (len(blocks) * n_dmax))(
-        *[ds[i] if i < len(ds) else 0 for ds in dilation_sets for i in range(n_dmax)])
+    if not wgmma:
+        plan = plan or stage_plan(dev, C, dilation_sets, ks, B, L_out,
+                                  Cin if upsample is not None else 0, K_up, stride, dtype, mode)
+        n_dmax = max(len(d) for d in dilation_sets)
+        dils = (ctypes.c_int * (len(blocks) * n_dmax))(
+            *[ds[i] if i < len(ds) else 0 for ds in dilation_sets for i in range(n_dmax)])
+        y = torch.empty(B, L_out, C, device=dev, dtype=dtype)
+        lib = library()
+        with torch.cuda.device(dev):
+            err = lib.stage[mode](
+                x.data_ptr(), _ptr(w_up), _ptr(ib), w.data_ptr(), b.data_ptr(),
+                y.data_ptr(), B, L_in, Cin, C, L_out, K_up, stride, pad,
+                int(in_leaky is not None), float(in_leaky or 0.0),
+                int(out_leaky is not None), float(out_leaky or 0.0),
+                len(blocks), n_dmax, ks[0], dils, stage_halo(dilation_sets, ks), plan.tile,
+                plan.ss, plan.kc,
+                plan.stages, plan.nt, plan.mt, plan.smem,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(lib, err, counter, mode)
+        return y
+    # the wgmma modes: one launch per segment (one, unless stage_segments
+    # splits the chain), each resblock's f32 chain state handed on between
+    # them in two buffers that take turns
+    up = (Cin, K_up, stride) if upsample is not None else (0, 0, 1)
+    launches = _wgmma_launches(dev.index or 0, C, tuple(dilation_sets), ks, up, B, L_out, mode,
+                               plan)
     y = torch.empty(B, L_out, C, device=dev, dtype=dtype)
+    hs = ([torch.empty(len(blocks), B, L_out, C, device=dev, dtype=torch.float32)
+           for _ in range(min(2, len(launches) - 1))])
+    tap_bytes = C * C * w.element_size()
     lib = library()
-    if wgmma:
-        geometry = (halo, plan.tile, plan.window, plan.margin, plan.plane_rows, plan.np_rows,
-                    plan.buf, plan.kb, plan.mt, plan.stages)
-    else:
-        geometry = (halo, plan.tile, plan.ss, plan.kc, plan.stages, plan.nt, plan.mt)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.stage[mode](
-            x.data_ptr(), _ptr(w_up), _ptr(ib), w.data_ptr(), b.data_ptr(),
-            y.data_ptr(), B, L_in, Cin, C, L_out, K_up, stride, pad,
-            int(in_leaky is not None), float(in_leaky or 0.0),
-            int(out_leaky is not None), float(out_leaky or 0.0),
-            len(blocks), n_dmax, kernel_size, dils, *geometry, plan.smem, stream)
+    for si, (conv0, tap0, n_dmax, kr, dils, halo, sp) in enumerate(launches):
+        first, last = si == 0, si == len(launches) - 1
+        upsampled = first and upsample is not None
+        with torch.cuda.device(dev):
+            err = lib.stage[mode](
+                x.data_ptr() if first else None, _ptr(w_up) if first else None,
+                _ptr(ib) if first else None, w.data_ptr() + tap0 * tap_bytes,
+                b.data_ptr() + conv0 * C * 4, y.data_ptr(),
+                None if first else hs[(si - 1) % 2].data_ptr(),
+                None if last else hs[si % 2].data_ptr(),
+                B, L_in if first else L_out, Cin if first else C, C, L_out,
+                K_up if upsampled else 0, stride if upsampled else 0, pad if upsampled else 0,
+                int(first and in_leaky is not None), float(in_leaky or 0.0),
+                int(last and out_leaky is not None), float(out_leaky or 0.0),
+                len(blocks), n_dmax, kr, dils, halo, sp.tile, sp.window, sp.margin,
+                sp.plane_rows, sp.np_rows, sp.buf, sp.kb, sp.mt, sp.stages, sp.smem,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(lib, err, counter, mode)
+    return y
+
+
+@functools.lru_cache(maxsize=1024)
+def _wgmma_launches(device_index: int, C: int, dils, ks, up, B: int, L_out: int, mode: str,
+                    plan):
+    """What each launch of a wgmma-mode stage passes beside its tensors,
+    worked out once per geometry: (first conv, first tap, n_dmax, the kernel
+    sizes and the dilations as C arrays, halo, plan) per segment
+    (stage_segments; the upsample `up` = (C_in, K, stride) in the first);
+    plan: a geometry other than stage_plan's (one launch only)."""
+    segments = _launch_segments(C, dils, ks, mode)
+    if plan is not None and len(segments) > 1:
+        raise ValueError(f"mrf_stage kernel: plan= for a stage of {len(segments)} launches")
+    kr = (ctypes.c_int * len(ks))(*ks)
+    out = []
+    for si, (sd, conv0, tap0) in enumerate(_segment_offsets(dils, ks, segments)):
+        n_dmax = max(len(d) for d in sd)
+        arr = (ctypes.c_int * (len(sd) * n_dmax))(
+            *[ds[i] if i < len(ds) else 0 for ds in sd for i in range(n_dmax)])
+        sp = plan or stage_plan(torch.device("cuda", device_index), C, sd, ks, B, L_out,
+                                *(up if si == 0 else (0, 0, 1)), mode=mode)
+        out.append((conv0, tap0, n_dmax, kr, arr, stage_halo(sd, ks), sp))
+    return tuple(out)
+
+
+def _segment_offsets(dilation_sets, ks, segments):
+    """Each launch's (dilations, first conv, first tap) in a pack laid out
+    launch by launch (pack_stage)."""
+    conv0 = tap0 = 0
+    for seg in segments:
+        sd = segment_dilations(dilation_sets, seg)
+        yield sd, conv0, tap0
+        conv0 += sum(2 * len(d) for d in sd)
+        tap0 += sum(2 * len(d) * k for d, k in zip(sd, ks))
+
+
+def segment_weights(w: torch.Tensor, b: torch.Tensor, dilation_sets, ks, segments):
+    """Each launch's (dilations, conv weights, biases) of a stage whose
+    weights pack_stage packed launch by launch (w, b: its PackedStage's),
+    as views of the pack, in launch order: what _launch passes each launch
+    (its first tap and conv, _segment_offsets)."""
+    taps = w.reshape(-1, *w.shape[-3:])
+    for sd, conv0, tap0 in _segment_offsets(dilation_sets, ks, segments):
+        n_c = sum(2 * len(d) for d in sd)
+        n_t = sum(2 * len(d) * k for d, k in zip(sd, ks))
+        yield sd, taps[tap0:tap0 + n_t], b[conv0:conv0 + n_c]
+
+
+def _check_launch(lib, err: int, counter, mode: str):
+    """Raise for a launch the entry refused or CUDA failed, else count it."""
     if err != 0:
         raise RuntimeError(f"mrf_stage kernel launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")
     if counter is not None:
         _count_launch(counter, mode)
-    return y
 
 
 # --------------------------------------------------------------------------
@@ -989,7 +1185,7 @@ def refuse_autograd(x: torch.Tensor, blocks: Sequence[dict],
 def mrf_stage(x: torch.Tensor,
               blocks: Sequence[dict],
               dilation_sets: Sequence[Sequence[int]],
-              kernel_size: int,
+              kernel_size: KernelSizes,
               upsample: Optional[dict] = None,
               in_bias: Optional[torch.Tensor] = None,
               in_leaky: Optional[float] = None,
@@ -1003,8 +1199,10 @@ def mrf_stage(x: torch.Tensor,
     transpose_out_len(L_pre, ...) rows, any K.  in_leaky: slope of a leaky-
     relu on the pre-upsample input.  in_bias: (C,) added to the stage input.
     out_leaky: slope of a leaky-relu on the stage output.
-    blocks[j] = {"convs1": [{"w", "b"}...], "convs2": [...]} with (C, C, K)
-    weights; dilation_sets[j] the convs1 dilations of resblock j.
+    blocks[j] = {"convs1": [{"w", "b"}...], "convs2": [...]} with (C, C, K_j)
+    weights; dilation_sets[j] the convs1 dilations of resblock j;
+    kernel_size: K_j of every resblock, or a sequence of one per resblock
+    (sizes that differ: the bf16 mode only; kernel_takes says).
     packed: the same weights in the kernel's layout (pack_stage), made once
     per model so that a launch moves no weights; packed here when omitted.
     The plain version (CPU tensors) reads `blocks` and `upsample` only.
@@ -1032,7 +1230,7 @@ mrf_stage.staged_launches = 0
 def mrf_stage_unfolded(x: torch.Tensor,
                        blocks: Sequence[dict],
                        dilation_sets: Sequence[Sequence[int]],
-                       kernel_size: int,
+                       kernel_size: KernelSizes,
                        packed: Optional[PackedStage] = None) -> torch.Tensor:
     """The MRF stage on (B, L, C) with no fused options: the same kernel as
     mrf_stage, counted in `mrf_stage_unfolded.launches` (those in the

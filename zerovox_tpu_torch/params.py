@@ -437,7 +437,7 @@ def _draw_shape(path: tuple, cfg: ZeroVoxConfig) -> tuple:
             bidx = path[2]
             stage = bidx // cfg.num_resblocks
             co = vocoder_stage_channels(cfg)[stage][1]
-            k = cfg.resblock_kernel_size
+            k = cfg.resblock_kernels[bidx % cfg.num_resblocks]
             if leaf == "w":
                 return (k, co, co)
             return (co,)

@@ -13,8 +13,9 @@ fifth less and a quarter more, with the host's pace.
 
 `DynamicBatcher` is continuous batching with a fill window: a request
 enqueues and blocks; a dispatcher thread pops compatible requests (up to
-the engine's ladder top) and makes ONE `synthesize_async` dispatch,
-ladder-padded, so the set of shapes stays the set warmup() ran.  A lone
+the engine's ladder top) and makes ONE `synthesize_async` dispatch: its
+front ladder-padded, its vocoder at the dispatch's real rows, so its shapes
+stay those warmup() ran.  A lone
 request on an idle daemon dispatches at once (no added wait); coalescing
 comes from requests that arrive while a dispatch is being issued, plus up to
 `window_ms` of extra fill time that only applies when the engine was

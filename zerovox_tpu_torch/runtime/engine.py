@@ -7,10 +7,14 @@ the predicted mel lengths, and runs only the heavy vocoder at the smallest
 bucket that covers mel_len plus the vocoder's receptive field, so the
 trimmed audio equals the full-length run's.
 
-Batches are padded (first row repeated) to the smallest size of the batch
-ladder and split at its top, as in the JAX package: the set of shapes a
-serving process ever runs stays len(mel_buckets) x len(batch_ladder), and
-the ladder top bounds the memory of one dispatch.
+Batches are split at the top of the batch ladder, as in the JAX package,
+so that the ladder top bounds the memory of one dispatch.  The front runs
+each chunk padded (first row repeated) to the smallest ladder size that
+holds it; the vocoder runs the chunk's real rows (with a mesh, rounded up to
+a whole row per data device), since a padded row costs it as much as a real
+one.  So the shapes a serving process runs are the fronts at
+len(batch_ladder) sizes and the vocoder at every row count up to the ladder
+top, each at every mel bucket; warmup() runs each once.
 
 Multi-device serving: pass `mesh=` (a pure-DP parallel.Mesh, model axis 1)
 and every front and vocoder call is split over the mesh's data devices,
@@ -64,8 +68,8 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 def _count_frames(mel_len: np.ndarray, rows: int, bucket: int):
     """The "vocoder.frames" counter of one vocoder call: the frames its real
-    rows need (their mel lengths) and the frames it vocodes (every row,
-    ladder padding included, at the bucket's length)."""
+    rows need (their mel lengths) and the frames it vocodes (every row it
+    runs, a mesh's padding row included, at the bucket's length)."""
     profiling.count("vocoder.frames", int(np.sum(mel_len)), rows * bucket)
 
 
@@ -226,6 +230,12 @@ class TTSEngine:
         return float_to_pcm16_device(hifigan.vocode(model.params, self.cfg, mel_b,
                                                     model.packed))
 
+    @torch.inference_mode()
+    def _issue_vocode_both(self, mel_b: torch.Tensor, model: LoadedModel):
+        """One vocode, returned both ways (float32 and int16): warmup's."""
+        wav = hifigan.vocode(model.params, self.cfg, mel_b, model.packed)
+        return wav.to(torch.float32), float_to_pcm16_device(wav)
+
     def _back(self, mel_b: torch.Tensor, pcm16: bool,
               models: Optional[Tuple[LoadedModel, ...]] = None) -> np.ndarray:
         """_vocode fetched to the host."""
@@ -247,14 +257,21 @@ class TTSEngine:
                 return s
         return self.batch_ladder[-1]
 
-    def _ladder_chunks(self, idxs: Sequence[int]):
+    def _vocode_rows(self, n: int) -> int:
+        """The rows the vocoder runs for a chunk of n real rows: n, rounded up
+        to a whole row per data device."""
+        d = len(self._models)
+        return -(-n // d) * d
+
+    def _ladder_chunks(self, idxs: Sequence[int], rows_for=None):
         """Split an index list into ladder-top chunks, each padded (first
-        index repeated) up to its ladder size.  Yields (padded_idxs, n_real)."""
+        index repeated) up to rows_for(n) rows, n its real rows (default:
+        the ladder size, the front's rows).  Yields (padded_idxs, n_real)."""
         top = self.batch_ladder[-1]
         for c0 in range(0, len(idxs), top):
             chunk = list(idxs[c0:c0 + top])
-            size = self.ladder_size(len(chunk))
-            yield chunk + [chunk[0]] * (size - len(chunk)), len(chunk)
+            rows = (rows_for or self.ladder_size)(len(chunk))
+            yield chunk + [chunk[0]] * (rows - len(chunk)), len(chunk)
 
     def group_by_bucket(self, predicted_lens: Sequence[int]) -> Dict[int, List[int]]:
         """Group utterance indices by their mel bucket (for batch packing)."""
@@ -265,19 +282,24 @@ class TTSEngine:
 
     def warmup(self, batch: int = 1, pcm16: bool = False):
         """Run every shape serving can hit for batches up to `batch` once:
-        the front and the vocoder at each bucket, at every ladder size
-        <= ladder_size(batch).  On a card this builds the MRF kernel and
-        lets cuDNN pick its algorithms before the first request."""
+        the front at every ladder size <= ladder_size(batch), and the
+        vocoder at each bucket at every row count it runs for them
+        (_vocode_rows), its output float32 and with pcm16 also int16.  On a
+        card this builds the MRF kernel and lets cuDNN pick its algorithms
+        before the first request."""
         cfg = self.cfg
+        issue = self._issue_vocode_both if pcm16 else self._issue_vocode
         for s in (s for s in self.batch_ladder if s <= self.ladder_size(batch)):
             src = torch.zeros((s, cfg.max_n_phonemes), dtype=torch.long,
                               device=self.device)
             style = torch.zeros((s, cfg.d_model), device=self.device)
             nph = torch.zeros((s,), dtype=torch.long, device=self.device)
             mel, _ = self._front(src, src, style, nph)
+            rows = sorted({self._vocode_rows(n) for n in range(1, s + 1)
+                           if self.ladder_size(n) == s})
             for b in self.mel_buckets:
-                for v in ((False, True) if pcm16 else (False,)):
-                    self._back(mel[:, :b], v)
+                for r in rows:
+                    self._split("issue.vocode", issue, self._models, mel[:r, :b])
         for dev in dict.fromkeys(self._devices):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -312,7 +334,7 @@ class TTSEngine:
         bucket = (self.pick_bucket(int(mel_len_h.max()))
                   if trim else self.mel_buckets[-1])
         outs = []
-        for padded, n in self._ladder_chunks(range(mel.shape[0])):
+        for padded, n in self._ladder_chunks(range(mel.shape[0]), self._vocode_rows):
             outs.append(self._back(self._take(mel, padded)[:, :bucket], pcm16, models)[:n])
             _count_frames(mel_len_h[padded[:n]], len(padded), bucket)
         return self._trim(np.concatenate(outs, axis=0), mel_len_h, trim), mel_len_h
@@ -326,32 +348,33 @@ class TTSEngine:
         The front is launched with no host sync, ladder chunk by ladder
         chunk, and each chunk's mel_len starts its copy into pinned host
         memory behind it.  fetch() waits for each chunk's mel_len, vocodes
-        the chunk at the bucket of its longest row (trim=False: at the
-        largest bucket), as synthesize() does, and waits for the waveforms'
-        copies and trims on the host.  The calling thread never waits for
-        the device, so a caller can launch batch k+1 while batch k is still
-        computing or being fetched on another thread."""
+        the chunk's real rows at the bucket of its longest (trim=False: at
+        the largest bucket), as synthesize() does, and waits for the
+        waveforms' copies and trims on the host.  The calling thread never
+        waits for the device, so a caller can launch batch k+1 while batch k
+        is still computing or being fetched on another thread."""
         models = self._models
         src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
         fronts = []
         for padded, n in self._ladder_chunks(range(src.shape[0])):
             mel, mel_len = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
                                        models)
-            fronts.append((mel, to_host_async(mel_len), n, len(padded)))
+            fronts.append((mel, to_host_async(mel_len), n))
 
         def fetch() -> Tuple[List[np.ndarray], np.ndarray]:
             vocoded = []
-            for mel, len_p, n, size in fronts:
+            for mel, len_p, n in fronts:
                 with profiling.span("engine.sync"):
                     len_n = wait_host(len_p).numpy()[:n]
                 bucket = self.pick_bucket(int(len_n.max())) if trim else self.mel_buckets[-1]
-                wav = self._vocode(mel[:, :bucket], pcm16, models)
-                vocoded.append((to_host_async(wav), len_n, n, size, bucket))
+                rows = self._vocode_rows(n)
+                wav = self._vocode(mel[:rows, :bucket], pcm16, models)
+                vocoded.append((to_host_async(wav), len_n, n, rows, bucket))
             wavs: List[np.ndarray] = []
-            for wav_p, len_n, n, size, bucket in vocoded:
+            for wav_p, len_n, n, rows, bucket in vocoded:
                 with profiling.span("engine.sync"):
                     wav_h = wait_host(wav_p).numpy()[:n]
-                _count_frames(len_n, size, bucket)
+                _count_frames(len_n, rows, bucket)
                 wavs.extend(self._trim(wav_h, len_n, trim))
             return wavs, np.concatenate([v[1] for v in vocoded])
 
@@ -362,7 +385,7 @@ class TTSEngine:
                           pcm16: bool = False
                           ) -> Tuple[List[np.ndarray], np.ndarray]:
         """Bucket-packed batched synthesis: one vocoder dispatch per bucket
-        group (ladder-padded), so short utterances in a mixed batch do not
+        group (its real rows), so short utterances in a mixed batch do not
         pay the longest one's compute.  Outputs match synthesize()."""
         models = self._models
         mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, models)
@@ -372,7 +395,7 @@ class TTSEngine:
         groups = (self.group_by_bucket(mel_len_h) if trim
                   else {self.mel_buckets[-1]: list(range(B))})
         for bucket, idxs in groups.items():
-            for padded, n in self._ladder_chunks(idxs):
+            for padded, n in self._ladder_chunks(idxs, self._vocode_rows):
                 wav_h = self._back(self._take(mel, padded)[:, :bucket], pcm16, models)
                 _count_frames(mel_len_h[padded[:n]], len(padded), bucket)
                 for k, i in enumerate(padded[:n]):

@@ -187,7 +187,7 @@ def _time(args, dtype, names, libs) -> int:
     params = cast_params(init_params(cfg, seed=0, device="cuda"), dtype)
     packs = pack_vocoder(params, cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    voc, dils, kr = params["vocoder"], cfg.resblock_dilations, cfg.resblock_kernel_size
+    voc, dils, kr = params["vocoder"], cfg.resblock_dilations, cfg.resblock_kernels
     L_pre, c_pre = (cfg.max_seq_len if args.shape == "full" else 256), cfg.hifigan_channels
     print(f"card: {torch.cuda.get_device_name(0)}; {args.dtype}, shape B=1, {L_pre} mel frames",
           flush=True)

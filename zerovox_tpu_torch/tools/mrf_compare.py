@@ -18,7 +18,8 @@ run's times per stage, then per shape the four-stage sums of both checkouts
 (the mean of their runs) and their ratio, with the card's name and power
 limit, and a JSON summary as its last line.  A run uses only entry points
 both checkouts have (init_params, cast_params, pack_vocoder, mrf_stage,
-f16_staging, chunk_plan, compile_cache.loaded).  It also compares, per
+f16_staging, chunk_plan, compile_cache.loaded), and the config's
+resblock_kernels where the checkout has it.  It also compares, per
 kernel mode, the machine code (cuobjdump -sass) of the library each
 checkout built, the anonymous namespace's per-file names masked: 0
 differing lines means the mode's kernels are the same code.  Needs a card.
@@ -56,7 +57,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 cfg = ZeroVoxConfig()
 params = init_params(cfg, seed=0, device="cuda")
 params16 = cast_params(params, torch.bfloat16)
-dils, kr = cfg.resblock_dilations, cfg.resblock_kernel_size
+# each resblock's kernel size (a checkout older than the accessor has one size)
+dils = cfg.resblock_dilations
+kr = getattr(cfg, "resblock_kernels", None) or cfg.resblock_kernel_size
 
 
 def cuda_ms(fn):
