@@ -29,10 +29,13 @@ Phases (any failure exits non-zero and prints no result line):
      B = 1); the unfolded entry also in the f16-staged mode (under
      f16_staging, stage 2's geometry at B=1 and full length, against staged
      mrf_stage_ref at phase 11's ulp gate, timed beside its bound); HiFi-GAN
-     V1's stages in bfloat16 (resblock kernels 3/7/11, each CTA at its own;
-     every stage in the kernel, stage 1 in one launch per dilation slot:
-     all four at B = 1 and 8 over 1500 frames, stage 1 also at every batch
-     size 1-8 and bucket; check_v1_stages); at three of them
+     V1's stages in bfloat16 (resblock kernels 3/7/11; every stage in the
+     kernel, each resblock a launch of its own, counted in
+     mrf_stage.resblock_launches, stage 1's k = 11 in one launch per
+     dilation slot: all four at B = 1 and 8 over 1500 frames, stage 1 also
+     at every batch size 1-8 and bucket, then a whole vocode;
+     check_v1_stages; zerovox medium's stages add no resblock launch); at
+     three of them
      (B=1 full length, B=1 and B=8 at bucket 256) and at the windows, time
      every launch with CUDA events next to the plain version and its bounds (f32: f32 FMA and
      3xTF32 tensor cores; bf16: dense bf16 tensor cores); print each
@@ -601,17 +604,22 @@ V1_VOCODER = dict(hop_size=256, sampling_rate=22050, upsample_scales=(8, 8, 2, 2
 
 def check_v1_stages(gen, pk):
     """HiFi-GAN V1's four stages in bfloat16 (resblock kernels 3/7/11,
-    upsample 8-8-2-2): the route sends every stage to the kernel, each CTA
-    at its own resblock's size, and stage 1 (C=256, whose 60-row halo no
-    window holds) runs in one launch per dilation slot (ms.stage_segments).
-    Every stage held against mrf_stage_ref at the bf16 gate (check_one) at
-    B=1 and B=8 over 1500 mel frames, stage 1 also at every batch size of
-    VOCODE_ROWS at every bucket of BUCKETS (each launch's tile follows B
-    and L); at B=1 each stage timed beside the plain version and its
-    bound, its launches described."""
+    upsample 8-8-2-2): the route sends every stage to the kernel, each
+    resblock a launch of its own at its own halo and tile where the three
+    at once would take the card's clusters more than one wave, else one
+    cluster of the three (ms.stage_route; stage 1's k = 11 resblock, whose
+    60-row halo no window holds at C=256, in one launch per dilation slot),
+    every call's launches and mrf_stage.resblock_launches checked against
+    its route.  Every stage held against mrf_stage_ref at the bf16 gate
+    (check_one) at B=1 and B=8 over 1500 mel frames, stage 1 also at every
+    batch size of VOCODE_ROWS at every bucket of BUCKETS (each launch's
+    tile, and the route, follow B and L); at B=1 each stage timed beside
+    the plain version and its bound, its launches described; then two whole
+    vocodes (B=2 at 256 frames, B=1 at a stream window of 96), whose
+    resblock launches are their stages' routes'."""
     import torch
     from zerovox_tpu_torch.config import ZeroVoxConfig
-    from zerovox_tpu_torch.models.hifigan import pack_vocoder, stage_routes
+    from zerovox_tpu_torch.models.hifigan import pack_vocoder, stage_routes, vocode
     from zerovox_tpu_torch.models.pipeline import cast_params
     from zerovox_tpu_torch.ops.cuda import mrf_stage as ms
     from zerovox_tpu_torch.params import init_params
@@ -625,21 +633,39 @@ def check_v1_stages(gen, pk):
     dils, kr = cfg.resblock_dilations, cfg.resblock_kernels
     # every conv's taps (stage_work counts n_convs x kr of them)
     taps = sum(2 * len(d) * k for d, k in zip(dils, kr))
-    segments = ms.stage_segments(cfg.hifigan_channels // 2, dils, kr)
     log(f"HiFi-GAN V1 bf16 (resblocks {kr}, upsample {cfg.upsample_scales}): every stage in "
-        f"the kernel, stage 1 in {len(segments)} launches (dilation slots {segments})")
+        f"the kernel, each resblock a launch of its own where the three at once take the "
+        f"clusters more than one wave")
+
+    def route(x, C, K_up, kw, L_out):
+        return ms.stage_route(x.device, C, dils, kr, x.shape[0], L_out, x.shape[2], K_up,
+                              kw["upsample"]["stride"], x.dtype)
 
     def plans(x, C, K_up, kw, L_out):
         up = kw["upsample"]
-        segs = ms.stage_segments(C, dils, kr)
-        return [ms.stage_plan(x.device, C, ms.segment_dilations(dils, seg), kr, x.shape[0], L_out,
-                              *((x.shape[2], K_up, up["stride"]) if n == 0 else (0, 0, 1)),
-                              x.dtype) for n, seg in enumerate(segs)]
+        return [(len(ln.blocks), ms.stage_plan(
+            x.device, C, *ms.launch_dilations(dils, kr, ln), x.shape[0], L_out,
+            *((x.shape[2], K_up, up["stride"]) if ln.reads_x else (0, 0, 1)), x.dtype))
+            for ln in route(x, C, K_up, kw, L_out).launches]
+
+    def counted(i, x, C, K_up, kw, fn):
+        """fn() (one mrf_stage call of stage i on x), its launches checked
+        against its route: resblock launches where each resblock ran alone."""
+        before = ms.mrf_stage.launches, ms.mrf_stage.resblock_launches
+        out = fn()
+        r = route(x, C, K_up, kw, out[0].shape[1])
+        want = (len(r.launches), len(r.launches) if r.launches[0].blocks == (0,) else 0)
+        got = (ms.mrf_stage.launches - before[0], ms.mrf_stage.resblock_launches - before[1])
+        if got != want:
+            raise RuntimeError(f"v1 stage {i + 1} B={x.shape[0]} L={x.shape[1]}: (launches, "
+                               f"resblock_launches) +{got}, want +{want}")
+        return out
 
     for B in (1, 8):
         worst, tot = [], dict(ms=0.0, tc=0.0)
         for name, i, x, blocks, kw, C, K_up in stage_calls(cfg, params, gen, B, cfg.max_seq_len):
-            got, err, tol = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
+            got, err, tol = counted(i, x, C, K_up, kw, lambda: check_one(
+                ms, name, i, x, blocks, kw, cfg, packs[i]))
             worst.append(err / tol)
             if B == 1:
                 ms_k = cuda_ms(lambda: ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw),
@@ -652,23 +678,43 @@ def check_v1_stages(gen, pk):
                     f"{tuple(got.shape)}  max|d| {err:.3e} (tol at max|out| {tol:.3e})  kernel "
                     f"{ms_k:.3f} ms ({flops / ms_k / 1e9:.2f} TFLOP/s)  plain {ms_p:.3f} ms  "
                     f"bound {bounds['tc']:.3f} ms ({flops / 1e9:.1f} GFLOP)")
-                for plan in plans(x, C, K_up, kw, got.shape[1]):
-                    log(f"    launch: {describe_plan(ms, plan, len(kr))}")
+                for n_rb, plan in plans(x, C, K_up, kw, got.shape[1]):
+                    log(f"    launch: {describe_plan(ms, plan, n_rb)}")
             del got
         log(f"v1 bf16 B={B} at {cfg.max_seq_len} mel frames held against the plain version, "
             f"stages 1-4: max|d| at " + ", ".join(f"{w:.2f}" for w in worst)
             + " of the tolerance at max|out|"
             + (f"; kernel {tot['ms']:.3f} ms, bound {tot['tc']:.3f} ms "
                f"({100 * tot['tc'] / tot['ms']:.1f} %)" if B == 1 else ""))
-    worst = []
+    worst, alone, n_alone = [], 0, ms.mrf_stage.resblock_launches
     for B in VOCODE_ROWS:
         for L0 in BUCKETS:
             name, i, x, blocks, kw, C, K_up = stage_calls(cfg, params, gen, B, L0)[0]
-            got, err, tol = check_one(ms, name, i, x, blocks, kw, cfg, packs[i])
+            got, err, tol = counted(i, x, C, K_up, kw, lambda: check_one(
+                ms, name, i, x, blocks, kw, cfg, packs[i]))
             worst.append(err / tol)
+            alone += ms.mrf_stage.resblock_launches > n_alone
+            n_alone = ms.mrf_stage.resblock_launches
             del got
     log(f"v1 bf16 stage 1 at B {VOCODE_ROWS} x buckets {BUCKETS} held against the plain "
-        f"version: max|d| at most {max(worst):.2f} of the tolerance at max|out|")
+        f"version: max|d| at most {max(worst):.2f} of the tolerance at max|out|; its "
+        f"resblocks alone at {alone} of {len(worst)} grids")
+    for B, L0 in ((2, 256), (1, 96)):
+        mel = torch.randn(B, L0, cfg.num_mels, generator=gen, device="cuda")
+        want = [route(x, C, K_up, kw, x.shape[1] * kw["upsample"]["stride"])
+                for _, _, x, _, kw, C, K_up in stage_calls(cfg, params, gen, B, L0)]
+        want = [len(r.launches) if r.launches[0].blocks == (0,) else 0 for r in want]
+        before = ms.mrf_stage.resblock_launches
+        with torch.no_grad():
+            wav = vocode(params, cfg, mel, packed=packs)
+        torch.cuda.synchronize()
+        per_vocode = ms.mrf_stage.resblock_launches - before
+        if per_vocode != sum(want) or not torch.isfinite(wav.float()).all():
+            raise RuntimeError(f"v1 bf16 vocode B={B} at {L0} frames: "
+                               f"mrf_stage.resblock_launches +{per_vocode}, want +{sum(want)}; "
+                               f"finite {bool(torch.isfinite(wav.float()).all())}")
+        log(f"v1 bf16 vocode (B={B}, {L0} mel frames): mrf_stage.resblock_launches "
+            f"+{per_vocode} (stages 1-4: {want})")
     del params, packs
     torch.cuda.empty_cache()
 
@@ -3605,9 +3651,16 @@ def run() -> int:
             "no result line")
         return 0
     wgmma_probe_check()
+    resblock0 = ms.mrf_stage.resblock_launches
     records, packs, held, shapes = check_stages(
         cfg, params, gen, pk, extra=sorted(set(phase9_shapes(cfg)) | set(example_shapes(cfg))))
     records16, packs16, _, shapes16 = check_stages(cfg, params16, gen, pk)
+    if ms.mrf_stage.resblock_launches != resblock0:
+        raise RuntimeError(f"zerovox medium: mrf_stage.resblock_launches "
+                           f"+{ms.mrf_stage.resblock_launches - resblock0}, want 0 (one launch "
+                           f"of all three resblocks a stage)")
+    log(f"zerovox medium, f32 and bf16: mrf_stage.launches {ms.mrf_stage.launches}, "
+        f"mrf_stage.resblock_launches +0")
     records.update(records16)
     shapes |= shapes16
     records["mrf_stage_unfolded_f16_staged"] = staged_unfolded(cfg, params, gen, pk)

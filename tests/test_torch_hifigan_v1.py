@@ -10,10 +10,12 @@ puts it behind zerovox medium's front).  Held here:
   * the receptive field (15 frames for V1, 9 for medium) and a mel cut past
     it changing no earlier sample;
   * the MRF kernel's geometry and routes at V1's widths: a 60-row halo,
-    every stage in the bf16 kernel (stage 1, 256 channels, in one launch
-    per dilation slot), no stage of mixed sizes in float32 or under
-    f16_staging, and medium's plans as they were;
-  * the ragged pack of the bf16 weights, launch by launch for stage 1;
+    every stage in the bf16 kernel, each resblock a launch of its own at
+    its own halo and tile (the k = 11 one at 256 channels in one launch
+    per dilation slot), what _launch passes each launch, no stage of mixed
+    sizes in float32 or under f16_staging, and medium's plans and its one
+    launch a stage as they were;
+  * the ragged pack of the bf16 weights, launch by launch;
   * the vocoder, a stream and the whole synthesis at a small V1-shaped
     geometry (TINY's front, V1's vocoder at 64 channels) against the
     benchmark's plain reference (benchmark/reference/model.py on
@@ -166,35 +168,177 @@ def test_medium_plans_pinned(kr):
 
 
 def test_v1_bf16_plans():
-    """V1 in bf16: at C=256 no window of the design holds a 60-row halo, so
-    stage 1 runs one launch per dilation slot, at halos 10 / 20 / 30: tiles
-    of 72 / 88 / 60 rows in windows of 92 / 128 / 120 (chunks of 64, 16 and
-    16 input channels: with 64 the last two would leave tiles of 42 and
-    12); at C = 128 / 64 / 32 one launch, tiles of 72 / 392 / 392 rows in
-    windows of 192 / 512 / 512, the operand margin the k=11 resblock's
-    largest tap shift, 5 * 5 = 25 rows."""
+    """V1 in bf16 runs each resblock as a stage of its own (stage_launches),
+    at its own halo: at C = 128 tiles of 168 / 120 / 72 rows in windows of
+    192 (halos 12 / 36 / 60), at C = 64 and 32 tiles of 488 / 440 / 392 in
+    windows of 512, the operand margin each resblock's largest tap shift
+    (5, 15, 25 rows).  At C = 256 (stage 1) k = 3 and k = 7 run one launch
+    each (tiles of 68 and 56 in windows of 92 and 128), and k = 11, whose
+    60-row halo no window of the design holds, one launch per dilation
+    slot at halos 10 / 20 / 30: tiles of 72 / 88 / 60 in windows of 92 /
+    128 / 120 (chunks of 64, 16 and 16: with 64 the last two would leave
+    tiles of 42 and 12).  The three resblocks in one cluster would have
+    tiles of 72 / 392 / 392 at C = 128 / 64 / 32, and at C = 256 three
+    slot launches of all three."""
     dils, kr = V1.resblock_dilations, V1.resblock_kernels
+
+    def plans(C, cin, s, k):
+        route = ms.stage_launches(C, dils, kr, (cin, k, s))
+        return [(p.tile, p.window, p.kb, p.margin) for p in (
+            ms.bf16_plan(C, *ms.launch_dilations(dils, kr, ln),
+                         *((cin, k, s) if ln.reads_x else ())) for ln in route.launches)]
+
+    assert plans(*V1_STAGES[0]) == [(68, 92, 64, 5), (56, 128, 16, 15), (72, 92, 64, 5),
+                                    (88, 128, 16, 15), (60, 120, 16, 25)]
+    assert plans(*V1_STAGES[1]) == [(168, 192, 128, 5), (120, 192, 128, 15), (72, 192, 128, 25)]
+    for stage in V1_STAGES[2:]:
+        C = stage[0]
+        assert plans(*stage) == [(488, 512, C, 5), (440, 512, C, 15), (392, 512, C, 25)]
     with pytest.raises(ValueError, match="halo 60 leaves no room"):
         ms.bf16_plan(256, dils, kr, 512, 16, 8)
-    segments = ms.stage_segments(256, dils, kr)
-    assert segments == ((0, 1), (1, 2), (2, 3))
-    split = [ms.bf16_plan(256, ms.segment_dilations(dils, seg), kr,
-                          *((512, 16, 8) if seg == segments[0] else ()))
-             for seg in segments]
-    assert [(p.tile, p.window, p.kb, p.margin) for p in split] == [
-        (72, 92, 64, 5), (88, 128, 16, 15), (60, 120, 16, 25)]
+    assert ms.stage_segments(256, dils, kr) == ((0, 1), (1, 2), (2, 3))
     assert ms.bf16_plan(256, ((3,),) * 3, kr, kb=64).tile == 42
     assert ms.bf16_plan(256, ((5,),) * 3, kr, kb=64).tile == 12
     for C, _, _, _ in V1_STAGES[1:]:
         assert ms.stage_segments(C, dils, kr) == ((0, 3),)
     for C, _, _, _ in MEDIUM_STAGES:
         assert ms.stage_segments(C, MEDIUM.resblock_dilations, 3) == ((0, 3),)
-    plans = [ms.bf16_plan(C, dils, kr, cin, k, s) for C, cin, s, k in V1_STAGES[1:]]
-    assert [p.tile for p in plans] == [72, 392, 392]
-    assert [p.window for p in plans] == [192, 512, 512]
-    assert [p.margin for p in plans] == [25] * 3
+    together = [ms.bf16_plan(C, dils, kr, cin, k, s) for C, cin, s, k in V1_STAGES[1:]]
+    assert [(p.tile, p.window, p.margin) for p in together] == [(72, 192, 25), (392, 512, 25),
+                                                                (392, 512, 25)]
     with pytest.raises(ValueError, match="only the bf16 mode"):
         ms.tile_plan(128, dils, kr, 256, 16, 8)
+
+
+def test_resblocks_launch_alone_exactly_where_sizes_differ():
+    """stage_launches runs a stage's resblocks one at a time exactly where
+    their kernel sizes differ (in the bf16 mode, the only one that takes
+    such a stage): V1's 3/7/11 and 11/3/7 at every V1 width, in resblock
+    order, the first launch reading x and handing the stage input on, the
+    last (the last resblock's) writing y after the two final states.
+    zerovox medium (one int or per resblock), (3, 3, 3) at V1's widths and
+    a lone k = 11 resblock keep one cluster of every resblock a launch (at
+    C = 256 k = 11 everywhere: three launches by dilation slot), as do the
+    f16-staged and float32 modes; medium's plans are test_medium_plans_pinned's."""
+    dils = V1.resblock_dilations
+    for C, cin, s, k in V1_STAGES:
+        for ks in ((3, 7, 11), (11, 3, 7)):
+            route = ms.stage_launches(C, dils, ks, (cin, k, s))
+            blocks = [ln.blocks for ln in route.launches]
+            assert set(blocks) == {(0,), (1,), (2,)} and blocks == sorted(blocks)
+            first, last = route.launches[0], route.launches[-1]
+            assert first.reads_x and first.x_out >= 0 and not any(
+                ln.reads_x for ln in route.launches[1:])
+            assert last.h_out == -1 and last.n_sum == 2
+            assert sum(ln.h_out == -1 for ln in route.launches) == 1
+    one = ms.StageLaunch((0, 1, 2), (0, 3), True, -1, -1, 0, -1)
+    for C, cin, s, k in V1_STAGES[1:] + MEDIUM_STAGES:
+        for ks in (3, (3, 3, 3)):
+            assert ms.stage_launches(C, dils, ks, (cin, k, s)) == ms.StageRoute((one,), 0)
+        for mode in ("f16_staged", "f32"):
+            assert ms.stage_launches(C, dils, (3, 3, 3), (cin, k, s), mode) == \
+                ms.StageRoute((one,), 0)
+    assert ms.stage_launches(128, dils[:1], 11, (256, 16, 8)).launches == (
+        one._replace(blocks=(0,)),)
+    split = ms.stage_launches(256, dils, 11, (512, 16, 8))
+    assert [(ln.blocks, ln.slots) for ln in split.launches] == [
+        ((0, 1, 2), (0, 1)), ((0, 1, 2), (1, 2)), ((0, 1, 2), (2, 3))]
+    assert split.slots == 6
+
+
+@pytest.mark.parametrize("B,frames,alone", [
+    (1, 1500, [True] * 4), (8, 1024, [True] * 4), (2, 256, [True] * 4),
+    (1, 256, [False, True, True, True]), (1, 96, [False, True, False, False]),
+    (1, 44, [False] * 4)])
+def test_resblocks_run_together_in_one_wave(B, frames, alone):
+    """With a grid, V1's resblocks run alone only where their tiles, all
+    three at once, take an H100's clusters more than one wave (44 clusters
+    of three, 88 at C=32 where two CTAs share an SM): a long stage or a
+    batch alone; a stream window's stage 1, 3 and 4 (B = 1, 96 frames) and
+    every stage of a 44-frame tail together, in one wave, where three
+    launches in turn would each take a wave's time."""
+    L, got = frames, []
+    for C, cin, s, k in V1_STAGES:
+        L *= s
+        route = ms.stage_launches(C, V1.resblock_dilations, (3, 7, 11), (cin, k, s), B=B,
+                                  L_out=L, wave=88 if C == 32 else 44)
+        got.append(route.launches[0].blocks == (0,))
+        assert route == ms.stage_launches(C, V1.resblock_dilations, (3, 7, 11), (cin, k, s)) if \
+            got[-1] else all(ln.blocks == (0, 1, 2) for ln in route.launches)
+    assert got == alone
+
+
+@pytest.mark.parametrize("case", ["v1-long", "v1-one-wave", "medium"])
+def test_launch_passes_the_route(monkeypatch, case):
+    """_launch on V1's stage 2 geometry (C = 128; meta tensors, the library
+    and the card stubbed), B = 2 x 80 rows.  V1 (3/7/11) where its tiles
+    take the clusters more than one wave (a card of one cluster a wave):
+    one entry call per resblock in order, each at its own halo and plan,
+    its convs found in the chain-order pack by their place (conv0, tap0);
+    the first reads x (the upsample, in_bias, in_leaky) and writes the
+    stage input to scratch slot 2, the next two read it there, the k = 7
+    launch leaves its final state in slot 1 (k = 3's in slot 0), and the
+    k = 11 launch sums slots 0-1 before its own into y under out_leaky;
+    counted in launches and resblock_launches.  V1 in one wave (44 clusters
+    a wave) and zerovox medium: one call of all three resblocks, not
+    counted in resblock_launches."""
+    import contextlib
+    from types import SimpleNamespace
+    calls = []
+    lib = SimpleNamespace(stage={"bf16": lambda *a: calls.append(a) or 0},
+                          error_string=lambda e: b"")
+    wave3 = 1 if case == "v1-long" else 44                # clusters of three a wave
+    monkeypatch.setattr(ms, "library", lambda: lib)
+    monkeypatch.setattr(ms, "wave_clusters",
+                        lambda dev, n_rb, C, mode, mt: 132 if n_rb == 1 else wave3)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: SimpleNamespace(cuda_stream=0))
+    ms._wgmma_launches.cache_clear()
+    monkeypatch.setattr(ms.mrf_stage, "launches", 0)
+    monkeypatch.setattr(ms.mrf_stage, "resblock_launches", 0)
+
+    def meta(*shape):
+        return torch.empty(*shape, device="meta", dtype=torch.bfloat16)
+
+    C, cin, s, k = V1_STAGES[1]
+    B, L_pre, L_out = 2, 10, 80
+    dils, kr = ((MEDIUM.resblock_dilations, 3) if case == "medium"
+                else (V1.resblock_dilations, (3, 7, 11)))
+    ks = ms.resblock_sizes(kr, 3)
+    blocks = [{cs: [{"w": meta(C, C, kj), "b": meta(C)} for _ in ds]
+               for cs in ("convs1", "convs2")} for ds, kj in zip(dils, ks)]
+    up = dict(w=meta(C, cin, k), stride=s, padding=s // 2, output_padding=0)
+    with torch.no_grad():
+        y = ms.mrf_stage(meta(B, L_pre, cin), blocks, dils, kr, upsample=up,
+                         in_bias=meta(C), in_leaky=0.1, out_leaky=0.1)
+    ms._wgmma_launches.cache_clear()
+    assert y.shape == (B, L_out, C)
+    route = ms.stage_launches(C, dils, ks, (cin, k, s), B=B, L_out=L_out, wave=wave3)
+    alone = case == "v1-long"
+    assert len(calls) == len(route.launches) == (3 if alone else 1)
+    assert route.launches[0].blocks == ((0,) if alone else (0, 1, 2))
+    sb = B * L_out * C * 4                      # bytes of a scratch slot (from address 0)
+    for a, ln in zip(calls, route.launches):
+        sd, kl = ms.launch_dilations(dils, ks, ln)
+        plan = ms.bf16_plan(C, sd, kl, *((cin, k, s) if ln.reads_x else ()), B=B,
+                            L_out=L_out, wave=132 if alone else wave3)
+        first, last = ln.reads_x, ln.h_out < 0
+        assert [v is not None for v in a[:3]] == [first] * 3          # x, w_up, in_bias
+        assert a[3:5] == (0, 0)                                       # the whole pack
+        assert a[6:11] == (None if ln.h_in < 0 else ln.h_in * sb,
+                           None if last else ln.h_out * sb, 0 if ln.n_sum else None,
+                           ln.n_sum, None if ln.x_out < 0 else ln.x_out * sb)
+        assert a[11:17] == ((B, L_pre, cin, C, L_out, k) if first else (B, L_out, C, C,
+                                                                        L_out, 0))
+        assert (a[19], a[21]) == (int(first), int(last))
+        assert a[23] == len(ln.blocks) and list(a[25]) == list(kl)
+        # chain order: 6 convs a resblock, each of its own size
+        assert list(a[27]) == [6 * j for j in ln.blocks]
+        assert list(a[28]) == [6 * sum(ks[:j]) for j in ln.blocks]
+        assert a[29:32] == (ms.stage_halo(sd, kl), plan.tile, plan.window)
+    assert [c[29] for c in calls] == ([12, 36, 60] if alone else [60 if case[0] == "v" else 12])
+    assert (ms.mrf_stage.launches, ms.mrf_stage.resblock_launches) == (len(calls),
+                                                                       3 * alone)
 
 
 def _meta_params(cfg, dtype):
@@ -209,7 +353,7 @@ def _meta_params(cfg, dtype):
 
 def test_v1_routes():
     """stage_routes at V1's production widths: bf16 sends every stage to
-    the kernel (stage 1 in three launches); float32 and the f16-staged
+    the kernel (each resblock alone; stage 1's k = 11 in three launches); float32 and the f16-staged
     mode take no stage of mixed sizes, and the f16-staged mode no stage of
     several launches.  zerovox medium: every stage the kernel's in every
     mode."""
@@ -262,28 +406,44 @@ def test_ragged_pack(rng):
 
 
 def test_split_pack(rng):
-    """At C=256 (V1's stage 1, three launches) the bf16 pack holds each
-    launch's convs as one run: slot 0 of every resblock, then slot 1, then
-    slot 2, each resblock's convs at its own size; segment_weights gives
-    each launch its run of taps and biases."""
-    C, dils, ks = 256, V1.resblock_dilations, (3, 7, 11)
-    blocks = [{cs: [{"w": torch.randn(C, C, k).to(torch.bfloat16), "b": torch.randn(C)}
-                    for _ in ds] for cs in ("convs1", "convs2")} for ds, k in zip(dils, ks)]
-    pk = ms.pack_stage(blocks, dils, ks)
-    assert tuple(pk.w.shape) == (6 * 21, C // 8, C, 8) and tuple(pk.b.shape) == (18, C)
-    launches = list(ms.segment_weights(pk.w, pk.b, dils, ks, ms.stage_segments(C, dils, ks)))
-    assert [(sd, w.shape[0], b.shape[0]) for sd, w, b in launches] == [
-        (((d,),) * 3, 2 * 21, 6) for d in (1, 3, 5)]
-    for di, (_, w, b) in enumerate(launches):
-        tap = conv = 0
-        for j, k in enumerate(ks):
-            for cs in ("convs1", "convs2"):
-                src = blocks[j][cs][di]
-                assert torch.equal(b[conv], src["b"])
-                for t in range(k):
-                    assert torch.equal(ms.from_planes(w[tap]), src["w"][:, :, t].T)
-                    tap += 1
-                conv += 1
+    """At C=256 the bf16 pack holds the convs launch by launch of the long
+    stage's route.  V1's stage 1 runs its resblocks alone there (k = 3 and
+    k = 7 one launch each, k = 11 one per dilation slot), which is chain
+    order, each resblock's convs at its own size; a stage of one size split
+    by slot (k = 11 for all three) packs slot 0 of every resblock, then
+    slot 1, then slot 2.  pack_bases gives each launch's resblocks their
+    first conv and tap, also for V1's three resblocks together (its route
+    in one wave of clusters), whose convs are not one run."""
+    C, dils = 256, V1.resblock_dilations
+    for ks in ((3, 7, 11), (11, 11, 11)):
+        blocks = [{cs: [{"w": torch.randn(C, C, k).to(torch.bfloat16), "b": torch.randn(C)}
+                        for _ in ds] for cs in ("convs1", "convs2")} for ds, k in zip(dils, ks)]
+        pk = ms.pack_stage(blocks, dils, ks)
+        taps = pk.w.reshape(-1, C // 8, C, 8)
+        assert tuple(pk.b.shape) == (18, C) and taps.shape[0] == 6 * sum(ks)
+        routes = [ms.stage_launches(C, dils, ks, (512, 16, 8))]
+        if ks == (3, 7, 11):
+            routes.append(ms.stage_launches(C, dils, ks, (512, 16, 8), B=1, L_out=512, wave=44))
+            assert [[(ln.blocks, ms.pack_bases(C, dils, ks, ln)) for ln in r.launches]
+                    for r in routes] == [
+                [((0,), ((0,), (0,))), ((1,), ((6,), (18,))), ((2,), ((12,), (60,))),
+                 ((2,), ((14,), (82,))), ((2,), ((16,), (104,)))],
+                [((0, 1, 2), ((0, 6, 12), (0, 18, 60))), ((0, 1, 2), ((2, 8, 14), (6, 32, 82))),
+                 ((0, 1, 2), ((4, 10, 16), (12, 46, 104)))]]
+        else:
+            assert [ms.pack_bases(C, dils, ks, ln) for ln in routes[0].launches] == [
+                ((0, 2, 4), (0, 22, 44)), ((6, 8, 10), (66, 88, 110)),
+                ((12, 14, 16), (132, 154, 176))]
+        for ln in (ln for r in routes for ln in r.launches):
+            for j, conv, tap in zip(ln.blocks, *ms.pack_bases(C, dils, ks, ln)):
+                for di in range(*ln.slots):
+                    for cs in ("convs1", "convs2"):
+                        src = blocks[j][cs][di]
+                        assert torch.equal(pk.b[conv], src["b"])
+                        for t in range(ks[j]):
+                            assert torch.equal(ms.from_planes(taps[tap]), src["w"][:, :, t].T)
+                            tap += 1
+                        conv += 1
 
 
 # ------------------------------------- the port against the plain reference

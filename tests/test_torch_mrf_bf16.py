@@ -181,8 +181,10 @@ def _bf16(rng, *shape, scale=1.0):
 
 
 def _blocks(rng, C, dils, kr, scale=0.05):
-    return [{cs: [{"w": _bf16(rng, C, C, kr, scale=scale), "b": _bf16(rng, C, scale=0.1)}
-                  for _ in ds] for cs in ("convs1", "convs2")} for ds in dils]
+    """bf16 resblocks of C channels, kr one kernel size or one a resblock."""
+    return [{cs: [{"w": _bf16(rng, C, C, kj, scale=scale), "b": _bf16(rng, C, scale=0.1)}
+                  for _ in ds] for cs in ("convs1", "convs2")}
+            for ds, kj in zip(dils, ms.resblock_sizes(kr, len(dils)))]
 
 
 def test_planes_round_trip(rng):
@@ -297,7 +299,7 @@ def plane_write(mem, plane_bytes, row0, rows, values):
 
 
 def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, checks,
-                 h_in=None, h_out=None):
+                 h_in=None, h_out=None, h_sum=None, x_out=None, bases=None):
     """csrc/mrf_stage_bf16.cu's launch on the CPU: per cluster (batch row,
     time tile) and CTA (resblock), the weight stream, the descriptors, the
     epilogues and the resblock sum as the kernel runs them, with float64
@@ -307,9 +309,14 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
     (each CTA streams its own resblock's taps from the ragged pack).
     `checks` counts the operand views held against round(leaky(.)) of the
     window.  h_in, h_out: (n_rb, B, L, C) float64 chain states of a stage
-    split into launches (ms.stage_segments): each CTA starts from its
+    split into launches (ms.stage_launches): each CTA starts from its
     resblock's h_in rows instead of the input, and writes its tile's h into
-    h_out instead of taking the resblock sum."""
+    h_out instead of taking the resblock sum.  h_sum: (n_sum, B, L, C) the
+    final states of resblocks that earlier launches ran, which the sum adds
+    first, in order, before the cluster's, scaling by 1 / (n_sum + n_rb).
+    x_out: (B, L, C), where rank 0 writes the stage input over its tile.
+    bases: each rank's first conv and first tap in the pack (ms.pack_bases;
+    by default the launch's resblocks one after another from 0)."""
     B, L_in, Cin = x.shape
     C = packed.b.shape[1]
     op = packed.w.dtype
@@ -335,6 +342,8 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
         L_out = L_in
     conv_base = np.cumsum([0] + [2 * len(d) for d in dils])
     tap_base = np.cumsum([0] + [2 * len(d) * k for d, k in zip(dils, ks)])   # chunk_src's
+    if bases is not None:
+        conv_base, tap_base = bases
     y = np.zeros((B, L_out, C))
 
     def gemm(mem, a_of, n_chunks, weights, src_of, act, n_tiles, plane_bytes, rows_in_plane):
@@ -417,6 +426,9 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                 h0[valid] = xv[bi, t_base + rows[valid]] + ib
                 for hh in H:
                     hh[hsw] = h0
+            if x_out is not None:
+                for r in range(min(tile, L_out - t0)):
+                    x_out[bi, t0 + r] = H[0][hsw[halo + r]]
             for rank in range(n_rb):
                 buf, h = bufs[rank], H[rank]
                 kr_r = ks[rank]
@@ -471,10 +483,12 @@ def kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, ch
                     for rank, hh in enumerate(H):
                         h_out[rank, bi, tg] = hh[hsw[halo + r]]
                     continue
-                v = H[0][hsw[halo + r]]
-                for hh in H[1:]:
-                    v = v + hh[hsw[halo + r]]
-                v = v * (1.0 / n_rb)
+                terms = [] if h_sum is None else [hs[bi, tg] for hs in h_sum]
+                terms += [hh[hsw[halo + r]] for hh in H]
+                v = terms[0]
+                for t in terms[1:]:
+                    v = v + t
+                v = v * (1.0 / len(terms))
                 if out_leaky is not None:
                     v = _leaky(v, out_leaky)
                 y[bi, tg] = v
@@ -499,11 +513,51 @@ def _weights(rng, *shape, scale=1.0, staged=False):
     return t if staged else t.to(torch.bfloat16)
 
 
+def route_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, wave, checks,
+                mode="bf16", route_wave=None):
+    """The stage as _launch runs it in `mode`: ms.stage_launches' launches
+    in order (at B x L_out rows and `route_wave` clusters of every resblock
+    a wave; None: the route without a grid, each resblock alone where sizes
+    differ), each in kernel_model at its own plan (bf16_plan with `wave`
+    clusters a wave) on the whole pack from each rank's ms.pack_bases, the
+    f32 states handed on through a float64 scratch of route.slots (B,
+    L_out, C) arrays.  Returns the output, each launch's plan and the route."""
+    B, L_in, cin = x.shape
+    C = packed.b.shape[1]
+    L_out = L_in if up is None else transpose_out_len(
+        L_in, up["stride"], packed.w_up.shape[0], up["padding"], up["output_padding"])
+    ks = ms.resblock_sizes(kr, len(dils))
+    upt = (cin, packed.w_up.shape[0], up["stride"]) if up is not None else (0, 0, 1)
+    route = ms.stage_launches(C, dils, ks, upt, mode, B, route_wave and L_out, route_wave)
+    scratch = np.zeros((route.slots, B, L_out, C))
+
+    def at(slot, n):
+        return None if slot < 0 else scratch[slot:slot + n]
+
+    got, plans = None, []
+    for ln in route.launches:
+        sd, kl = ms.launch_dilations(dils, ks, ln)
+        first, n = ln.reads_x, len(ln.blocks)
+        upl = up if first else None
+        plan = ms.bf16_plan(C, sd, kl, *(upt if upl else (0, 0, 1)), B=B, L_out=L_out, wave=wave)
+        got = kernel_model(x if first else torch.zeros(B, L_out, C, dtype=x.dtype),
+                           packed._replace(w_up=packed.w_up if upl else None), sd, kl, upl,
+                           in_bias if first else None, in_leaky if first else None,
+                           out_leaky if ln.h_out < 0 else None, plan, checks,
+                           h_in=at(ln.h_in, n), h_out=at(ln.h_out, n),
+                           h_sum=at(0, ln.n_sum) if ln.n_sum else None,
+                           x_out=scratch[ln.x_out] if ln.x_out >= 0 else None,
+                           bases=ms.pack_bases(C, dils, ks, ln, mode))
+        plans.append(plan)
+    return got, plans, route
+
+
 def _run_model(rng, C, cin, s, k, dils, kr, L_pre, B, wave, in_leaky, out_leaky,
                staged=False):
-    """The model against mrf_stage_ref on one stage with an upsample: bf16
-    tensors, or (staged) float32 ones with both sides under f16_staging;
-    the worst fraction of the mode's gate."""
+    """The model against mrf_stage_ref on one stage with an upsample, every
+    launch of its route (route_model): bf16 tensors, or (staged) float32
+    ones with both sides under f16_staging; the worst fraction of the
+    mode's gate."""
     blocks = [{cs: [{"w": _weights(rng, C, C, kj, scale=0.05, staged=staged),
                      "b": _weights(rng, C, scale=0.1, staged=staged)}
                     for _ in ds] for cs in ("convs1", "convs2")}
@@ -518,11 +572,12 @@ def _run_model(rng, C, cin, s, k, dils, kr, L_pre, B, wave, in_leaky, out_leaky,
                                in_leaky=in_leaky, out_leaky=out_leaky)
     assert packed.w.dtype == (torch.float16 if staged else torch.bfloat16)
     L_out = transpose_out_len(L_pre, s, k, up["padding"], up["output_padding"])
-    plan = ms.bf16_plan(C, dils, kr, cin, k, s, B=B, L_out=L_out, wave=wave)
     checks = {"conv": 0, "upsample": 0}
-    got = kernel_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, plan, checks)
+    got, plans, _ = route_model(x, packed, dils, kr, up, in_bias, in_leaky, out_leaky, wave,
+                                checks, "f16_staged" if staged else "bf16")
     assert got.dtype == x.dtype == ref.dtype
-    assert got.shape == ref.shape == (B, L_out, C) and _cdiv(L_out, plan.tile) > 1
+    assert got.shape == ref.shape == (B, L_out, C)
+    assert all(_cdiv(L_out, p.tile) > 1 for p in plans)
     assert checks["conv"] > 0 and checks["upsample"] > 0
     return _gate(got, ref)
 
@@ -551,27 +606,56 @@ V1_DILS = ((1, 3, 5),) * 3
 @pytest.mark.parametrize("C,cin,s,k,L_pre", [(32, 64, 2, 4, 50), (128, 256, 8, 16, 10)])
 def test_model_matches_plain_v1_kernel_sizes(rng, C, cin, s, k, L_pre):
     """HiFi-GAN V1's resblocks (kernels 3/7/11, dilations (1, 3, 5) each;
-    a 60-row halo) at its stages 4 and 2: each CTA streams its own
-    resblock's taps from the ragged pack and shifts them by its own half
-    width, held against mrf_stage_ref at phase 3's bf16 gate; B=1, two
-    clusters."""
+    a 60-row halo together) at its stages 4 and 2: each resblock a launch
+    of its own at its own halo and plan (stage_launches: tiles of 168 / 120
+    / 72 rows in 192-row windows at C=128), streaming its taps from the
+    ragged pack; the first upsamples and hands the stage input on, each
+    leaves its final f32 state, the last sums them in rank order; held
+    against mrf_stage_ref at phase 3's bf16 gate; B=1, every launch over
+    two clusters or more."""
+    route = ms.stage_launches(C, V1_DILS, (3, 7, 11), (cin, k, s))
+    assert [(ln.blocks, ln.reads_x) for ln in route.launches] == [
+        ((0,), True), ((1,), False), ((2,), False)]
+    assert route.slots == 3
     worst = _run_model(rng, C, cin, s, k, V1_DILS, (3, 7, 11), L_pre, 1, 2, 0.1 if C == 128
                        else None, 0.1 if C == 128 else 0.01)
     assert worst <= 1.0
 
 
+def test_model_matches_plain_v1_unfolded(rng):
+    """3/7/11 without an upsample (in_bias on the input): each resblock's
+    launch reads x itself, nothing handed on but the final states; C=64, 50
+    rows over two clusters or more per launch."""
+    C, kr = 64, (3, 7, 11)
+    blocks = _blocks(rng, C, V1_DILS, kr)
+    x = _bf16(rng, 1, 50, C)
+    in_bias = _bf16(rng, C, scale=0.1)
+    route = ms.stage_launches(C, V1_DILS, kr)
+    assert [ln.reads_x for ln in route.launches] == [True] * 3 and route.slots == 2
+    packed = ms.pack_stage(blocks, V1_DILS, kr)
+    checks = {"conv": 0, "upsample": 0}
+    got, plans, _ = route_model(x, packed, V1_DILS, kr, None, in_bias, None, 0.1, 2, checks)
+    ref = ms.mrf_stage_ref(x, blocks, V1_DILS, kr, in_bias=in_bias, out_leaky=0.1)
+    assert [p.window - p.tile for p in plans] == [24, 72, 120]
+    assert all(_cdiv(50, p.tile) > 1 for p in plans) and checks["conv"] > 0
+    assert _gate(got, ref) <= 1.0
+
+
+@pytest.mark.parametrize("together", [False, True], ids=["alone", "one-wave"])
 @pytest.mark.parametrize("B,L_pre", [(1, 4), (2, 3)])
-def test_model_matches_plain_v1_first_stage(rng, B, L_pre):
-    """HiFi-GAN V1's first stage (C=256, 3/7/11; no window holds its 60-row
-    halo) in three launches, one per dilation slot (halos 10, 20, 30): the
-    first upsamples and hands each resblock's f32 chain state on, the next
-    start from it, the last takes the resblock sum; each launch's weights
-    the views _launch takes (segment_weights), held against mrf_stage_ref
-    at phase 3's bf16 gate, every launch over two time tiles or more."""
+def test_model_matches_plain_v1_first_stage(rng, B, L_pre, together):
+    """HiFi-GAN V1's first stage (C=256, 3/7/11; no window holds the k=11
+    resblock's 60-row halo).  Alone (a long stage): five launches, k=3
+    (halo 12) and k=7 (36) one each, k=11 one per dilation slot (halos 10,
+    20, 30), its f32 chain state handed between two slots; the first
+    upsamples and hands the stage input on, the last takes the resblock
+    sum.  In one wave of clusters (a stream window's grid): the three
+    resblocks together in three slot launches (halos 10 / 20 / 30), each
+    CTA finding its convs in the chain-order pack by ms.pack_bases.  Held
+    against mrf_stage_ref at phase 3's bf16 gate, every launch over two
+    time tiles or more."""
     C, cin, s, k = 256, 512, 8, 16
     kr = (3, 7, 11)
-    segments = ms.stage_segments(C, V1_DILS, kr)
-    assert segments == ((0, 1), (1, 2), (2, 3))
     blocks = [{cs: [{"w": _weights(rng, C, C, kj, scale=0.05), "b": _weights(rng, C, scale=0.1)}
                     for _ in ds] for cs in ("convs1", "convs2")} for ds, kj in zip(V1_DILS, kr)]
     upw = _weights(rng, C, cin, k, scale=0.05)
@@ -583,20 +667,17 @@ def test_model_matches_plain_v1_first_stage(rng, B, L_pre):
                            in_leaky=0.1, out_leaky=0.1)
     L_out = transpose_out_len(L_pre, s, k, up["padding"], up["output_padding"])
     checks = {"conv": 0, "upsample": 0}
-    h, got = None, None
-    launches = list(ms.segment_weights(packed.w, packed.b, V1_DILS, kr, segments))
-    for si, (sd, w_s, b_s) in enumerate(launches):
-        first, last = si == 0, si == len(launches) - 1
-        plan = ms.bf16_plan(C, sd, kr, *((cin, k, s) if first else (0, 0, 1)), B=B,
-                            L_out=L_out, wave=2 * B)
-        assert _cdiv(L_out, plan.tile) > 1 and plan.window == plan.tile + 2 * ms.stage_halo(sd, kr)
-        h_out = None if last else np.zeros((3, B, L_out, C))
-        got = kernel_model(x if first else torch.zeros(B, L_out, C, dtype=torch.bfloat16),
-                           ms.PackedStage(w_s, b_s, packed.w_up if first else None), sd, kr,
-                           up if first else None, in_bias if first else None,
-                           0.1 if first else None, 0.1 if last else None, plan, checks,
-                           h_in=h, h_out=h_out)
-        h = h_out
+    got, plans, route = route_model(x, packed, V1_DILS, kr, up, in_bias, 0.1, 0.1, 2 * B, checks,
+                                    route_wave=1000 if together else None)
+    if together:
+        assert [(ln.blocks, ln.slots) for ln in route.launches] == [
+            ((0, 1, 2), (d, d + 1)) for d in range(3)]
+        assert [p.window - p.tile for p in plans] == [20, 40, 60]
+    else:
+        assert [(ln.blocks, ln.slots) for ln in route.launches] == [
+            ((0,), (0, 3)), ((1,), (0, 3)), ((2,), (0, 1)), ((2,), (1, 2)), ((2,), (2, 3))]
+        assert [p.window - p.tile for p in plans] == [24, 72, 20, 40, 60]
+    assert all(_cdiv(L_out, p.tile) > 1 for p in plans)
     assert checks["conv"] > 0 and checks["upsample"] > 0
     assert got.shape == ref.shape == (B, L_out, C)
     assert _gate(got, ref) <= 1.0

@@ -81,16 +81,33 @@
 //   * one resblock per CTA, the n_rb CTAs of a time tile in one cluster: the
 //     resblock sum reads the cluster's h windows in rank order; the
 //     receptive-field halo is recomputed, so clusters run in any order.
-//     Each resblock has its own kernel size (HiFi-GAN V1: 3, 7, 11), so each
-//     CTA streams and runs its own resblock's taps; the halo and the operand
-//     margin are the largest any resblock of the stage needs.
-//   * a stage whose whole chain's halo leaves no time tile (V1's first stage:
-//     60 rows a side at C=256, where a window holds at most 128 rows) runs
-//     as one launch per dilation slot, each with the halo of its own conv
-//     pair (10, 20 and 30 rows): each CTA hands its resblock's f32 chain
-//     state h on to the next launch through device memory (h_out, h_in),
-//     and the last launch takes the resblock sum.  h is the f32 state the
-//     single launch keeps in shared memory, so the result is the same.
+//     Each CTA streams and runs its own resblock's taps at that resblock's
+//     kernel size; the halo and the operand margin are the largest any
+//     resblock of the launch needs.
+//   * resblocks whose kernel sizes differ (HiFi-GAN V1: 3, 7, 11) share no
+//     cluster.  In one, a cluster runs at the pace of its largest resblock:
+//     per tile the k = 11 CTA runs 66 tap passes against 18 and 42 while the
+//     others hold their SMs at the barrier before the sum, and every CTA
+//     computes the k = 11 halo (60 rows a side: 72-row tiles in 192-row
+//     windows at C=128, where k = 3 alone needs 12 and keeps 168).  The host
+//     launches each resblock as a stage of its own instead, clusters of one
+//     CTA at its own halo, window and tile, one after another: the first
+//     launch runs the upsample and writes the f32 stage input over its tile
+//     (x_out); each later resblock starts from it (h_in) and leaves its final
+//     f32 h in device memory (h_out); the last launch adds those (h_sum) and
+//     its own in rank order, so the sum is the one a cluster takes, bit for
+//     bit (each conv's products are summed in the same order at any window).
+//     Where the three at once fill the card's clusters one wave or less (a
+//     stream window), three launches in turn would each take a wave's time,
+//     so the host keeps the cluster there; each CTA finds its resblock's
+//     convs in the pack by their place (conv0, tap0).
+//   * a chain whose halo leaves no time tile (V1's k = 11 resblock at C=256:
+//     60 rows a side, where a window holds at most 128 rows) runs as one
+//     launch per dilation slot, each with the halo of its own conv pair (10,
+//     20 and 30 rows): each CTA hands its resblock's f32 chain state h on to
+//     the next launch through device memory (h_out, h_in).  h is the f32
+//     state the single launch keeps in shared memory, so the result is the
+//     same.
 //
 // The f16-staged mode (-DZV_MRF_F16_STAGED=1) computes what the reference's
 // ggml graph computes (f16 conv weights and an f16 im2col, f32
@@ -164,13 +181,18 @@ struct Params {
   const io_t* x;          // (B, L_in, Cin) stage input (pre-upsample when w_up)
   const op_t* w_up;       // (K_up, Cin/8, C, 8) upsample taps as planes, or nullptr
   const float* in_bias;   // (C,) or nullptr
-  const op_t* w;          // every conv's kr[j] taps as planes (C/8, C, 8), chain order
+  const op_t* w;          // every conv's kr[j] taps as planes (C/8, C, 8)
   const float* b;         // (n_conv, C)
   io_t* y;                // (B, L_out, C)
   const float* h_in;      // (n_rb, B, L_out, C) each resblock's f32 chain state from the
                           // stage's previous launch, or nullptr (the stage input)
   float* h_out;           // (n_rb, B, L_out, C) the chain state for the next launch, or
                           // nullptr (the resblock sum into y)
+  const float* h_sum;     // (n_sum, B, L_out, C) the final f32 states of the resblocks the
+                          // stage ran in earlier launches, summed before this launch's own
+  float* x_out;           // (B, L_out, C) the f32 stage input over the tile, for the stage's
+                          // later launches, or nullptr
+  int n_sum;
   int L_in, Cin, L_out;
   int K_up, stride, pad;
   int has_in_leaky;
@@ -180,6 +202,8 @@ struct Params {
   int n_rb;
   int kr[kMaxRB];           // each resblock's kernel size (odd)
   int dils[kMaxRB][kMaxD];  // 0 = no conv pair at this slot
+  int conv0[kMaxRB];        // each resblock's first conv of this launch in b (its convs follow)
+  int tap0[kMaxRB];         // ... and that conv's first tap in w (its convs' taps follow)
   int halo, tile, window;   // window = tile + 2 * halo rows
   int margin;               // operand plane rows before window row 0 (the largest tap shift)
   int plane_rows;           // rows of an operand plane
@@ -202,8 +226,8 @@ struct Smem {
 };
 
 struct Stream {
-  int conv_base;   // first conv of this CTA's resblock in the packed chain
-  int tap_base;    // first tap of that conv in the packed chain (every conv before at its size)
+  int conv_base;   // first conv of this CTA's resblock in the pack (conv0)
+  int tap_base;    // first tap of that conv in the pack (tap0)
   int kr;          // this CTA's resblock's kernel size
   int nb;          // chunks per conv tap (C / KB)
   int cpc;         // chunks per conv (kr * nb)
@@ -807,6 +831,24 @@ __device__ __forceinline__ void widen_rows_f32(const Params& p, const Smem& sm, 
   }
 }
 
+// The tile's rows of the h window (f32), t0 on, into one batch row's (L_out, C) of dst
+template <int C>
+__device__ __forceinline__ void store_tile_f32(const Params& p, const Smem& sm, float* dst,
+                                               int t0) {
+  for (int e = threadIdx.x; e < p.tile * (C / 8); e += kThreads) {
+    const int r = e / (C / 8), g8 = e % (C / 8), tg = t0 + r;
+    if (tg >= p.L_out) continue;
+    const uint32_t ha = sm.h_addr + 4u * (uint32_t)hidx<C>(p.halo + r, 8 * g8);
+    float4* d = reinterpret_cast<float4*>(dst + (size_t)tg * C + g8 * 8);
+    d[0] = lds_f4(ha);
+    d[1] = lds_f4(ha + 16);
+  }
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4 u) {
+  a.x += u.x; a.y += u.y; a.z += u.z; a.w += u.w;
+}
+
 template <int C, int KB, int MT>
 __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kernel(const Params p) {
   using G = Geo<C, KB, MT>;
@@ -828,19 +870,12 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
   const int t0 = (blockIdx.x / p.n_rb) * p.tile;
   const int t_base = t0 - p.halo;
 
-  int n_d = 0, conv_base = 0, tap_base = 0;
-  for (int j = 0; j < p.n_rb; ++j) {
-    int nj = 0;
-    while (nj < kMaxD && p.dils[j][nj] != 0) ++nj;
-    if (j < rank) {
-      conv_base += 2 * nj;
-      tap_base += 2 * nj * p.kr[j];
-    }
-    if (j == rank) n_d = nj;
-  }
+  int n_d = 0;
+  while (n_d < kMaxD && p.dils[rank][n_d] != 0) ++n_d;
+  const int conv_base = p.conv0[rank];
   Stream st;
   st.conv_base = conv_base;
-  st.tap_base = tap_base;
+  st.tap_base = p.tap0[rank];
   st.kr = p.kr[rank];
   st.nb = C / G::KB;
   st.cpc = st.kr * st.nb;
@@ -945,6 +980,8 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
   int q = 0;
   if (p.w_up != nullptr) upsample<C, KB, MT>(p, sm, st, rank, lag, acc, q, t_base, jlo);
   cluster.sync();                                    // every h window holds the stage input
+  if (p.x_out != nullptr && rank == 0)
+    store_tile_f32<C>(p, sm, p.x_out + (size_t)batch * p.L_out * C, t0);
 
   // conv1's operand of the first dilation: round(leaky(h)) as planes
   {
@@ -984,20 +1021,13 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
     // this resblock's chain state over the tile, for the stage's next launch.
     // No CTA reads another's shared memory after the upsample's sync, so
     // the cluster's CTAs leave on their own (every CTA takes this branch).
-    float* hb = p.h_out + ((size_t)rank * gridDim.y + batch) * p.L_out * C;
-    for (int e = threadIdx.x; e < p.tile * (C / 8); e += kThreads) {
-      const int r = e / (C / 8), g8 = e % (C / 8), tg = t0 + r;
-      if (tg >= p.L_out) continue;
-      const uint32_t ha = sm.h_addr + 4u * (uint32_t)hidx<C>(p.halo + r, 8 * g8);
-      float4* dst = reinterpret_cast<float4*>(hb + (size_t)tg * C + g8 * 8);
-      dst[0] = lds_f4(ha);
-      dst[1] = lds_f4(ha + 16);
-    }
+    store_tile_f32<C>(p, sm, p.h_out + ((size_t)rank * gridDim.y + batch) * p.L_out * C, t0);
     return;
   }
   cluster.sync();                                    // every resblock's h is final
 
-  // resblock sum over the cluster in rank order; this CTA writes its share of rows
+  // resblock sum in rank order: the states earlier launches left (h_sum), then the
+  // cluster's; this CTA writes its share of rows
   io_t* yb = p.y + (size_t)batch * p.L_out * C;
   uint32_t hs[kMaxRB];
 #pragma unroll
@@ -1008,13 +1038,27 @@ __global__ void __launch_bounds__(kThreads, Geo<C, KB, MT>::CTAS) mrf_bf16_kerne
     const int r = e / (C / 8), g8 = e % (C / 8), tg = t0 + r;
     if (tg >= p.L_out) continue;
     const uint32_t off = 4u * (uint32_t)hidx<C>(p.halo + r, 8 * g8);
-    float4 a = ld_cluster_f4(hs[0] + off), b = ld_cluster_f4(hs[0] + off + 16);
+    float4 a, b;
+    if (p.n_sum > 0) {
+      const float4* g =
+          reinterpret_cast<const float4*>(p.h_sum + ((size_t)batch * p.L_out + tg) * C + g8 * 8);
+      const size_t step = (size_t)gridDim.y * p.L_out * (C / 4);   // between two states
+      a = __ldg(g);
+      b = __ldg(g + 1);
+      for (int j = 1; j < p.n_sum; ++j) {
+        add4(a, __ldg(g + j * step));
+        add4(b, __ldg(g + j * step + 1));
+      }
+    } else {
+      a = ld_cluster_f4(hs[0] + off);
+      b = ld_cluster_f4(hs[0] + off + 16);
+    }
 #pragma unroll
-    for (int j = 1; j < kMaxRB; ++j) {
+    for (int j = 0; j < kMaxRB; ++j) {
       if (j >= p.n_rb) break;
-      const float4 u = ld_cluster_f4(hs[j] + off), w = ld_cluster_f4(hs[j] + off + 16);
-      a.x += u.x; a.y += u.y; a.z += u.z; a.w += u.w;
-      b.x += w.x; b.y += w.y; b.z += w.z; b.w += w.w;
+      if (j == 0 && p.n_sum == 0) continue;
+      add4(a, ld_cluster_f4(hs[j] + off));
+      add4(b, ld_cluster_f4(hs[j] + off + 16));
     }
     float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
@@ -1133,23 +1177,32 @@ cudaLaunchConfig_t launch_config(dim3 grid, int n_rb, int smem_bytes, cudaStream
 #endif
 
 // kb: the instance's chunk channels (checked); kr: n_rb kernel sizes, one a
-// resblock; in_bias and b are f32; x and y bf16 (f32 in the f16-staged mode),
-// w_up and w bf16 (f16) planes.  A stage of several launches (its dilation
-// slots split between them) hands each resblock's f32 chain state on through
-// h_out and h_in, (n_rb, B, L_out, C): a launch with h_in reads no x and
-// runs no upsample, one with h_out writes no y.
+// resblock; conv0, tap0: each resblock's first conv in b and its first tap
+// in w, the resblock's convs of this launch following in chain order (the
+// host's pack decides where); in_bias and b are f32; x and y bf16 (f32 in
+// the f16-staged mode), w_up and w bf16 (f16) planes.  A stage of several
+// launches hands each resblock's f32 chain state on through h_out and h_in,
+// (n_rb, B, L_out, C): a launch with h_in reads no x and runs no upsample
+// (h_in may hold the stage input another launch wrote through x_out), one
+// with h_out writes no y.  The launch that writes y sums the n_sum final
+// states of h_sum before its cluster's, and scales by 1 / (n_sum + n_rb).
 extern "C" int ZV_STAGE_ENTRY(
     const io_t* x, const op_t* w_up, const float* in_bias, const op_t* w, const float* b, io_t* y,
-    const float* h_in, float* h_out, int B, int L_in, int Cin, int C, int L_out, int K_up,
-    int stride, int pad, int has_in_leaky, float in_leaky, int has_out_leaky, float out_leaky,
-    int n_rb, int n_dmax, const int* kr, const int* dils, int halo, int tile, int window,
+    const float* h_in, float* h_out, const float* h_sum, int n_sum, float* x_out, int B,
+    int L_in, int Cin, int C, int L_out, int K_up, int stride, int pad, int has_in_leaky,
+    float in_leaky, int has_out_leaky, float out_leaky,
+    int n_rb, int n_dmax, const int* kr, const int* dils, const int* conv0, const int* tap0,
+    int halo, int tile, int window,
     int margin, int plane_rows, int np_rows, int buf_bytes, int kb, int mt, int stages,
     int smem_bytes, void* stream) {
   const KernelFn kernel = pick_kernel(C, kb, mt);
   if (kernel == nullptr || n_rb < 1 || n_rb > kMaxRB || n_dmax < 1 ||
-      n_dmax > kMaxD || tile < 1 || kr == nullptr || halo < 0 ||
+      n_dmax > kMaxD || tile < 1 || kr == nullptr || conv0 == nullptr || tap0 == nullptr ||
+      halo < 0 ||
       window != tile + 2 * halo || window > 128 * mt || stages < 2 || stages > kMaxStages ||
-      B < 1 || L_out < 1 || margin < 0 || buf_bytes % 16 != 0)
+      B < 1 || L_out < 1 || margin < 0 || buf_bytes % 16 != 0 || n_sum < 0 ||
+      n_sum + n_rb > kMaxRB || (n_sum > 0) != (h_sum != nullptr) ||
+      (h_out != nullptr && n_sum > 0) || (x_out != nullptr && h_in != nullptr))
     return (int)cudaErrorInvalidValue;
   // The geometry the host chose must hold the chain: the halo covers each
   // resblock's reach, the margin its largest tap shift, the operand planes
@@ -1158,7 +1211,8 @@ extern "C" int ZV_STAGE_ENTRY(
   const int n_mt = (window + 63) / 64;
   for (int i = 0; i < n_rb; ++i) {
     const int* d = dils + i * n_dmax;
-    if (d[0] < 1 || kr[i] < 1 || kr[i] % 2 != 1) return (int)cudaErrorInvalidValue;
+    if (d[0] < 1 || kr[i] < 1 || kr[i] % 2 != 1 || conv0[i] < 0 || tap0[i] < 0)
+      return (int)cudaErrorInvalidValue;
     const int half = (kr[i] - 1) / 2;
     int reach = 0;
     for (int j = 0; j < n_dmax && d[j] != 0; ++j) {
@@ -1181,12 +1235,12 @@ extern "C" int ZV_STAGE_ENTRY(
   const long long need = (long long)stages * kb * C * 2 + buf_bytes + 4LL * window * C +
                          4LL * C + 16LL * stages;
   if (smem_bytes < need || smem_bytes > kSmemMax) return (int)cudaErrorInvalidValue;
-  const void* ptrs[] = {x, w_up, in_bias, w, b, y, h_in, h_out};
+  const void* ptrs[] = {x, w_up, in_bias, w, b, y, h_in, h_out, h_sum, x_out};
   for (const void* ptr : ptrs)
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.w_up = w_up; p.in_bias = in_bias; p.w = w; p.b = b; p.y = y;
-  p.h_in = h_in; p.h_out = h_out;
+  p.h_in = h_in; p.h_out = h_out; p.h_sum = h_sum; p.x_out = x_out; p.n_sum = n_sum;
   p.L_in = L_in; p.Cin = Cin; p.L_out = L_out;
   p.K_up = K_up; p.stride = stride; p.pad = pad;
   p.has_in_leaky = has_in_leaky; p.in_leaky = in_leaky;
@@ -1194,13 +1248,15 @@ extern "C" int ZV_STAGE_ENTRY(
   p.n_rb = n_rb;
   for (int i = 0; i < kMaxRB; ++i) {
     p.kr[i] = i < n_rb ? kr[i] : 0;
+    p.conv0[i] = i < n_rb ? conv0[i] : 0;
+    p.tap0[i] = i < n_rb ? tap0[i] : 0;
     for (int j = 0; j < kMaxD; ++j)
       p.dils[i][j] = (i < n_rb && j < n_dmax) ? dils[i * n_dmax + j] : 0;
   }
   p.halo = halo; p.tile = tile; p.window = window;
   p.margin = margin; p.plane_rows = plane_rows; p.np_rows = np_rows; p.buf_bytes = buf_bytes;
   p.stages = stages;
-  p.inv_n = 1.0f / (float)n_rb;
+  p.inv_n = 1.0f / (float)(n_sum + n_rb);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return (int)err;

@@ -17,7 +17,9 @@ Python, whether the kernel takes a stage's geometry (hifigan.vocode sends
 the others to mrf_stage_ref on the card, as the JAX vocoder sends them to
 XLA).  Each wrapper counts its kernel
 launches in a plain integer attribute (`mrf_stage.launches`; those in the
-f16-staged mode also in `mrf_stage.staged_launches`), added to under a lock:
+f16-staged mode also in `mrf_stage.staged_launches`, those that run one
+resblock of a stage of mixed kernel sizes in `mrf_stage.resblock_launches`),
+added to under a lock:
 a serving daemon launches from many threads.  The kernel
 reads its weights in its own layout (`pack_stage`), which a serving caller
 makes once per model and passes as `packed=`.
@@ -38,9 +40,11 @@ input's dtype and ops.conv's f16_staging:
             are f32; the result is rounded once, on the store.  C in
             32/64/128/256, an upsample of k = t * s, and the only mode whose
             resblocks may differ in kernel size (HiFi-GAN V1's 3/7/11: each
-            CTA runs its own resblock's taps), and the only one that splits
-            a stage whose halo no window holds into one launch per dilation
-            slot (`stage_segments`: V1's first stage).  `mrf_stage_ref`
+            resblock then runs as a stage of its own, at its own halo and
+            tile, the last launch taking the sum; `stage_launches`), and the
+            only one that splits a chain whose halo no window holds into one
+            launch per dilation slot (`stage_segments`: V1's k = 11 resblock
+            at C = 256).  `mrf_stage_ref`
             computes the same for bf16 tensors (`round_bf16` on each conv's
             operand, f32 convs on exactly representable products).
   f16-staged  float32 under f16_staging (`--verify`'s simulation of the
@@ -527,18 +531,21 @@ def bf16_plan(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: Kerne
 
 def stage_segments(C: int, dilation_sets: Sequence[Sequence[int]],
                    kernel_size: KernelSizes = 3) -> Tuple[Tuple[int, int], ...]:
-    """The launches of a stage on the wgmma design, as ranges [lo, hi) of
-    dilation slots: a launch runs every resblock's conv pairs of its slots
-    (the bfloat16 mode runs them; the f16-staged mode takes a stage of one
-    launch only, kernel_takes).  One launch, ((0, n),), where a window holds the whole
-    chain's halo or no split helps.  Where it holds none and every resblock
-    has n > 1 dilations, one launch per slot, each at the halo of its own
-    pair: HiFi-GAN V1's first stage (C=256, 3/7/11) runs 10, 20 and 30 rows
-    a side in three launches against 60 in one, which no window of 128 rows
-    holds.  The launches hand each resblock's f32 chain state on through
-    device memory (_launch), so the split computes what one launch would.
-    The upsample is left out here (it joins the first launch; kernel_takes
-    asks whether it fits there).  Plain Python, cached."""
+    """The launches of a chain of resblocks run together on the wgmma
+    design, as ranges [lo, hi) of dilation slots: a launch runs every
+    resblock's conv pairs of its slots (the bfloat16 mode runs them; the
+    f16-staged mode takes a stage of one launch only, kernel_takes).  One
+    launch, ((0, n),), where a window holds the whole chain's halo or no
+    split helps.  Where it holds none and every resblock has n > 1
+    dilations, one launch per slot, each at the halo of its own pair:
+    HiFi-GAN V1's k = 11 resblock at C=256 runs 10, 20 and 30 rows a side
+    in three launches against 60 in one, which no window of 128 rows holds.
+    The launches hand each resblock's f32 chain state on through device
+    memory (stage_launches), so the split computes what one launch would.
+    A stage of mixed kernel sizes asks this of each resblock alone
+    (stage_launches).  The upsample is left out here (it joins the first
+    launch; kernel_takes asks whether it fits there).  Plain Python,
+    cached."""
     dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
     return _segments(C, dils, resblock_sizes(kernel_size, len(dils)))
 
@@ -566,6 +573,123 @@ def segment_dilations(dilation_sets: Sequence[Sequence[int]], segment: Tuple[int
     """Each resblock's dilations of one launch's slots (stage_segments)."""
     lo, hi = segment
     return tuple(tuple(ds[lo:hi]) for ds in dilation_sets)
+
+
+class StageLaunch(NamedTuple):
+    """One launch of a stage on the wgmma design (stage_launches).  Slots
+    index the stage's f32 scratch, `StageRoute.slots` arrays of (B, L_out,
+    C); a launch of n resblocks hands its chain states through n slots from
+    the one named, rank r's at slot + r."""
+    blocks: Tuple[int, ...]   # its resblocks, one CTA each in a cluster, in rank order
+    slots: Tuple[int, int]    # the dilation slots [lo, hi) it runs of each
+    reads_x: bool             # starts from the stage input x (the upsample, in_bias, in_leaky)
+    h_in: int                 # else from the chain states at this slot (or the stage input
+    #                           a first launch wrote there)
+    h_out: int                # hands its chain states on at this slot; -1: writes y
+    n_sum: int                # y sums the final states at slots 0 .. n_sum - 1 before its own
+    x_out: int                # writes the stage input over its tile at this slot, or -1
+
+
+class StageRoute(NamedTuple):
+    """A stage's launches in order, and the f32 scratch they share."""
+    launches: Tuple[StageLaunch, ...]
+    slots: int                # (B, L_out, C) f32 arrays of scratch
+
+
+def stage_launches(C: int, dilation_sets: Sequence[Sequence[int]],
+                   kernel_size: KernelSizes = 3, up: Tuple[int, int, int] = (0, 0, 1),
+                   mode: str = "bf16", B: int = 1, L_out: Optional[int] = None,
+                   wave: Optional[int] = None) -> StageRoute:
+    """The launches of a stage on the wgmma design (`mode` bf16 or
+    f16_staged; any other mode, one launch of every resblock); up: the
+    upsample's (C_in, K, stride), C_in 0 for none.
+
+    Resblocks run together by default: each launch a cluster of one CTA per
+    resblock for each time tile, one launch unless stage_segments splits the
+    chain by dilation slot (each resblock's f32 chain state then handed on
+    between launches through two groups of slots that take turns).
+    Resblocks whose sizes differ (HiFi-GAN V1's 3/7/11; the bf16 mode) run
+    alone instead, one after another, each as a stage of its own resblock at
+    its own halo, window and tile (its own stage_segments), so that no CTA
+    waits on a larger resblock's taps at a cluster barrier nor computes its
+    halo: each resblock's final state goes to a slot of its own, and the
+    last launch (the last resblock's) sums them in rank order with its own.
+    With an upsample the first launch writes the f32 stage input over its
+    tiles and the later resblocks start from it (an upsample in every
+    resblock's launch took V1's four stages 1.34x as long on an H100: a
+    cluster of one CTA computes every phase); else each reads x.
+
+    They run together all the same where B x L_out rows take the clusters
+    of every resblock one wave or less (`wave` clusters of
+    len(dilation_sets) CTAs, the card's; by default 132 SMs' worth): each
+    launch alone then takes a wave's time of its own, and three in turn
+    cost more than one wave at the largest resblock's pace (V1's stream
+    windows).  Without L_out: the route of a long stage, which pack_stage
+    lays the weights out by.  Plain Python, cached."""
+    dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    ks = resblock_sizes(kernel_size, len(dils))
+    up = tuple(int(u) for u in up)
+    alone = _mixed(C, ks, mode)
+    if alone and L_out is not None:
+        alone = _cluster_waves(C, dils, ks, up, B, L_out, wave or max(1, _SMS // len(dils))) > 1
+    return _stage_launches(C, dils, ks, up[0] > 0, mode, alone)
+
+
+def _mixed(C, ks, mode) -> bool:
+    """Whether a stage's resblocks may run alone: sizes that differ, in the
+    bf16 mode at one of its widths."""
+    return mode == "bf16" and C in _BF16_KB and len(set(ks)) > 1
+
+
+def _cluster_waves(C, dils, ks, up, B, L_out, wave) -> int:
+    """The most waves of `wave` clusters any launch of the stage's
+    resblocks run together takes at B x L_out rows."""
+    return max(_cdiv(bf16_plan(C, *launch_dilations(dils, ks, ln),
+                               *(up if ln.reads_x else (0, 0, 1)), B=B, L_out=L_out,
+                               wave=wave).clusters, wave)
+               for ln in _stage_launches(C, dils, ks, up[0] > 0, "bf16", False).launches)
+
+
+@functools.lru_cache(maxsize=256)
+def _stage_launches(C, dils, ks, upsample, mode, alone) -> StageRoute:
+    n = len(dils)
+    if alone:
+        return _per_resblock(C, dils, ks, upsample)
+    segs = _launch_segments(C, dils, ks, mode)
+    launches = tuple(StageLaunch(tuple(range(n)), seg, si == 0,
+                                 -1 if si == 0 else n * ((si - 1) % 2),
+                                 -1 if si == len(segs) - 1 else n * (si % 2), 0, -1)
+                     for si, seg in enumerate(segs))
+    return StageRoute(launches, n * min(2, len(segs) - 1))
+
+
+def _per_resblock(C, dils, ks, hand_on) -> StageRoute:
+    """The route of a stage whose resblocks run alone: slots 0 .. n-2 the
+    final states of every resblock but the last, then the stage input
+    (hand_on: the stage has an upsample), then two chain slots that take
+    turns within a resblock split by dilation slot."""
+    n = len(dils)
+    per = [stage_segments(C, (dils[j],), ks[j]) for j in range(n)]
+    x_slot = n - 1 if hand_on else -1
+    chain = n - 1 + hand_on
+    launches = []
+    for j, segs in enumerate(per):
+        for si, seg in enumerate(segs):
+            first, last = si == 0, si == len(segs) - 1
+            reads_x = first and (j == 0 or not hand_on)
+            h_in = -1 if reads_x else x_slot if first else chain + (si - 1) % 2
+            h_out = chain + si % 2 if not last else j if j < n - 1 else -1
+            launches.append(StageLaunch((j,), seg, reads_x, h_in, h_out,
+                                        n - 1 if h_out < 0 else 0,
+                                        x_slot if first and j == 0 else -1))
+    return StageRoute(tuple(launches), chain + (2 if any(len(s) > 1 for s in per) else 0))
+
+
+def launch_dilations(dilation_sets, ks, launch: StageLaunch):
+    """A launch's resblocks' dilations of its slots and their kernel sizes."""
+    lo, hi = launch.slots
+    return (tuple(tuple(dilation_sets[j][lo:hi]) for j in launch.blocks),
+            tuple(ks[j] for j in launch.blocks))
 
 
 def kernel_takes(C: int, dilation_sets: Sequence[Sequence[int]], kernel_size: KernelSizes = 3,
@@ -605,13 +729,15 @@ def _takes(C, dilation_sets, ks, up_cin, up_k, up_stride, mode) -> bool:
         return False
     try:
         if wgmma:
-            # the upsample runs in the first launch; a split stage's later
-            # launches fit (stage_segments); f16-staged: one launch only
-            segments = stage_segments(C, dilation_sets, ks)
-            if mode != "bf16" and len(segments) > 1:
-                return False
-            bf16_plan(C, segment_dilations(dilation_sets, segments[0]), ks, up_cin, up_k,
-                      up_stride)
+            # every launch of a route, the upsample in those that read x;
+            # f16-staged: one launch only
+            for alone in {False, _mixed(C, ks, mode)}:     # either route, by the grid
+                route = _stage_launches(C, dilation_sets, ks, up_cin > 0, mode, alone)
+                if mode != "bf16" and len(route.launches) > 1:
+                    return False
+                for ln in route.launches:
+                    bf16_plan(C, *launch_dilations(dilation_sets, ks, ln),
+                              *((up_cin, up_k, up_stride) if ln.reads_x else (0, 0, 1)))
             return True        # a shorter window needs less of every buffer
         plan = tile_plan(C, dilation_sets, ks, up_cin, up_k, up_stride)
     except ValueError:
@@ -682,14 +808,17 @@ def library() -> Library:
     return _library
 
 
-def _count_launch(wrapper, mode: str = "f32"):
+def _count_launch(wrapper, mode: str = "f32", per_resblock: bool = False):
     """wrapper.launches += 1 (and wrapper.staged_launches for a launch in
-    the f16-staged mode), under a lock (an unlocked += loses counts between
-    threads)."""
+    the f16-staged mode, wrapper.resblock_launches for one of a stage's
+    resblocks alone: stage_launches' route for mixed kernel sizes), under a
+    lock (an unlocked += loses counts between threads)."""
     with _count_lock:
         wrapper.launches += 1
         if mode == "f16_staged":
             wrapper.staged_launches += 1
+        if per_resblock:
+            wrapper.resblock_launches += 1
 
 
 def _so_name(tag: str, source: Path, defines) -> str:
@@ -740,10 +869,12 @@ def _build_library() -> Library:
         if tag in _WGMMA_MODES:
             fn.argtypes = [p, p, p, p, p, p,    # x w_up in_bias w b y
                            p, p,                # h_in h_out (a stage of several launches)
+                           p, i, p,             # h_sum n_sum x_out
                            i, i, i, i, i,       # B L_in Cin C L_out
                            i, i, i,             # K_up stride pad
                            i, f, i, f,          # in/out leaky
                            i, i, p, p,          # n_rb n_dmax krs (one a resblock) dils
+                           p, p,                # conv0 tap0 (one a resblock)
                            i, i, i, i, i, i,    # halo tile window margin plane_rows np_rows
                            i, i, i, i,          # buf kb mt stages
                            i, p]                # smem stream
@@ -894,8 +1025,11 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     different kernel sizes (kernel_size one a resblock; the bf16 mode only)
     pack ragged: every conv's taps one after the other in chain order, each
     resblock's convs at their own size.  A stage that runs in several
-    launches (stage_segments; the bf16 mode) packs launch by launch: each
-    launch's convs (every resblock's, in chain order) one contiguous run.
+    launches (stage_launches without L_out; the bf16 mode) packs launch by
+    launch: each launch's convs (those of its resblocks, in chain order) one
+    contiguous run; a stage of mixed sizes, whose resblocks run alone there,
+    so packs in chain order (a launch of its resblocks together finds each
+    resblock's convs by their place, pack_bases).
 
     Under f16_staging, float32 weights are packed for the f16-staged mode,
     whose kernel has the bf16 mode's design: the convs' and the upsample's
@@ -916,27 +1050,51 @@ def pack_stage(blocks: Sequence[dict], dilation_sets: Sequence[Sequence[int]],
     if mode != "bf16":
         _one_size(ks, mode)
     op = torch.float16 if staged else dtype
-    segments = _launch_segments(C, dilation_sets[:len(blocks)], ks, mode)
     ws, bs = [], []
-    for (lo, hi), j in ((seg, j) for seg in segments for j in range(len(blocks))):
-        for di in range(lo, min(hi, len(dilation_sets[j]))):
-            for cset in ("convs1", "convs2"):
-                conv = blocks[j][cset][di]
-                if tuple(conv["w"].shape) != (C, C, ks[j]):
-                    raise ValueError(f"block {j} {cset}[{di}] weight has shape "
-                                     f"{tuple(conv['w'].shape)}, want {(C, C, ks[j])}")
-                if conv["w"].device != dev or conv["b"].device != dev:
-                    raise ValueError(f"block {j} {cset}[{di}] lies on {conv['w'].device}, "
-                                     f"block 0 on {dev}")
-                w = conv["w"].permute(2, 1, 0)                      # [k][ci][co]
-                ws.append(to_planes(w.to(op)) if planes else swizzle_rows(w))
-                bs.append(conv["b"].to(torch.float32))
+    for j, di in _pack_index(C, tuple(map(tuple, dilation_sets[:len(blocks)])), ks, mode):
+        for cset in ("convs1", "convs2"):
+            conv = blocks[j][cset][di]
+            if tuple(conv["w"].shape) != (C, C, ks[j]):
+                raise ValueError(f"block {j} {cset}[{di}] weight has shape "
+                                 f"{tuple(conv['w'].shape)}, want {(C, C, ks[j])}")
+            if conv["w"].device != dev or conv["b"].device != dev:
+                raise ValueError(f"block {j} {cset}[{di}] lies on {conv['w'].device}, "
+                                 f"block 0 on {dev}")
+            w = conv["w"].permute(2, 1, 0)                      # [k][ci][co]
+            ws.append(to_planes(w.to(op)) if planes else swizzle_rows(w))
+            bs.append(conv["b"].to(torch.float32))
     w_up = (None if upsample_w is None
             else unflip_transpose_weight(upsample_w).permute(2, 0, 1).contiguous())
     if planes and w_up is not None:
         w_up = to_planes(w_up.to(op))
     w = torch.stack(ws) if len(set(ks)) == 1 else torch.cat(ws)
     return PackedStage(w.contiguous(), torch.stack(bs).contiguous(), w_up, staged)
+
+
+@functools.lru_cache(maxsize=256)
+def _pack_index(C, dils, ks, mode) -> dict:
+    """(first conv, first tap) of each resblock's conv pair at each dilation
+    slot, keyed (resblock, slot), in pack_stage's order: launch by launch of
+    the stage's route without L_out, each launch's resblocks in rank order,
+    their slots in order."""
+    index, conv, tap = {}, 0, 0
+    for ln in stage_launches(C, dils, ks, mode=mode).launches:
+        for j in ln.blocks:
+            for di in range(ln.slots[0], min(ln.slots[1], len(dils[j]))):
+                index[j, di] = (conv, tap)
+                conv, tap = conv + 2, tap + 2 * ks[j]
+    return index
+
+
+def pack_bases(C: int, dilation_sets, kernel_size: KernelSizes, launch: StageLaunch,
+               mode: str = "bf16"):
+    """Each of a launch's resblocks' first conv and first tap in the pack
+    (pack_stage, in `mode`): two tuples in rank order, what the kernel's
+    conv0 and tap0 take.  Its convs of the launch follow in chain order."""
+    dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    index = _pack_index(C, dils, resblock_sizes(kernel_size, len(dils)), mode)
+    first = [index[j, launch.slots[0]] for j in launch.blocks]
+    return tuple(c for c, _ in first), tuple(t for _, t in first)
 
 
 def _launch_segments(C, dilation_sets, ks, mode) -> Tuple[Tuple[int, int], ...]:
@@ -970,6 +1128,17 @@ def stage_plan(device: torch.device, C: int, dilation_sets, kernel_size: KernelS
                          **change)
     return tile_plan(C, dilation_sets, kernel_size, up_cin, up_k, up_stride, B, L_out, wave,
                      **change)
+
+
+def stage_route(device: torch.device, C: int, dilation_sets, kernel_size: KernelSizes, B: int,
+                L_out: int, up_cin: int = 0, up_k: int = 0, up_stride: int = 1,
+                dtype: torch.dtype = torch.bfloat16) -> StageRoute:
+    """The launches a call on `device` makes in the (wgmma) mode of `dtype`:
+    stage_launches at this grid and the card's own wave of clusters."""
+    dils = tuple(tuple(int(d) for d in ds) for ds in dilation_sets)
+    return _wgmma_launches(torch.device(device).index or 0, C, dils,
+                           resblock_sizes(kernel_size, len(dils)), (up_cin, up_k, up_stride), B,
+                           L_out, kernel_mode(dtype), None)[0]
 
 
 def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
@@ -1071,91 +1240,74 @@ def _launch(x, blocks, dilation_sets, kernel_size, upsample, in_bias,
                 torch.cuda.current_stream(dev).cuda_stream)
         _check_launch(lib, err, counter, mode)
         return y
-    # the wgmma modes: one launch per segment (one, unless stage_segments
-    # splits the chain), each resblock's f32 chain state handed on between
-    # them in two buffers that take turns
+    # the wgmma modes: the stage's launches in order (stage_launches at this
+    # grid), the f32 states they hand on in one scratch tensor of
+    # (B, L_out, C) slots
     up = (Cin, K_up, stride) if upsample is not None else (0, 0, 1)
-    launches = _wgmma_launches(dev.index or 0, C, tuple(dilation_sets), ks, up, B, L_out, mode,
-                               plan)
+    route, launches = _wgmma_launches(dev.index or 0, C, tuple(dilation_sets), ks, up, B, L_out,
+                                      mode, plan)
     y = torch.empty(B, L_out, C, device=dev, dtype=dtype)
-    hs = ([torch.empty(len(blocks), B, L_out, C, device=dev, dtype=torch.float32)
-           for _ in range(min(2, len(launches) - 1))])
-    tap_bytes = C * C * w.element_size()
+    scratch = (torch.empty(route.slots, B, L_out, C, device=dev, dtype=torch.float32)
+               if route.slots else None)
+    base, slot = (0 if scratch is None else scratch.data_ptr()), B * L_out * C * 4
     lib = library()
-    for si, (conv0, tap0, n_dmax, kr, dils, halo, sp) in enumerate(launches):
-        first, last = si == 0, si == len(launches) - 1
+    for ln, geometry in zip(route.launches, launches):
+        first, last = ln.reads_x, ln.h_out < 0
         upsampled = first and upsample is not None
         with torch.cuda.device(dev):
             err = lib.stage[mode](
-                x.data_ptr() if first else None, _ptr(w_up) if first else None,
-                _ptr(ib) if first else None, w.data_ptr() + tap0 * tap_bytes,
-                b.data_ptr() + conv0 * C * 4, y.data_ptr(),
-                None if first else hs[(si - 1) % 2].data_ptr(),
-                None if last else hs[si % 2].data_ptr(),
+                x.data_ptr() if first else None, _ptr(w_up) if upsampled else None,
+                _ptr(ib) if first else None, w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                None if ln.h_in < 0 else base + ln.h_in * slot,
+                None if last else base + ln.h_out * slot, base if ln.n_sum else None, ln.n_sum,
+                None if ln.x_out < 0 else base + ln.x_out * slot,
                 B, L_in if first else L_out, Cin if first else C, C, L_out,
                 K_up if upsampled else 0, stride if upsampled else 0, pad if upsampled else 0,
                 int(first and in_leaky is not None), float(in_leaky or 0.0),
                 int(last and out_leaky is not None), float(out_leaky or 0.0),
-                len(blocks), n_dmax, kr, dils, halo, sp.tile, sp.window, sp.margin,
-                sp.plane_rows, sp.np_rows, sp.buf, sp.kb, sp.mt, sp.stages, sp.smem,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _check_launch(lib, err, counter, mode)
+                *geometry, torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(lib, err, counter, mode, len(ln.blocks) < len(blocks))
     return y
 
 
 @functools.lru_cache(maxsize=1024)
 def _wgmma_launches(device_index: int, C: int, dils, ks, up, B: int, L_out: int, mode: str,
                     plan):
-    """What each launch of a wgmma-mode stage passes beside its tensors,
-    worked out once per geometry: (first conv, first tap, n_dmax, the kernel
-    sizes and the dilations as C arrays, halo, plan) per segment
-    (stage_segments; the upsample `up` = (C_in, K, stride) in the first);
-    plan: a geometry other than stage_plan's (one launch only)."""
-    segments = _launch_segments(C, dils, ks, mode)
-    if plan is not None and len(segments) > 1:
-        raise ValueError(f"mrf_stage kernel: plan= for a stage of {len(segments)} launches")
-    kr = (ctypes.c_int * len(ks))(*ks)
+    """A wgmma-mode stage's route at this grid (stage_launches, at the
+    card's wave of clusters; the upsample `up` = (C_in, K, stride) in the
+    launches that read x) and, per launch, the arguments of the entry from
+    n_rb to smem, worked out once per geometry (its kernel sizes,
+    dilations, first convs and first taps (pack_bases) as C arrays, halo,
+    the plan's geometry); plan: a geometry other than stage_plan's (one
+    launch only)."""
+    wave = (wave_clusters(device_index, len(dils), C, mode, _BF16_MT[C])
+            if _mixed(C, ks, mode) else None)
+    route = stage_launches(C, dils, ks, up, mode, B, L_out, wave)
+    if plan is not None and len(route.launches) > 1:
+        raise ValueError(f"mrf_stage kernel: plan= for a stage of {len(route.launches)} launches")
     out = []
-    for si, (sd, conv0, tap0) in enumerate(_segment_offsets(dils, ks, segments)):
-        n_dmax = max(len(d) for d in sd)
-        arr = (ctypes.c_int * (len(sd) * n_dmax))(
+    for ln in route.launches:
+        sd, kl = launch_dilations(dils, ks, ln)
+        n, n_dmax = len(kl), max(len(d) for d in sd)
+        arr = (ctypes.c_int * (n * n_dmax))(
             *[ds[i] if i < len(ds) else 0 for ds in sd for i in range(n_dmax)])
-        sp = plan or stage_plan(torch.device("cuda", device_index), C, sd, ks, B, L_out,
-                                *(up if si == 0 else (0, 0, 1)), mode=mode)
-        out.append((conv0, tap0, n_dmax, kr, arr, stage_halo(sd, ks), sp))
-    return tuple(out)
+        conv0, tap0 = pack_bases(C, dils, ks, ln, mode)
+        sp = plan or stage_plan(torch.device("cuda", device_index), C, sd, kl, B, L_out,
+                                *(up if ln.reads_x else (0, 0, 1)), mode=mode)
+        out.append((n, n_dmax, (ctypes.c_int * n)(*kl), arr, (ctypes.c_int * n)(*conv0),
+                    (ctypes.c_int * n)(*tap0), stage_halo(sd, kl), sp.tile, sp.window,
+                    sp.margin, sp.plane_rows, sp.np_rows, sp.buf, sp.kb, sp.mt, sp.stages,
+                    sp.smem))
+    return route, tuple(out)
 
 
-def _segment_offsets(dilation_sets, ks, segments):
-    """Each launch's (dilations, first conv, first tap) in a pack laid out
-    launch by launch (pack_stage)."""
-    conv0 = tap0 = 0
-    for seg in segments:
-        sd = segment_dilations(dilation_sets, seg)
-        yield sd, conv0, tap0
-        conv0 += sum(2 * len(d) for d in sd)
-        tap0 += sum(2 * len(d) * k for d, k in zip(sd, ks))
-
-
-def segment_weights(w: torch.Tensor, b: torch.Tensor, dilation_sets, ks, segments):
-    """Each launch's (dilations, conv weights, biases) of a stage whose
-    weights pack_stage packed launch by launch (w, b: its PackedStage's),
-    as views of the pack, in launch order: what _launch passes each launch
-    (its first tap and conv, _segment_offsets)."""
-    taps = w.reshape(-1, *w.shape[-3:])
-    for sd, conv0, tap0 in _segment_offsets(dilation_sets, ks, segments):
-        n_c = sum(2 * len(d) for d in sd)
-        n_t = sum(2 * len(d) * k for d, k in zip(sd, ks))
-        yield sd, taps[tap0:tap0 + n_t], b[conv0:conv0 + n_c]
-
-
-def _check_launch(lib, err: int, counter, mode: str):
+def _check_launch(lib, err: int, counter, mode: str, per_resblock: bool = False):
     """Raise for a launch the entry refused or CUDA failed, else count it."""
     if err != 0:
         raise RuntimeError(f"mrf_stage kernel launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")
     if counter is not None:
-        _count_launch(counter, mode)
+        _count_launch(counter, mode, per_resblock)
 
 
 # --------------------------------------------------------------------------
@@ -1225,6 +1377,7 @@ def mrf_stage(x: torch.Tensor,
 
 mrf_stage.launches = 0
 mrf_stage.staged_launches = 0
+mrf_stage.resblock_launches = 0
 
 
 def mrf_stage_unfolded(x: torch.Tensor,
@@ -1244,3 +1397,4 @@ def mrf_stage_unfolded(x: torch.Tensor,
 
 mrf_stage_unfolded.launches = 0
 mrf_stage_unfolded.staged_launches = 0
+mrf_stage_unfolded.resblock_launches = 0

@@ -12,14 +12,17 @@ times, with CUDA events (median of `reps` after a warm-up), every stage that
 chip_smoke.py's phase 3 times: the bfloat16 stages at B=1 full length, B=1
 and B=8 at bucket 256 and the stream's window sizes, and the float32 and
 f16-staged stages at B=1 full length (the f16-staged under
-ops.conv.f16_staging), or only the shapes whose name contains `only`.
-Inputs and weights come from the same seeds in every run.  It prints each
-run's times per stage, then per shape the four-stage sums of both checkouts
-(the mean of their runs) and their ratio, with the card's name and power
-limit, and a JSON summary as its last line.  A run uses only entry points
-both checkouts have (init_params, cast_params, pack_vocoder, mrf_stage,
+ops.conv.f16_staging); then HiFi-GAN V1's bfloat16 stages (resblocks
+3/7/11) at B=1 full length, B=8 at bucket 1024, B=1 at bucket 256 and
+the stream's longest window; or only the shapes whose name contains `only`.  Inputs and weights
+come from the same seeds in every run.  It prints each run's times per
+stage, then per shape the four-stage sums of both checkouts (the mean of
+their runs), their ratio and whether every run's stage outputs were the
+same bit for bit (a digest of each), with the card's name and power limit,
+and a JSON summary as its last line.  A run uses only entry points both
+checkouts have (init_params, cast_params, pack_vocoder, mrf_stage,
 f16_staging, chunk_plan, compile_cache.loaded), and the config's
-resblock_kernels where the checkout has it.  It also compares, per
+resblock_kernels where the checkout has it (V1 needs it).  It also compares, per
 kernel mode, the machine code (cuobjdump -sass) of the library each
 checkout built, the anonymous namespace's per-file names masked: 0
 differing lines means the mode's kernels are the same code.  Needs a card.
@@ -41,7 +44,7 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # What one run does, at the root of a checkout (its package first on sys.path)
 _RUN = r'''
-import json, statistics, sys
+import hashlib, json, statistics, sys
 import torch
 from zerovox_tpu_torch.config import ZeroVoxConfig
 from zerovox_tpu_torch.models.hifigan import pack_vocoder
@@ -57,9 +60,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 cfg = ZeroVoxConfig()
 params = init_params(cfg, seed=0, device="cuda")
 params16 = cast_params(params, torch.bfloat16)
-# each resblock's kernel size (a checkout older than the accessor has one size)
-dils = cfg.resblock_dilations
-kr = getattr(cfg, "resblock_kernels", None) or cfg.resblock_kernel_size
+# HiFi-GAN V1's vocoder (resblocks 3/7/11, upsample 8-8-2-2), bf16
+V1 = dict(hop_size=256, sampling_rate=22050, upsample_scales=(8, 8, 2, 2),
+          upsample_kernel_sizes=(16, 16, 4, 4), resblock_kernel_sizes=(3, 7, 11))
+
+
+def sizes(c):
+    """Each resblock's kernel size (a checkout older than the accessor has one)."""
+    return getattr(c, "resblock_kernels", None) or c.resblock_kernel_size
 
 
 def cuda_ms(fn):
@@ -75,7 +83,7 @@ def cuda_ms(fn):
     return statistics.median(times)
 
 
-def stages(p, B, L0, seed):
+def stages(cfg, p, B, L0, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     voc = p["vocoder"]
     L_pre, c_pre = L0, cfg.hifigan_channels
@@ -93,29 +101,52 @@ def stages(p, B, L0, seed):
     return out
 
 
-def time_shape(p, packs, B, L0, seed):
-    return [cuda_ms(lambda: ms.mrf_stage(x, blocks, dils, kr, packed=packs[i], **kw))
-            for i, (x, blocks, kw) in enumerate(stages(p, B, L0, seed))]
+def time_shape(cfg, p, packs, B, L0, seed):
+    """Each stage's median time (ms), and a digest of each stage's output."""
+    times, digests = [], []
+    for i, (x, blocks, kw) in enumerate(stages(cfg, p, B, L0, seed)):
+        def run():
+            return ms.mrf_stage(x, blocks, cfg.resblock_dilations, sizes(cfg), packed=packs[i],
+                                **kw)
+        times.append(cuda_ms(run))
+        y = run().contiguous()
+        digests.append(hashlib.sha256(y.view(torch.int16 if y.dtype == torch.bfloat16
+                                             else torch.int32).cpu().numpy().tobytes()
+                                      ).hexdigest()[:16])
+    return times, digests
 
 
 windows = list(dict.fromkeys(w[1] for w in chunk_plan(cfg.max_seq_len,
                                                       -(-cfg.max_seq_len // 64), 64, 16)))
 shapes = [("B=1 full", 1, cfg.max_seq_len), ("B=1 bucket 256", 1, 256),
           ("B=8 bucket 256", 8, 256)] + [(f"B=1 window {w}", 1, w) for w in windows]
-times = {}
+v1_shapes = [("v1 bf16 B=1 full", 1, cfg.max_seq_len), ("v1 bf16 B=8 bucket 1024", 8, 1024),
+             ("v1 bf16 B=1 bucket 256", 1, 256),
+             (f"v1 bf16 B=1 window {max(windows)}", 1, max(windows))]
+times, digests = {}, {}
 with torch.no_grad():
     packs16 = pack_vocoder(params16, cfg)
     for k, (name, B, L0) in enumerate(shapes):
         if only in "bf16 " + name:
-            times["bf16 " + name] = time_shape(params16, packs16, B, L0, 100 + k)
+            times["bf16 " + name], digests["bf16 " + name] = time_shape(
+                cfg, params16, packs16, B, L0, 100 + k)
     if only in "f32 B=1 full":
-        times["f32 B=1 full"] = time_shape(params, pack_vocoder(params, cfg), 1,
-                                           cfg.max_seq_len, 100)
+        times["f32 B=1 full"], digests["f32 B=1 full"] = time_shape(
+            cfg, params, pack_vocoder(params, cfg), 1, cfg.max_seq_len, 100)
     if only in "f16-staged B=1 full":
         with f16_staging():
-            times["f16-staged B=1 full"] = time_shape(params, pack_vocoder(params, cfg), 1,
-                                                      cfg.max_seq_len, 100)
+            times["f16-staged B=1 full"], digests["f16-staged B=1 full"] = time_shape(
+                cfg, params, pack_vocoder(params, cfg), 1, cfg.max_seq_len, 100)
+    del params, params16, packs16
+    if any(only in name for name, _, _ in v1_shapes):
+        v1 = ZeroVoxConfig(**V1)
+        v1_params = cast_params(init_params(v1, seed=0, device="cuda"), torch.bfloat16)
+        v1_packs = pack_vocoder(v1_params, v1)
+        for k, (name, B, L0) in enumerate(v1_shapes):
+            if only in name:
+                times[name], digests[name] = time_shape(v1, v1_params, v1_packs, B, L0, 200 + k)
 print("RESULT " + json.dumps(times))
+print("DIGESTS " + json.dumps(digests))
 from zerovox_tpu_torch.utils.compile_cache import loaded
 print("LIBS " + json.dumps(loaded()))
 '''
@@ -128,16 +159,16 @@ def card_line() -> str:
 
 
 def run_once(root: Path, reps: int, only: str):
-    """One run at `root`: its times per shape, per stage (ms), and the
-    libraries it loaded."""
+    """One run at `root`: its times per shape, per stage (ms), a digest of
+    each stage's output per shape, and the libraries it loaded."""
     env = dict(os.environ, PYTHONPATH=str(root))
     proc = subprocess.run([sys.executable, "-c", _RUN, str(reps), only], cwd=root, env=env,
                           capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
         raise RuntimeError(f"run at {root} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
     out = {k: json.loads(x[len(k) + 1:]) for x in proc.stdout.splitlines()
-           for k in ("RESULT", "LIBS") if x.startswith(k + " ")}
-    return out["RESULT"], out["LIBS"]
+           for k in ("RESULT", "DIGESTS", "LIBS") if x.startswith(k + " ")}
+    return out["RESULT"], out["DIGESTS"], out["LIBS"]
 
 
 def cuobjdump_sass(lib: str) -> str:
@@ -188,11 +219,13 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}", flush=True)
     runs = {"other": [], "this": []}
-    libs = {}
+    libs, digests = {}, collections.defaultdict(set)
     order = (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)) * args.rounds
     for label, root in order:
-        times, libs[label] = run_once(root, args.reps, args.only)
+        times, dig, libs[label] = run_once(root, args.reps, args.only)
         runs[label].append(times)
+        for shape, d in dig.items():
+            digests[shape].add(tuple(d))
         for shape, ts in times.items():
             print(f"{label} ({root.name}) {shape}: " + " / ".join(f"{t:.3f}" for t in ts)
                   + f" ms, sum {sum(ts):.3f} ms", flush=True)
@@ -203,10 +236,12 @@ def main(argv=None) -> int:
         per_stage = {lbl: [sum(r[shape][i] for r in runs[lbl]) / len(runs[lbl])
                            for i in range(len(runs[lbl][0][shape]))] for lbl in runs}
         summary[shape] = dict(other_ms=o, this_ms=t, ratio=sum(t) / sum(o),
-                              other_stage_ms=per_stage["other"], this_stage_ms=per_stage["this"])
+                              other_stage_ms=per_stage["other"], this_stage_ms=per_stage["this"],
+                              same_output=len(digests[shape]) == 1)
         print(f"{shape}: other {' / '.join('%.3f' % v for v in o)} ms, this "
               f"{' / '.join('%.3f' % v for v in t)} ms, this / other "
-              f"{summary[shape]['ratio']:.3f} [{card}]", flush=True)
+              f"{summary[shape]['ratio']:.3f}, outputs bit for bit the same in every run: "
+              f"{summary[shape]['same_output']} [{card}]", flush=True)
     machine_code = compare_sass(libs)
     for mode, d in machine_code.items():
         print(f"SASS {mode}: other {d['other_lines']} lines, this {d['this_lines']} lines, "
