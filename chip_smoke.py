@@ -57,8 +57,8 @@ Phases (any failure exits non-zero and prints no result line):
      the kernel, stream == full run, ahead settings bit-identical) and the
      CLI's --stream;
   6. the engine's remainder, in both dtypes: synthesize_async + fetch
-     against synthesize, single_rtt on and off timed, reload_params with
-     other weights and with a wrong geometry;
+     against synthesize (bit for bit: one path), synthesize at B=1 timed,
+     reload_params with other weights and with a wrong geometry;
   7. the serving daemon, in bfloat16 (the serving dtype) and float32: an
      in-process TTSServer on a loopback port and a TTSClient: /healthz and
      /metrics (the device row names the card), /synthesize as JSON and as a
@@ -983,10 +983,11 @@ def main_path(cfg, params, model, tmp, precision):
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            mel, mel_len = engine._run_front(src, pun, style, lens)
+            issued = engine._issue_fronts(src, pun, style, lens)
+            torch.cuda.synchronize()
             t1 = time.perf_counter()
+            _, mel_len = engine._collect(*issued, engine._by_chunk, True, False)
             bucket = engine.pick_bucket(int(mel_len.max()))
-            engine._back(mel[:, :bucket], False)
             fronts.append(1e3 * (t1 - t0))
             backs.append(1e3 * (time.perf_counter() - t1))
         log(f"  {precision} B={B} split: front {statistics.median(fronts):.2f} ms, vocoder at "
@@ -1185,42 +1186,35 @@ def stream_path(cfg, params, model, tmp, engine, held_windows):
 # --------------------------------------------------------------------------
 
 def engine_remainder(cfg, engine):
-    """synthesize_async + fetch, single_rtt on and off, reload_params."""
+    """synthesize_async + fetch against synthesize, synthesize at B=1 timed,
+    reload_params."""
     import numpy as np
     import torch
     from zerovox_tpu_torch.params import init_params
 
     precision = engine.cfg.compute_dtype
-    atol = WAV_ATOL_BF16 if precision == "bfloat16" else STREAM_TOL["atol"]
     src, pun, style, lens = mixed_batch(cfg, 3, 31)
     want, want_len = engine.synthesize(src, pun, style, lens)
-    fetch = engine.synthesize_async(src, pun, style, lens)
-    got, got_len = fetch()
-    one, one_len = engine.synthesize(src, pun, style, lens, single_rtt=True)
-    if not np.array_equal(got_len, want_len) or not np.array_equal(one_len, want_len):
-        raise RuntimeError("synthesize_async and synthesize disagree on mel_len")
-    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
-    same = all(np.array_equal(a, b) for a, b in zip(got, one))
-    log(f"{precision} synthesize_async + fetch vs synthesize (B=3, mixed lengths): wav "
-        f"max|d| {err:.3e} (atol {atol}; both vocode at the bucket of the longest row); equal to "
-        f"single_rtt=True bit for bit: {same}")
-    if not err <= atol or not same:
-        raise RuntimeError(f"synthesize_async differs: {err:.3e}, single_rtt equal {same}")
+    got, got_len = engine.synthesize_async(src, pun, style, lens)()
+    same = np.array_equal(got_len, want_len) and all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+    log(f"{precision} synthesize_async + fetch vs synthesize (B=3, mixed lengths): "
+        f"mel_len and waveforms equal bit for bit: {same}")
+    if not same:
+        raise RuntimeError("synthesize_async + fetch and synthesize disagree")
 
     src, pun, style, lens = mixed_batch(cfg, 1, 32)
-    times = {}
-    for rtt in (False, True, True, False):
+    times = []
+    for _ in range(4):
         runs = []
         for _ in range(4):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine.synthesize(src, pun, style, lens, single_rtt=rtt)
+            engine.synthesize(src, pun, style, lens)
             runs.append(1e3 * (time.perf_counter() - t0))
-        times.setdefault(rtt, []).append(statistics.median(runs[1:]))
-    log(f"{precision} engine.synthesize B=1 wall, single_rtt off "
-        f"{' / '.join('%.2f' % t for t in times[False])} ms, on "
-        f"{' / '.join('%.2f' % t for t in times[True])} ms (in turns off, on, on, off; "
-        f"medians of 3 after a warm-up)")
+        times.append(statistics.median(runs[1:]))
+    log(f"{precision} engine.synthesize B=1 wall {' / '.join('%.2f' % t for t in times)} ms "
+        f"(4 turns, each the median of 3 after a warm-up)")
 
     before, _ = engine.synthesize(src, pun, style, lens)
     old = engine.params

@@ -94,8 +94,8 @@ class _Wrapped:
     def batch_ladder(self):
         return self._engine.batch_ladder
 
-    def ladder_size(self, n):
-        return self._engine.ladder_size(n)
+    def row_ladder_sizes(self, n):
+        return self._engine.row_ladder_sizes(n)
 
     def synthesize_async(self, src, *a, **kw):
         self.entered.set()
@@ -157,19 +157,32 @@ def test_concurrent_requests_coalesce_and_match(engine, pcm16):
         b.stop()
 
 
-def test_batcher_reports_the_dispatched_batch_size(engine):
-    """synthesize_sized() adds the ladder size the request's dispatch was
-    padded to; each answer equals the engine's own at that batch size (the
-    first row repeated, as the ladder pads) bit for bit."""
+@pytest.mark.parametrize("ladder, max_batch", [((1, 2, 4, 8), None), ((1, 2), 4)])
+def test_batcher_reports_the_dispatched_batch_size(params, ladder, max_batch):
+    """synthesize_sized() adds the batch size the request was computed at, as
+    the engine reports it (row_ladder_sizes), also where a dispatch passes
+    the ladder top and its chunks run at different sizes: the sizes the
+    fronts ran at; each answer equals the engine's own at that batch size
+    (the first row repeated, as the ladder pads) bit for bit."""
+    engine = TTSEngine(params, CFG, mel_buckets=(16, 32), batch_ladder=ladder, device="cpu")
+    fronts, front = [], engine._front
+    engine._front = lambda src, *a: fronts.append(len(src)) or front(src, *a)
     rng = np.random.default_rng(5)
     utt = _utt(rng, 13)
     slow = _Wrapped(engine, dispatch_s=0.5)
-    b = DynamicBatcher(slow, window_ms=50.0)
+    b = DynamicBatcher(slow, window_ms=50.0, max_batch=max_batch)
     try:
-        results = _run_threads(lambda i: b.synthesize_sized(*utt, pcm16=True), 4)
-        assert sorted({r[2] for r in results}) == sorted(
-            {engine.ladder_size(n) for n in slow.batch_sizes})
-        assert sum(slow.batch_sizes) == 4
+        first = []                  # a lone dispatch, and 3 requests queued behind it
+        t = threading.Thread(target=lambda: first.append(b.synthesize_sized(*utt, pcm16=True)))
+        t.start()
+        assert slow.entered.wait(timeout=30)
+        results = _run_threads(lambda i: b.synthesize_sized(*utt, pcm16=True), 3)
+        t.join(timeout=60)
+        results += first
+        reported = [s for n in slow.batch_sizes for s in engine.row_ladder_sizes(n)]
+        assert sorted(r[2] for r in results) == sorted(reported)
+        assert set(reported) == set(fronts)
+        assert slow.batch_sizes == [1, 3] and len(results) == 4
         for wav, mel_len, size in results:
             rows = [np.repeat(a, size, axis=0) for a in utt]
             ref, ref_len = engine.synthesize_async(*rows, pcm16=True)()

@@ -38,7 +38,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "zerovox_tpu"))
 print(len(mods), bad)
 assert not bad, bad
-assert len(mods) >= 68, mods
+assert len(mods) >= 67, mods
 tools = {{"zerovox_tpu_torch.tools." + t for t in (
     "measure", "bench", "bench_daemon", "measure_daemon_attrib", "profile_trace",
     "profile_mel", "profile_breakdown")}}

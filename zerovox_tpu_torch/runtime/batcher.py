@@ -200,10 +200,8 @@ class DynamicBatcher:
             with profiling.span("batcher.inflight"):
                 self._inflight.acquire()
             trim, pcm16 = batch[0].key
-            # synthesize_async splits at the ladder top and pads each chunk
-            top = self.engine.batch_ladder[-1]
-            for i, q in enumerate(batch):
-                q.size = self.engine.ladder_size(min(top, len(batch) - i // top * top))
+            for q, size in zip(batch, self.engine.row_ladder_sizes(len(batch))):
+                q.size = size
             rids = tuple(q.rid for q in batch if q.rid is not None) or None
             try:
                 with profiling.span("batcher.dispatch", rid=rids) as dispatch:

@@ -33,6 +33,7 @@ frames its real rows need and the frames it vocodes.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,10 +61,11 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """t on the host: the calling thread waits for the card ("engine.sync")."""
+def _wait_host(pending) -> np.ndarray:
+    """A to_host_async() copy on the host: the calling thread waits for the
+    card ("engine.sync")."""
     with profiling.span("engine.sync"):
-        return t.cpu().numpy()
+        return wait_host(pending).numpy()
 
 
 def _count_frames(mel_len: np.ndarray, rows: int, bucket: int):
@@ -181,17 +183,18 @@ class TTSEngine:
                                          for k, bs, bd, as_, ad in bad[:3]))
 
     # ------------------------------------------------------------ programs
-    def _split(self, span: str, issue, models: Tuple[LoadedModel, ...], *args):
-        """issue(*args, model) on the issuing thread of each model's device
-        (device.on_issuing_thread; recorded as the span `span`), whatever
-        thread calls: on the whole batch with one device, else on each data
-        device's slice of the rows, the outputs gathered on the engine's
-        device.  No host sync."""
+    def _split(self, span: str, issue, models: Tuple[LoadedModel, ...], *args, **kw):
+        """issue(*args, model, **kw) on the issuing thread of each model's
+        device (device.on_issuing_thread; recorded as the span `span`),
+        whatever thread calls: on the whole batch with one device, else on
+        each data device's slice of the rows (args), the outputs gathered on
+        the engine's device.  No host sync."""
         if len(models) == 1:
-            return on_issuing_thread(models[0].device, issue, *args, models[0], span=span)
+            return on_issuing_thread(models[0].device, issue, *args, models[0], span=span, **kw)
         parts = [a.tensor_split(len(models)) for a in args]
         futures = [submit_on_issuing_thread(m.device, issue,
-                                            *(p[i].to(m.device) for p in parts), m, span=span)
+                                            *(p[i].to(m.device) for p in parts), m, span=span,
+                                            **kw)
                    for i, m in enumerate(models)]
         outs = [f.result() for f in futures]
         if isinstance(outs[0], tuple):
@@ -218,28 +221,16 @@ class TTSEngine:
         pcm16 (quantised there, so the host fetch moves half the bytes),
         else float32 (a bf16 waveform is widened for the caller).  Issued as
         _front."""
-        issue = self._issue_vocode_pcm16 if pcm16 else self._issue_vocode
-        return self._split("issue.vocode", issue, models or self._models, mel_b)
+        return self._split("issue.vocode", self._issue_vocode, models or self._models, mel_b,
+                           pcm16=(pcm16,))
 
     @torch.inference_mode()
-    def _issue_vocode(self, mel_b: torch.Tensor, model: LoadedModel) -> torch.Tensor:
-        return hifigan.vocode(model.params, self.cfg, mel_b, model.packed).to(torch.float32)
-
-    @torch.inference_mode()
-    def _issue_vocode_pcm16(self, mel_b: torch.Tensor, model: LoadedModel) -> torch.Tensor:
-        return float_to_pcm16_device(hifigan.vocode(model.params, self.cfg, mel_b,
-                                                    model.packed))
-
-    @torch.inference_mode()
-    def _issue_vocode_both(self, mel_b: torch.Tensor, model: LoadedModel):
-        """One vocode, returned both ways (float32 and int16): warmup's."""
+    def _issue_vocode(self, mel_b: torch.Tensor, model: LoadedModel, pcm16=(False,)):
+        """One vocode, returned once per entry of pcm16 (warmup asks for
+        both forms)."""
         wav = hifigan.vocode(model.params, self.cfg, mel_b, model.packed)
-        return wav.to(torch.float32), float_to_pcm16_device(wav)
-
-    def _back(self, mel_b: torch.Tensor, pcm16: bool,
-              models: Optional[Tuple[LoadedModel, ...]] = None) -> np.ndarray:
-        """_vocode fetched to the host."""
-        return _to_host(self._vocode(mel_b, pcm16, models))
+        outs = tuple(float_to_pcm16_device(wav) if p else wav.to(torch.float32) for p in pcm16)
+        return outs if len(outs) > 1 else outs[0]
 
     # ------------------------------------------------------------- geometry
     def pick_bucket(self, mel_len: int) -> int:
@@ -273,6 +264,12 @@ class TTSEngine:
             rows = (rows_for or self.ladder_size)(len(chunk))
             yield chunk + [chunk[0]] * (rows - len(chunk)), len(chunk)
 
+    def row_ladder_sizes(self, n: int) -> List[int]:
+        """The batch size each row of an n-row call is computed at: the
+        ladder size its chunk's front is padded to.  In bfloat16 an answer
+        can depend on it; the DynamicBatcher reports it per request."""
+        return [len(padded) for padded, k in self._ladder_chunks(range(n)) for _ in range(k)]
+
     def group_by_bucket(self, predicted_lens: Sequence[int]) -> Dict[int, List[int]]:
         """Group utterance indices by their mel bucket (for batch packing)."""
         groups: Dict[int, List[int]] = {}
@@ -288,7 +285,6 @@ class TTSEngine:
         card this builds the MRF kernel and lets cuDNN pick its algorithms
         before the first request."""
         cfg = self.cfg
-        issue = self._issue_vocode_both if pcm16 else self._issue_vocode
         for s in (s for s in self.batch_ladder if s <= self.ladder_size(batch)):
             src = torch.zeros((s, cfg.max_n_phonemes), dtype=torch.long,
                               device=self.device)
@@ -299,45 +295,22 @@ class TTSEngine:
                            if self.ladder_size(n) == s})
             for b in self.mel_buckets:
                 for r in rows:
-                    self._split("issue.vocode", issue, self._models, mel[:r, :b])
+                    self._split("issue.vocode", self._issue_vocode, self._models,
+                                mel[:r, :b], pcm16=(False, True) if pcm16 else (False,))
         for dev in dict.fromkeys(self._devices):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
     # ------------------------------------------------------------------ API
     def synthesize(self, src_seq, puncts, style_embed, num_phonemes=None,
-                   trim: bool = True, single_rtt: bool = False, pcm16: bool = False
+                   trim: bool = True, pcm16: bool = False
                    ) -> Tuple[List[np.ndarray], np.ndarray]:
-        """Batched synthesis with bucket dispatch: the whole batch vocodes at
-        the bucket of its longest utterance (synthesize_packed routes each
-        bucket group separately).
+        """Batched synthesis: synthesize_async(...)().
 
         Returns (per-utterance waveforms, trimmed to mel_len*hop when
-        trim=True, else the full padded buffer; mel_len array).
-
-        single_rtt=True delegates to synthesize_async() + fetch: the same
-        host waits (mel_len, then the waveforms) and the same buckets, each
-        ladder chunk vocoded at the bucket of its own longest row.  It is off
-        by default, where the JAX package turns it on for B == 1: there the
-        vocoder runs at the largest bucket, launched before mel_len is read,
-        because a host sync is a round trip to a remote device and costs
-        more than vocoding 1500 frames instead of 256; on a local card a
-        sync costs microseconds and the longer vocode milliseconds
-        (PERF.md)."""
-        if single_rtt:
-            return self.synthesize_async(src_seq, puncts, style_embed,
-                                         num_phonemes=num_phonemes, trim=trim, pcm16=pcm16)()
-        models = self._models
-        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, models)
-        # trim=False promises the reference's full padded buffer, so it
-        # vocodes at the max bucket
-        bucket = (self.pick_bucket(int(mel_len_h.max()))
-                  if trim else self.mel_buckets[-1])
-        outs = []
-        for padded, n in self._ladder_chunks(range(mel.shape[0]), self._vocode_rows):
-            outs.append(self._back(self._take(mel, padded)[:, :bucket], pcm16, models)[:n])
-            _count_frames(mel_len_h[padded[:n]], len(padded), bucket)
-        return self._trim(np.concatenate(outs, axis=0), mel_len_h, trim), mel_len_h
+        trim=True, else the full padded buffer; mel_len array)."""
+        return self.synthesize_async(src_seq, puncts, style_embed, num_phonemes=num_phonemes,
+                                     trim=trim, pcm16=pcm16)()
 
     def synthesize_async(self, src_seq, puncts, style_embed, num_phonemes=None,
                          trim: bool = True, pcm16: bool = False
@@ -345,62 +318,26 @@ class TTSEngine:
         """Launch synthesis without waiting for the device; returns a
         fetch() closure that finishes it.
 
-        The front is launched with no host sync, ladder chunk by ladder
-        chunk, and each chunk's mel_len starts its copy into pinned host
-        memory behind it.  fetch() waits for each chunk's mel_len, vocodes
-        the chunk's real rows at the bucket of its longest (trim=False: at
-        the largest bucket), as synthesize() does, and waits for the
-        waveforms' copies and trims on the host.  The calling thread never
-        waits for the device, so a caller can launch batch k+1 while batch k
-        is still computing or being fetched on another thread."""
-        models = self._models
-        src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
-        fronts = []
-        for padded, n in self._ladder_chunks(range(src.shape[0])):
-            mel, mel_len = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
-                                       models)
-            fronts.append((mel, to_host_async(mel_len), n))
-
-        def fetch() -> Tuple[List[np.ndarray], np.ndarray]:
-            vocoded = []
-            for mel, len_p, n in fronts:
-                with profiling.span("engine.sync"):
-                    len_n = wait_host(len_p).numpy()[:n]
-                bucket = self.pick_bucket(int(len_n.max())) if trim else self.mel_buckets[-1]
-                rows = self._vocode_rows(n)
-                wav = self._vocode(mel[:rows, :bucket], pcm16, models)
-                vocoded.append((to_host_async(wav), len_n, n, rows, bucket))
-            wavs: List[np.ndarray] = []
-            for wav_p, len_n, n, rows, bucket in vocoded:
-                with profiling.span("engine.sync"):
-                    wav_h = wait_host(wav_p).numpy()[:n]
-                _count_frames(len_n, rows, bucket)
-                wavs.extend(self._trim(wav_h, len_n, trim))
-            return wavs, np.concatenate([v[1] for v in vocoded])
-
-        return fetch
+        The fronts are launched with no host sync; fetch() vocodes each
+        ladder chunk's real rows whole, at the bucket of its longest row
+        (trim=False: at the largest bucket), and waits for the waveforms.  A
+        DynamicBatcher dispatch is one chunk, so it is one vocoder call (what
+        the serve cells measure).  The calling thread never waits for the
+        device, so a caller can launch batch k+1 while batch k is still
+        computing or being fetched on another thread."""
+        issued = self._issue_fronts(src_seq, puncts, style_embed, num_phonemes)
+        return lambda: self._collect(*issued, self._by_chunk, trim, pcm16)
 
     def synthesize_packed(self, src_seq, puncts, style_embed,
                           num_phonemes=None, trim: bool = True,
                           pcm16: bool = False
                           ) -> Tuple[List[np.ndarray], np.ndarray]:
-        """Bucket-packed batched synthesis: one vocoder dispatch per bucket
-        group (its real rows), so short utterances in a mixed batch do not
-        pay the longest one's compute.  Outputs match synthesize()."""
-        models = self._models
-        mel, mel_len_h = self._run_front(src_seq, puncts, style_embed, num_phonemes, models)
-        B = mel.shape[0]
-        hop = self.cfg.hop_size
-        wavs: List[Optional[np.ndarray]] = [None] * B
-        groups = (self.group_by_bucket(mel_len_h) if trim
-                  else {self.mel_buckets[-1]: list(range(B))})
-        for bucket, idxs in groups.items():
-            for padded, n in self._ladder_chunks(idxs, self._vocode_rows):
-                wav_h = self._back(self._take(mel, padded)[:, :bucket], pcm16, models)
-                _count_frames(mel_len_h[padded[:n]], len(padded), bucket)
-                for k, i in enumerate(padded[:n]):
-                    wavs[i] = wav_h[k, : int(mel_len_h[i]) * hop] if trim else wav_h[k]
-        return wavs, mel_len_h
+        """Bucket-packed batched synthesis (/batch, long-form): the rows of
+        each bucket vocoded together across the batch's ladder chunks, so
+        that short utterances in a mixed batch do not pay for the longest
+        one's frames.  Outputs match synthesize()."""
+        issued = self._issue_fronts(src_seq, puncts, style_embed, num_phonemes)
+        return self._collect(*issued, lambda m: self.group_by_bucket(m).values(), trim, pcm16)
 
     # -------------------------------------------------------------- helpers
     def _inputs(self, src_seq, puncts, style_embed, num_phonemes):
@@ -409,23 +346,60 @@ class TTSEngine:
                                num_phonemes)
 
     def _take(self, t: torch.Tensor, padded: Sequence[int]) -> torch.Tensor:
-        """Rows `padded` of t (t itself where they are all its rows in order)."""
-        if list(padded) == list(range(t.shape[0])):
-            return t
+        """Rows `padded` of t (a view where they are its first rows in order)."""
+        if list(padded) == list(range(len(padded))):
+            return t[:len(padded)]
         return t[torch.as_tensor(padded, device=self.device)]
 
-    def _run_front(self, src_seq, puncts, style_embed, num_phonemes,
-                   models: Optional[Tuple[LoadedModel, ...]] = None):
-        """Front at ladder sizes; returns (device mel (B, T, mels), host mel_len)."""
+    def _issue_fronts(self, src_seq, puncts, style_embed, num_phonemes):
+        """Issue a call's fronts, ladder chunk by ladder chunk, each padded to
+        its ladder size, and behind each its mel_len's copy into pinned host
+        memory; no host sync.  Returns the models in use (the vocoder runs on
+        them too, whatever reload_params does meanwhile) and per chunk
+        (mel, pending mel_len, real rows)."""
+        models = self._models
         src, pun, sty, nph = self._inputs(src_seq, puncts, style_embed, num_phonemes)
-        mels, lens = [], []
+        fronts = []
         for padded, n in self._ladder_chunks(range(src.shape[0])):
-            mel_c, len_c = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
+            mel, mel_len = self._front(*(self._take(a, padded) for a in (src, pun, sty, nph)),
                                        models)
-            mels.append(mel_c[:n])
-            lens.append(len_c[:n])
-        mel = mels[0] if len(mels) == 1 else torch.cat(mels, dim=0)
-        return mel, _to_host(torch.cat(lens))
+            fronts.append((mel, to_host_async(mel_len), n))
+        return models, fronts
+
+    def _collect(self, models, fronts, grouping, trim: bool, pcm16: bool
+                 ) -> Tuple[List[np.ndarray], np.ndarray]:
+        """Finish a call whose fronts were issued: wait for mel_len; vocode
+        each group of rows that grouping(mel_len) makes (trim=False: each
+        chunk) at the bucket of its longest row (trim=False: the largest,
+        for the full padded buffer it promises), in ladder-top chunks of its
+        real rows (_vocode_rows), each waveform's copy into pinned host
+        memory started behind it; then wait for the copies and trim."""
+        mel_len = np.concatenate([_wait_host(len_p)[:n] for _, len_p, n in fronts])
+        pending = []
+        for rows in grouping(mel_len) if trim else self._by_chunk(mel_len):
+            bucket = self.pick_bucket(int(mel_len[rows].max())) if trim else self.mel_buckets[-1]
+            for padded, n in self._ladder_chunks(rows, self._vocode_rows):
+                wav = self._vocode(self._mel_rows(fronts, padded)[:, :bucket], pcm16, models)
+                _count_frames(mel_len[padded[:n]], len(padded), bucket)
+                pending.append((padded[:n], to_host_async(wav)))
+        wavs: List[Optional[np.ndarray]] = [None] * len(mel_len)
+        for rows, wav_p in pending:
+            for i, w in zip(rows, self._trim(_wait_host(wav_p)[:len(rows)], mel_len[rows], trim)):
+                wavs[i] = w
+        return wavs, mel_len
+
+    def _by_chunk(self, mel_len: np.ndarray) -> List[List[int]]:
+        """synthesize_async's groups: the rows of each ladder chunk."""
+        return [padded[:n] for padded, n in self._ladder_chunks(range(len(mel_len)))]
+
+    def _mel_rows(self, fronts, rows: Sequence[int]) -> torch.Tensor:
+        """The issued mels at rows `rows` of the call, whose ladder chunk c
+        holds rows c * top onward (_ladder_chunks): a view where they are
+        one chunk's first rows."""
+        top = self.batch_ladder[-1]
+        mels = [self._take(fronts[c][0], [r - c * top for r in rs])
+                for c, rs in itertools.groupby(rows, key=lambda r: r // top)]
+        return mels[0] if len(mels) == 1 else torch.cat(mels)
 
     def _trim(self, wav_h: np.ndarray, mel_len_h: np.ndarray, trim: bool
               ) -> List[np.ndarray]:

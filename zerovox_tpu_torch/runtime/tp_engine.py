@@ -36,6 +36,7 @@ class TPServingEngine:
     # the ladder helpers only read self.batch_ladder and self.cfg: TTSEngine's
     ladder_size = TTSEngine.ladder_size
     _ladder_chunks = TTSEngine._ladder_chunks
+    row_ladder_sizes = TTSEngine.row_ladder_sizes
     _trim = TTSEngine._trim
     _take = TTSEngine._take
 
@@ -141,9 +142,8 @@ class TPServingEngine:
         return fetch
 
     def synthesize(self, src_seq, puncts, style_embed, num_phonemes=None,
-                   trim: bool = True, single_rtt: Optional[bool] = None,
-                   pcm16: bool = False) -> Tuple[List[np.ndarray], np.ndarray]:
-        del single_rtt       # the TP path always vocodes the full buffer in one call
+                   trim: bool = True, pcm16: bool = False
+                   ) -> Tuple[List[np.ndarray], np.ndarray]:
         return self.synthesize_async(src_seq, puncts, style_embed, num_phonemes=num_phonemes,
                                      trim=trim, pcm16=pcm16)()
 
