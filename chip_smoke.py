@@ -986,7 +986,7 @@ def main_path(cfg, params, model, tmp, precision):
             issued = engine._issue_fronts(src, pun, style, lens)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            _, mel_len = engine._collect(*issued, engine._by_chunk, True, False)
+            _, mel_len = engine._collect(*issued, True, False)
             bucket = engine.pick_bucket(int(mel_len.max()))
             fronts.append(1e3 * (t1 - t0))
             backs.append(1e3 * (time.perf_counter() - t1))
@@ -1471,8 +1471,8 @@ def daemon_latency(engine, client, precision, request, want):
 
 def ladder_answers(engine, request):
     """The engine's PCM16 answer to `request` at every ladder size, as a
-    batched dispatch gives it (synthesize_async: the bucket of the
-    dispatch's longest row; a batch of k equal requests padded to ladder
+    batched dispatch gives it (synthesize_async: each row at its own
+    bucket; a batch of k equal requests padded to ladder
     size L is L equal rows).  Each is held against the plain pipeline (every
     stage through mrf_stage_ref) at the same batch size and bucket, at the
     pipeline gate of the dtype."""
@@ -1505,8 +1505,7 @@ def daemon_load(server, precision, request, want, label, batched=None):
     """LOAD_CLIENTS closed-loop client threads, LOAD_ROUNDS requests each.
     Past the batcher every answer is held against the direct one (`want`:
     B=1, its own bucket).  Through the batcher a request runs at another
-    batch size and at the bucket of its dispatch's longest request (here all
-    requests are one, so the bucket is its own); the daemon says at which size
+    batch size, at its own bucket; the daemon says at which size
     (X-Batch-Size), and the answer is held to 1 LSB against the engine's own
     at that size (`batched`: ladder_answers, each held against the plain
     pipeline).  In float32 it is also held against the direct answer; in

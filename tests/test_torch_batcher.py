@@ -9,6 +9,7 @@ failures reach every waiter, and the daemon exposes the batcher's counts.
 """
 
 import http.client
+import itertools
 import json
 import os
 import threading
@@ -22,7 +23,7 @@ import zerovox_tpu_torch.params as tparams
 from zerovox_tpu_torch.config import TINY_CONFIG
 from zerovox_tpu_torch.runtime.batcher import DynamicBatcher
 from zerovox_tpu_torch.runtime.client import parse_wav_bytes
-from zerovox_tpu_torch.runtime.engine import TTSEngine
+from zerovox_tpu_torch.runtime.engine import TTSEngine, _Rows
 from zerovox_tpu_torch.runtime.server import TTSServer
 from zerovox_tpu_torch.utils import profiling
 
@@ -213,42 +214,129 @@ def test_batched_bf16_matches_direct(params):
         b.stop()
 
 
-# 10 rows: a ladder-top chunk of 8 short rows (mel_len <= 8, bucket 16 at the
-# TINY engine's grid 16, 32, 64) and a chunk of 2 longer ones (bucket 32)
-SPLIT_LENGTHS = (4, 3, 2, 1, 4, 3, 2, 1, 11, 7)
+# 10 rows in two ladder chunks, at the TINY engine's grid 16, 32, 64 (a
+# phoneme lasts 2 frames, the margin is 8): the first chunk's rows reach all
+# three buckets, the second's 32 and 16, so the bucket groups 16 (7 rows),
+# 32 (2) and 64 (1) each take rows from both chunks or from the middle of one
+SPLIT_LENGTHS = (4, 3, 2, 1, 4, 12, 16, 1, 11, 2)
+SPLIT_GROUPS = {16: [0, 1, 2, 3, 4, 7, 9], 32: [5, 8], 64: [6]}
+
+
+def _alone(engine, src, pun, sty, n, pcm16=False):
+    """Each row's answer with its mel (from the same fronts: a front's answer
+    can depend on its batch size) vocoded on its own, at its bucket."""
+    _, fronts = engine._issue_fronts(src, pun, sty, n)
+    mels = tuple(mel for mel, _, _ in fronts)
+    lens = np.concatenate([lens.numpy()[:k] for _, (lens, _), k in fronts])
+    return [engine._vocode(_Rows(mels, [i], engine.pick_bucket(int(L))), pcm16)[0].numpy()
+            [:int(L) * CFG.hop_size] for i, L in enumerate(lens)]
 
 
 def test_async_issues_the_vocoder_in_fetch(engine, rec):
     """synthesize_async issues the fronts alone and waits for nothing:
     no "issue.vocode" span and no "engine.sync" before fetch() is called;
-    fetch() issues one vocoder per ladder chunk."""
+    fetch() issues one vocoder per bucket group (three, across the two
+    ladder chunks)."""
     src, pun, sty, n = _rows(np.random.default_rng(11), SPLIT_LENGTHS)
     fetch = engine.synthesize_async(src, pun, sty, n)
     assert len(_named(rec, "issue.front")) == 2
     assert _named(rec, "issue.vocode") == [] and _named(rec, "engine.sync") == []
     wavs, lens = fetch()
-    assert len(_named(rec, "issue.vocode")) == 2 and len(wavs) == len(lens) == 10
+    assert engine.group_by_bucket(lens) == SPLIT_GROUPS
+    assert len(_named(rec, "issue.vocode")) == 3 and len(wavs) == len(lens) == 10
 
 
 @pytest.mark.parametrize("pcm16", [False, True])
 def test_async_vocodes_each_chunk_at_its_bucket(engine, rec, pcm16):
-    """Each ladder chunk vocodes at pick_bucket of its longest row, read from
-    the "vocoder.frames" counters (b == rows x bucket), not at max_seq_len;
-    the answers equal synthesize()'s (f32 within 1e-6, PCM16 within 1 LSB)."""
+    """Each row vocodes at its own bucket, with the rows of its bucket from
+    every ladder chunk, read from the "vocoder.frames" counters (b == rows x
+    bucket), not at its chunk's longest row's bucket nor at max_seq_len; the
+    answers equal each row's vocoded alone (f32 within 1e-6, PCM16
+    within 1 LSB)."""
     src, pun, sty, n = _rows(np.random.default_rng(12), SPLIT_LENGTHS)
-    want, want_len = engine.synthesize(src, pun, sty, n, pcm16=pcm16)
+    want = _alone(engine, src, pun, sty, n, pcm16)
     before = len(_named(rec, "vocoder.frames"))
     got, got_len = engine.synthesize_async(src, pun, sty, n, pcm16=pcm16)()
-    np.testing.assert_array_equal(got_len, want_len)
     frames = _named(rec, "vocoder.frames")[before:]
-    chunks = (got_len[:8], got_len[8:])
-    buckets = [engine.pick_bucket(int(c.max())) for c in chunks]
-    assert buckets == [16, 32]
-    assert [(f.a, f.b) for f in frames] == [(int(c.sum()), len(c) * b)
-                                            for c, b in zip(chunks, buckets)]
+    assert engine.group_by_bucket(got_len) == SPLIT_GROUPS
+    assert [(f.a, f.b) for f in frames] == [(int(got_len[rows].sum()), len(rows) * b)
+                                            for b, rows in SPLIT_GROUPS.items()]
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
         np.testing.assert_allclose(a, b, rtol=0, atol=1 if pcm16 else 1e-6)
+
+
+@pytest.mark.parametrize("pcm16", [False, True])
+def test_dispatch_in_three_buckets_vocodes_each_at_its_own(engine, rec, monkeypatch, pcm16):
+    """A dispatch (one ladder chunk, as the batcher makes) whose rows reach
+    three buckets makes three vocoder calls, each at its bucket and its real
+    rows, as "vocoder.frames" counts them and the vocoder's inputs show; each
+    answer equals the row's vocoded alone (f32 within 1e-6, PCM16
+    within 1 LSB)."""
+    shapes = _vocoder_rows(monkeypatch)
+    src, pun, sty, n = _rows(np.random.default_rng(17), (2, 9, 16, 3, 12))
+    want = _alone(engine, src, pun, sty, n, pcm16)
+    del shapes[:]
+    before = len(_named(rec, "vocoder.frames"))
+    got, got_len = engine.synthesize_async(src, pun, sty, n, pcm16=pcm16)()
+    groups = {16: [0, 3], 32: [1, 4], 64: [2]}
+    assert engine.group_by_bucket(got_len) == groups
+    assert shapes == [(len(rows), b, CFG.num_mels) for b, rows in groups.items()]
+    frames = _named(rec, "vocoder.frames")[before:]
+    assert [(f.a, f.b) for f in frames] == [(int(got_len[rows].sum()), len(rows) * b)
+                                            for b, rows in groups.items()]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_allclose(a, b, rtol=0, atol=1 if pcm16 else 1e-6)
+
+
+@pytest.mark.parametrize("lengths, trim, counted", [
+    ((7,), True, (1, 1)),                          # one row: one group, one chunk
+    ((2, 9, 16, 3, 12), True, (3, 1)),             # one chunk split in three buckets
+    (SPLIT_LENGTHS, True, (3, 2)),                 # three buckets over two chunks
+    (SPLIT_LENGTHS, False, (2, 2)),                # untrimmed: each chunk whole
+])
+def test_vocoder_groups_counts_calls_and_chunks(engine, rec, lengths, trim, counted):
+    """One "vocoder.groups" counter per engine call: the vocoder calls it
+    made and the ladder chunks its fronts ran in."""
+    engine.synthesize_async(*_rows(np.random.default_rng(18), lengths), trim=trim)()
+    (groups,) = _named(rec, "vocoder.groups")
+    assert (groups.a, groups.b) == counted
+    assert groups.a == len(_named(rec, "vocoder.frames"))
+
+
+def test_vocoder_rows_are_selected_on_the_issuing_thread(engine, monkeypatch):
+    """fetch() selects the vocoder's rows (here runs from two chunks and
+    from the middle of one) inside the issued vocode, on the issuing thread,
+    with no index tensor copied from the host; a group of one chunk's first
+    rows is a view of its mel."""
+    from zerovox_tpu_torch.runtime import engine as engine_module
+    issuing, selecting, copying = set(), set(), []
+    issue = engine_module.on_issuing_thread
+
+    def spied(device, fn, *a, **kw):
+        def run(*x, **y):
+            issuing.add(threading.get_ident())
+            return fn(*x, **y)
+        return issue(device, run, *a, **kw)
+
+    mel_rows = TTSEngine._mel_rows
+    monkeypatch.setattr(engine_module, "on_issuing_thread", spied)
+    monkeypatch.setattr(TTSEngine, "_mel_rows", lambda self, *a: (
+        selecting.add(threading.get_ident()), mel_rows(self, *a))[1])
+    fetch = engine.synthesize_async(*_rows(np.random.default_rng(19), SPLIT_LENGTHS))
+    as_tensor = torch.as_tensor
+    monkeypatch.setattr(torch, "as_tensor", lambda *a, **kw: (
+        "device" in kw and copying.append(threading.get_ident()), as_tensor(*a, **kw))[1])
+    issuing.clear()
+    _, lens = fetch()
+    assert engine.group_by_bucket(lens) == SPLIT_GROUPS
+    assert selecting and selecting <= issuing and threading.get_ident() not in issuing
+    assert set(copying) <= issuing
+    mel = torch.zeros((8, CFG.max_seq_len, CFG.num_mels))
+    assert mel_rows(engine, (mel,), [0, 1, 2])._base is mel
+    np.testing.assert_array_equal(mel_rows(engine, (mel, mel + 1), [1, 9, 2]).numpy(),
+                                  np.stack([mel[1].numpy(), mel[1].numpy() + 1, mel[2].numpy()]))
 
 
 def _vocoder_rows(monkeypatch):
@@ -264,21 +352,23 @@ def _vocoder_rows(monkeypatch):
 
 def test_async_vocodes_the_real_rows(engine, rec, monkeypatch):
     """A chunk of 3 requests runs its front at the ladder's 4 rows and its
-    vocoder at its 3 real rows ("vocoder.frames" b == 3 x bucket, the
-    vocoder's input 3 rows); the answers equal synthesize()'s (f32 within
-    1e-6: the same per-row arithmetic); warmup() ran that shape."""
+    vocoder at each bucket's real rows, 2 at 32 and 1 at 16
+    ("vocoder.frames" b == rows x bucket, the vocoder's inputs); the answers
+    equal each row's vocoded alone (f32 within 1e-6: the same per-row
+    arithmetic); warmup() ran those shapes."""
     shapes = _vocoder_rows(monkeypatch)
     engine.warmup(batch=engine.batch_ladder[-1])
     warmed = set(shapes)
     src, pun, sty, n = _rows(np.random.default_rng(15), (5, 3, 9))
-    want, want_len = engine.synthesize(src, pun, sty, n)
+    want = _alone(engine, src, pun, sty, n)
     del shapes[:]
     got, got_len = engine.synthesize_async(src, pun, sty, n)()
-    (frames,) = _named(rec, "vocoder.frames")[-1:]
-    bucket = engine.pick_bucket(int(got_len.max()))
-    assert shapes == [(3, bucket, CFG.num_mels)] and set(shapes) <= warmed
-    assert (frames.a, frames.b) == (int(got_len.sum()), 3 * bucket)
-    np.testing.assert_array_equal(got_len, want_len)
+    frames = _named(rec, "vocoder.frames")[-2:]
+    groups = engine.group_by_bucket(got_len)
+    assert groups == {32: [0, 2], 16: [1]}
+    assert shapes == [(2, 32, CFG.num_mels), (1, 16, CFG.num_mels)] and set(shapes) <= warmed
+    assert [(f.a, f.b) for f in frames] == [(int(got_len[r].sum()), len(r) * b)
+                                            for b, r in groups.items()]
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
 
@@ -293,16 +383,39 @@ def test_warmup_runs_every_vocoder_row_count(engine, monkeypatch):
                                     for b in engine.mel_buckets)
 
 
-@pytest.mark.parametrize("path", ["synthesize", "synthesize_packed"])
+def test_warmup_covers_every_bucket_grouping(engine, monkeypatch):
+    """Every vocoder shape that the bucket grouping of a call of up to the
+    ladder top's rows can make, over every mix of the rows' buckets, is one
+    warmup() ran, and warmup() runs no other: the groups add no shape and
+    no set-up."""
+    from zerovox_tpu_torch.models import hifigan
+    shapes = []
+    monkeypatch.setattr(hifigan, "vocode", lambda p, c, mel, *a, **kw: (
+        shapes.append(tuple(mel.shape)), torch.zeros(mel.shape[0], mel.shape[1] * c.hop_size))[1])
+    engine.warmup(batch=engine.batch_ladder[-1])
+    warmed = set(shapes)
+    del shapes[:]
+    top = engine.batch_ladder[-1]
+    for k in range(1, top + 1):
+        for buckets in itertools.combinations_with_replacement(engine.mel_buckets, k):
+            mel = torch.zeros((engine.ladder_size(k), CFG.max_seq_len, CFG.num_mels))
+            lens = torch.tensor([b - engine.margin for b in buckets])
+            _, got = engine._collect(engine._models, [(mel, (lens, None), k)], True, False)
+            assert [engine.pick_bucket(x) for x in got] == list(buckets)
+    assert set(shapes) == warmed
+
+
+@pytest.mark.parametrize("path", ["synthesize", "synthesize_packed", "synthesize_async"])
 def test_every_path_vocodes_the_real_rows(engine, rec, monkeypatch, path):
-    """synthesize and synthesize_packed vocode a chunk's real rows too (5
-    requests: fronts at the ladder's 8, vocoders at 5, or per bucket group
-    at its own count), as "vocoder.frames" counts them."""
+    """Every batched path vocodes each bucket group's real rows (5 requests:
+    fronts at the ladder's 8, vocoders per bucket group at its own count),
+    as "vocoder.frames" counts them."""
     shapes = _vocoder_rows(monkeypatch)
     src, pun, sty, n = _rows(np.random.default_rng(16), (5, 3, 9, 4, 12))
-    _, lens = getattr(engine, path)(src, pun, sty, n)
-    groups = ({engine.pick_bucket(int(lens.max())): 5} if path == "synthesize" else
-              {b: len(ix) for b, ix in engine.group_by_bucket(lens).items()})
+    call = getattr(engine, path)(src, pun, sty, n)
+    _, lens = call() if path == "synthesize_async" else call
+    groups = {b: len(ix) for b, ix in engine.group_by_bucket(lens).items()}
+    assert groups == {32: 3, 16: 2}
     assert sorted(s[:2] for s in shapes) == sorted((r, b) for b, r in groups.items())
     frames = _named(rec, "vocoder.frames")[-len(groups):]
     assert sorted(f.b for f in frames) == sorted(b * r for b, r in groups.items())
@@ -324,8 +437,9 @@ def test_async_untrimmed_vocodes_at_the_largest_bucket(engine, rec):
 
 def test_batcher_vocodes_on_the_completion_pool(engine, rec):
     """Through the batcher the dispatch issues fronts only: every
-    "issue.vocode" is caused by a "batcher.fetch", none by a dispatch, and
-    the dispatcher thread records no "engine.sync"."""
+    "issue.vocode" runs in an "issue.collect" caused by a "batcher.fetch",
+    none by a dispatch, and the dispatcher thread records no
+    "engine.sync"."""
     b = DynamicBatcher(engine, window_ms=1.0)
     try:
         rng = np.random.default_rng(14)
@@ -334,8 +448,10 @@ def test_batcher_vocodes_on_the_completion_pool(engine, rec):
         b.stop()
     dispatches = _named(rec, "batcher.dispatch")
     fetches = {f.id for f in _named(rec, "batcher.fetch")}
+    collects = {c.id: c for c in _named(rec, "issue.collect")}
     vocodes = _named(rec, "issue.vocode")
-    assert dispatches and vocodes and {v.cause for v in vocodes} <= fetches
+    assert dispatches and vocodes and {v.cause for v in vocodes} <= set(collects)
+    assert {c.cause for c in collects.values()} <= fetches
     dispatcher = {d.thread for d in dispatches}
     assert not [s for s in _named(rec, "engine.sync") if s.thread in dispatcher]
 

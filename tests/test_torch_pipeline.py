@@ -180,9 +180,9 @@ def test_reload_params(rng, model):
 def test_synthesize_is_synthesize_async_fetched(rng, model, precision):
     """synthesize_async launches the fronts and fetch() vocodes and collects;
     synthesize is that path: the same mel_len and waveforms bit for bit, for
-    a batch larger than the ladder top too (each ladder chunk vocoded at the
-    bucket of its own longest row), and in float32 the JAX engine's
-    synthesize_async answers."""
+    a batch larger than the ladder top too (each row vocoded at its own
+    bucket, with the rows of that bucket from every ladder chunk), and in
+    float32 the JAX engine's synthesize_async answers."""
     pj, pt = model
     te = TTSEngine(pt, TINY_CONFIG, mel_buckets=(24, 40), batch_ladder=(1, 2),
                    precision=precision, device="cpu")

@@ -229,13 +229,16 @@ def test_request_ids_cross_the_batcher(rec, params):
     for f in e["batcher.fetch"]:
         assert f.cause in dispatches and f.rid == dispatches[f.cause].rid
     fetches = {f.id: f for f in e["batcher.fetch"]}
-    for c in e["vocoder.frames"]:
-        if c.cause in fetches:                 # counted in fetch(), for the dispatch's requests
-            bucket = engine.pick_bucket(max(lens[r] for r in c.rid))
-            assert c.rid == fetches[c.cause].rid and c.a == sum(lens[r] for r in c.rid)
-            assert c.b == engine.ladder_size(len(c.rid)) * bucket
-    # the fronts are issued by the dispatch, the vocoders by the fetch that read mel_len
-    for name, causes in (("issue.front", dispatches), ("issue.vocode", fetches)):
+    for f in fetches.values():               # counted in fetch(), for the dispatch's requests:
+        counted = [c for c in e["vocoder.frames"] if c.cause == f.id]   # each row at its bucket
+        assert counted and all(c.rid == f.rid for c in counted)
+        assert sum(c.a for c in counted) == sum(lens[r] for r in f.rid)
+        assert sum(c.b for c in counted) == sum(engine.pick_bucket(lens[r]) for r in f.rid)
+    # the fronts are issued by the dispatch, the vocoders in one "issue.collect"
+    # run by the fetch that read mel_len
+    collects = {c.id: c for c in e["issue.collect"]}
+    for name, causes in (("issue.front", dispatches), ("issue.collect", fetches),
+                         ("issue.vocode", collects)):
         issued = [x for x in e[name] if x.rid is not None]          # not the warm-up's
         assert issued and {x.cause for x in issued} <= set(causes)
         assert all(x.rid == causes[x.cause].rid for x in issued)
@@ -312,8 +315,9 @@ def test_daemon_span_trees(daemon):
     status, _, req = _post(s, rec, "/synthesize", _body(1, 9))
     assert status == 200
     assert _tree(rec, req) == {"daemon.request", "daemon.read", "batcher.queue", "batcher.dispatch",
-                     "issue.wait", "issue.front", "issue.vocode", "batcher.fetch",
-                     "engine.sync", "vocoder.frames", "daemon.encode", "daemon.write"}
+                     "issue.wait", "issue.front", "issue.collect", "issue.vocode",
+                     "batcher.fetch", "engine.sync", "vocoder.frames", "vocoder.groups",
+                     "daemon.encode", "daemon.write"}
     deadline = time.monotonic() + TIMEOUT
     while True:                      # /metrics records the request right after its span
         ep = json.loads(_request(s, "GET", "/metrics")[1])["endpoints"]["/synthesize"]
@@ -327,11 +331,12 @@ def test_daemon_span_trees(daemon):
     assert status == 200
     names = _tree(rec, req)
     assert names == {"daemon.request", "daemon.read", "issue.wait", "issue.front",
-                     "engine.sync", "issue.vocode", "vocoder.frames", "daemon.encode",
-                     "daemon.write"}
+                     "engine.sync", "issue.collect", "issue.vocode", "vocoder.frames",
+                     "vocoder.groups", "daemon.encode", "daemon.write"}
     mine = [e for e in rec.entries() if e.rid == req.rid]
     handler = {e.name for e in mine if e.thread == req.thread}
-    assert handler == names - {"issue.front", "issue.vocode"}      # the rest on the issuing thread
+    # the rest on the issuing thread
+    assert handler == names - {"issue.front", "issue.collect", "issue.vocode"}
     assert all(req.start <= e.start <= e.end <= req.end for e in mine)
     mel_len = json.loads(answer)["mel_len"]
     frames = [e for e in mine if e.name == "vocoder.frames"]

@@ -14,8 +14,8 @@ fifth less and a quarter more, with the host's pace.
 `DynamicBatcher` is continuous batching with a fill window: a request
 enqueues and blocks; a dispatcher thread pops compatible requests (up to
 the engine's ladder top) and makes ONE `synthesize_async` dispatch: its
-front ladder-padded, its vocoder at the dispatch's real rows, so its shapes
-stay those warmup() ran.  A lone
+front ladder-padded, its vocoder one call per bucket its rows reach, each
+at that bucket's real rows, so its shapes stay those warmup() ran.  A lone
 request on an idle daemon dispatches at once (no added wait); coalescing
 comes from requests that arrive while a dispatch is being issued, plus up to
 `window_ms` of extra fill time that only applies when the engine was
@@ -31,10 +31,10 @@ dispatcher blocks, the queue fills, and the next batch forms larger.
 
 The dispatcher thread issues only the fronts and never waits for the
 card: the fetch() on the completion pool waits for the dispatch's mel
-lengths, then issues its vocoder at the bucket of its longest request (as
+lengths, then issues its vocoder calls, each request at its own bucket (as
 `synthesize` does), so a request through the batcher pays for the padding
-up to its dispatch's longest row, not up to max_seq_len; measured times
-are in PERF.md.  "Idle" above means that the dispatcher found its
+up to its own bucket, not up to its dispatch's longest row nor up to
+max_seq_len; measured times are in PERF.md.  "Idle" above means that the dispatcher found its
 queue empty and slept: on the CPU, where a dispatch computes before it
 returns, an answer can reach its client before the dispatcher is back at
 its queue, and a client that asks again at once then waits out the window.

@@ -10,11 +10,13 @@ trimmed audio equals the full-length run's.
 Batches are split at the top of the batch ladder, as in the JAX package,
 so that the ladder top bounds the memory of one dispatch.  The front runs
 each chunk padded (first row repeated) to the smallest ladder size that
-holds it; the vocoder runs the chunk's real rows (with a mesh, rounded up to
-a whole row per data device), since a padded row costs it as much as a real
-one.  So the shapes a serving process runs are the fronts at
-len(batch_ladder) sizes and the vocoder at every row count up to the ladder
-top, each at every mel bucket; warmup() runs each once.
+holds it.  The vocoder runs each row at its own bucket: a call's rows are
+grouped by bucket across its chunks, and each group is vocoded at its real
+rows (with a mesh, rounded up to a whole row per data device) in ladder-top
+chunks, since a padded row or frame costs it as much as a real one.  So the
+shapes a serving process runs are the fronts at len(batch_ladder) sizes and
+the vocoder at every row count up to the ladder top, each at every mel
+bucket; warmup() runs each once.
 
 Multi-device serving: pass `mesh=` (a pure-DP parallel.Mesh, model axis 1)
 and every front and vocoder call is split over the mesh's data devices,
@@ -26,15 +28,16 @@ every call splits evenly.  Tensor-parallel serving is
 runtime.tp_engine.TPServingEngine.
 
 The engine records (utils.profiling) its launches on the issuing thread
-("issue.front", "issue.vocode"), the calling thread's waits for the card
-("engine.sync") and, for each vocoder call, a "vocoder.frames" counter: the
-frames its real rows need and the frames it vocodes.
+("issue.front"; "issue.vocode" inside "issue.collect"), the calling
+thread's waits for the card ("engine.sync"), for each vocoder call a
+"vocoder.frames" counter (the frames its real rows need and the frames it
+vocodes) and for each engine call a "vocoder.groups" counter (the vocoder
+calls it made and the ladder chunks its fronts ran in).
 """
 
 from __future__ import annotations
 
-import itertools
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +76,20 @@ def _count_frames(mel_len: np.ndarray, rows: int, bucket: int):
     rows need (their mel lengths) and the frames it vocodes (every row it
     runs, a mesh's padding row included, at the bucket's length)."""
     profiling.count("vocoder.frames", int(np.sum(mel_len)), rows * bucket)
+
+
+class _Rows(NamedTuple):
+    """Rows `rows` of a call's issued mels (`mels`, one tensor per ladder
+    chunk), cut to `bucket` frames: what one vocoder call runs on."""
+    mels: Tuple[torch.Tensor, ...]
+    rows: List[int]
+    bucket: int
+
+    def split(self, n: int) -> List["_Rows"]:
+        """These rows in n even slices (_vocode_rows makes them a whole
+        number per data device)."""
+        k = len(self.rows) // n
+        return [self._replace(rows=self.rows[i * k:(i + 1) * k]) for i in range(n)]
 
 
 class TTSEngine:
@@ -187,16 +204,21 @@ class TTSEngine:
         """issue(*args, model, **kw) on the issuing thread of each model's
         device (device.on_issuing_thread; recorded as the span `span`),
         whatever thread calls: on the whole batch with one device, else on
-        each data device's slice of the rows (args), the outputs gathered on
-        the engine's device.  No host sync."""
+        each data device's slice of the rows, the outputs gathered on the
+        engine's device.  A tensor of args is split on the calling thread
+        and copied to each device; a _Rows is split by its rows, and issue
+        selects them on its own thread.  No host sync."""
         if len(models) == 1:
             return on_issuing_thread(models[0].device, issue, *args, models[0], span=span, **kw)
-        parts = [a.tensor_split(len(models)) for a in args]
-        futures = [submit_on_issuing_thread(m.device, issue,
-                                            *(p[i].to(m.device) for p in parts), m, span=span,
-                                            **kw)
-                   for i, m in enumerate(models)]
-        outs = [f.result() for f in futures]
+        parts = [a.split(len(models)) if isinstance(a, _Rows)
+                 else [p.to(m.device) for p, m in zip(a.tensor_split(len(models)), models)]
+                 for a in args]
+        # the first device's slice last: from its issuing thread (_collect)
+        # that slice runs inline, so the other devices' are queued before it
+        futures = {i: submit_on_issuing_thread(m.device, issue, *(p[i] for p in parts), m,
+                                               span=span, **kw)
+                   for i, m in reversed(list(enumerate(models)))}
+        outs = [futures[i].result() for i in range(len(models))]
         if isinstance(outs[0], tuple):
             return tuple(torch.cat([o[j].to(self.device) for o in outs])
                          for j in range(len(outs[0])))
@@ -215,19 +237,20 @@ class TTSEngine:
                                 style_embed.to(compute_dtype(self.cfg)), num_phonemes)
         return mel, mel_len
 
-    def _vocode(self, mel_b: torch.Tensor, pcm16: bool,
+    def _vocode(self, sel: _Rows, pcm16: bool,
                 models: Optional[Tuple[LoadedModel, ...]] = None) -> torch.Tensor:
-        """Vocoder on a bucket-length mel, left on the device: int16 with
+        """Vocoder on the rows `sel` names, left on the device: int16 with
         pcm16 (quantised there, so the host fetch moves half the bytes),
         else float32 (a bf16 waveform is widened for the caller).  Issued as
-        _front."""
-        return self._split("issue.vocode", self._issue_vocode, models or self._models, mel_b,
+        _front, the rows' selection with it on the issuing thread."""
+        return self._split("issue.vocode", self._issue_vocode, models or self._models, sel,
                            pcm16=(pcm16,))
 
     @torch.inference_mode()
-    def _issue_vocode(self, mel_b: torch.Tensor, model: LoadedModel, pcm16=(False,)):
+    def _issue_vocode(self, sel: _Rows, model: LoadedModel, pcm16=(False,)):
         """One vocode, returned once per entry of pcm16 (warmup asks for
         both forms)."""
+        mel_b = self._mel_rows(sel.mels, sel.rows)[:, :sel.bucket].to(model.device)
         wav = hifigan.vocode(model.params, self.cfg, mel_b, model.packed)
         outs = tuple(float_to_pcm16_device(wav) if p else wav.to(torch.float32) for p in pcm16)
         return outs if len(outs) > 1 else outs[0]
@@ -296,7 +319,8 @@ class TTSEngine:
             for b in self.mel_buckets:
                 for r in rows:
                     self._split("issue.vocode", self._issue_vocode, self._models,
-                                mel[:r, :b], pcm16=(False, True) if pcm16 else (False,))
+                                _Rows((mel,), list(range(r)), b),
+                                pcm16=(False, True) if pcm16 else (False,))
         for dev in dict.fromkeys(self._devices):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -318,26 +342,25 @@ class TTSEngine:
         """Launch synthesis without waiting for the device; returns a
         fetch() closure that finishes it.
 
-        The fronts are launched with no host sync; fetch() vocodes each
-        ladder chunk's real rows whole, at the bucket of its longest row
-        (trim=False: at the largest bucket), and waits for the waveforms.  A
-        DynamicBatcher dispatch is one chunk, so it is one vocoder call (what
-        the serve cells measure).  The calling thread never waits for the
-        device, so a caller can launch batch k+1 while batch k is still
-        computing or being fetched on another thread."""
+        The fronts are launched with no host sync; fetch() vocodes the rows
+        of each bucket together across the call's ladder chunks, each group
+        at its bucket (trim=False: every row at the largest bucket), so that
+        short utterances do not pay for the longest one's frames, and waits
+        for the waveforms.  A DynamicBatcher dispatch is one such call: one
+        vocoder call per bucket its rows reach.  The calling thread never
+        waits for the device, so a caller can launch batch k+1 while batch k
+        is still computing or being fetched on another thread."""
         issued = self._issue_fronts(src_seq, puncts, style_embed, num_phonemes)
-        return lambda: self._collect(*issued, self._by_chunk, trim, pcm16)
+        return lambda: self._collect(*issued, trim, pcm16)
 
     def synthesize_packed(self, src_seq, puncts, style_embed,
                           num_phonemes=None, trim: bool = True,
                           pcm16: bool = False
                           ) -> Tuple[List[np.ndarray], np.ndarray]:
-        """Bucket-packed batched synthesis (/batch, long-form): the rows of
-        each bucket vocoded together across the batch's ladder chunks, so
-        that short utterances in a mixed batch do not pay for the longest
-        one's frames.  Outputs match synthesize()."""
-        issued = self._issue_fronts(src_seq, puncts, style_embed, num_phonemes)
-        return self._collect(*issued, lambda m: self.group_by_bucket(m).values(), trim, pcm16)
+        """Bucket-packed batched synthesis (/batch, long-form): synthesize()
+        under the name the JAX engine gives it."""
+        return self.synthesize(src_seq, puncts, style_embed, num_phonemes=num_phonemes,
+                               trim=trim, pcm16=pcm16)
 
     # -------------------------------------------------------------- helpers
     def _inputs(self, src_seq, puncts, style_embed, num_phonemes):
@@ -366,40 +389,49 @@ class TTSEngine:
             fronts.append((mel, to_host_async(mel_len), n))
         return models, fronts
 
-    def _collect(self, models, fronts, grouping, trim: bool, pcm16: bool
+    def _collect(self, models, fronts, trim: bool, pcm16: bool
                  ) -> Tuple[List[np.ndarray], np.ndarray]:
         """Finish a call whose fronts were issued: wait for mel_len; vocode
-        each group of rows that grouping(mel_len) makes (trim=False: each
-        chunk) at the bucket of its longest row (trim=False: the largest,
-        for the full padded buffer it promises), in ladder-top chunks of its
-        real rows (_vocode_rows), each waveform's copy into pinned host
-        memory started behind it; then wait for the copies and trim."""
+        each bucket's rows (group_by_bucket; trim=False: all rows at the
+        largest bucket, for the full padded buffer it promises) at that
+        bucket, in ladder-top chunks of their real rows (_vocode_rows), each
+        waveform's copy into pinned host memory started behind it, all in
+        one run of the issuing thread (span "issue.collect"), so that no
+        other call's front is issued between them; then wait for the copies
+        and trim."""
         mel_len = np.concatenate([_wait_host(len_p)[:n] for _, len_p, n in fronts])
-        pending = []
-        for rows in grouping(mel_len) if trim else self._by_chunk(mel_len):
-            bucket = self.pick_bucket(int(mel_len[rows].max())) if trim else self.mel_buckets[-1]
-            for padded, n in self._ladder_chunks(rows, self._vocode_rows):
-                wav = self._vocode(self._mel_rows(fronts, padded)[:, :bucket], pcm16, models)
-                _count_frames(mel_len[padded[:n]], len(padded), bucket)
-                pending.append((padded[:n], to_host_async(wav)))
+        groups = (self.group_by_bucket(mel_len) if trim
+                  else {self.mel_buckets[-1]: list(range(len(mel_len)))})
+        mels = tuple(mel for mel, _, _ in fronts)
+        calls = [(_Rows(mels, padded, bucket), padded[:n]) for bucket, rows in groups.items()
+                 for padded, n in self._ladder_chunks(rows, self._vocode_rows)]
+        copies = on_issuing_thread(
+            models[0].device, lambda: [to_host_async(self._vocode(sel, pcm16, models))
+                                       for sel, _ in calls], span="issue.collect")
+        for sel, rows in calls:
+            _count_frames(mel_len[rows], len(sel.rows), sel.bucket)
+        profiling.count("vocoder.groups", len(calls), len(fronts))
         wavs: List[Optional[np.ndarray]] = [None] * len(mel_len)
-        for rows, wav_p in pending:
+        for (_, rows), wav_p in zip(calls, copies):
             for i, w in zip(rows, self._trim(_wait_host(wav_p)[:len(rows)], mel_len[rows], trim)):
                 wavs[i] = w
         return wavs, mel_len
 
-    def _by_chunk(self, mel_len: np.ndarray) -> List[List[int]]:
-        """synthesize_async's groups: the rows of each ladder chunk."""
-        return [padded[:n] for padded, n in self._ladder_chunks(range(len(mel_len)))]
-
-    def _mel_rows(self, fronts, rows: Sequence[int]) -> torch.Tensor:
+    def _mel_rows(self, mels: Sequence[torch.Tensor], rows: Sequence[int]) -> torch.Tensor:
         """The issued mels at rows `rows` of the call, whose ladder chunk c
-        holds rows c * top onward (_ladder_chunks): a view where they are
-        one chunk's first rows."""
+        holds rows c * top onward (_ladder_chunks): one view per run of
+        consecutive rows of one chunk, concatenated where there are several,
+        so a selection copies nothing from the host; one run stays a view."""
         top = self.batch_ladder[-1]
-        mels = [self._take(fronts[c][0], [r - c * top for r in rs])
-                for c, rs in itertools.groupby(rows, key=lambda r: r // top)]
-        return mels[0] if len(mels) == 1 else torch.cat(mels)
+        runs: List[List[int]] = []            # [chunk, first row, end]
+        for r in rows:
+            c, i = divmod(r, top)
+            if runs and runs[-1][0] == c and runs[-1][2] == i:
+                runs[-1][2] += 1
+            else:
+                runs.append([c, i, i + 1])
+        views = [mels[c][i:j] for c, i, j in runs]
+        return views[0] if len(views) == 1 else torch.cat(views)
 
     def _trim(self, wav_h: np.ndarray, mel_len_h: np.ndarray, trim: bool
               ) -> List[np.ndarray]:
